@@ -1,0 +1,138 @@
+"""Build and bind the port's CUDA kernels.
+
+Each source in csrc/ has a plain C interface and no PyTorch headers, so it
+compiles with `nvcc` alone in seconds. At first use every missing library is
+compiled for sm_90a — one `nvcc` per source, all started together — into
+build/torch_ext/ at the repository root, named by the hash of its source and
+flags, and loaded with ctypes. Nothing prebuilt is committed. A failed build
+raises; there is no fallback.
+
+LAUNCHES counts, per kernel, the launches its wrapper made; a run reads it to
+show which kernels the main path went through.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("pyrup", "conv3x3_cout1", "warp_affine")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+LAUNCHES = {name: 0 for name in KERNELS}
+BUILD_LOG = {}      # kernel name -> nvcc output (ptxas register/smem report)
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+
+
+def _nvcc() -> str:
+    candidates = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    if os.environ.get("CUDA_HOME"):
+        candidates.insert(0, str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    for c in candidates:
+        if c and Path(c).exists():
+            return c
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built from "
+                       "source at first use")
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha1()
+    for part in (src.read_bytes(), (CSRC / "common.cuh").read_bytes(),
+                 " ".join(NVCC_FLAGS).encode()):
+        h.update(part)
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=KERNELS) -> float:
+    """Compile (in parallel) and load every named kernel not loaded yet;
+    returns the seconds spent."""
+    t0 = time.perf_counter()
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        if not todo:
+            return 0.0
+        out = build_dir()
+        out.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        try:
+            for n in todo:
+                lib = _lib_path(n)
+                if lib.exists():
+                    continue
+                tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+                procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True),
+                            tmp, lib)
+            for n, (p, tmp, lib) in procs.items():
+                log, _ = p.communicate()
+                BUILD_LOG[n] = log
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {n}.cu:\n{log}")
+                os.replace(tmp, lib)
+        finally:
+            for p, tmp, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                if tmp.exists():
+                    tmp.unlink()
+        for n in todo:
+            _libs[n] = ctypes.CDLL(str(_lib_path(n)))
+    return time.perf_counter() - t0
+
+
+def library(name: str):
+    """The loaded ctypes library of one kernel (built at first use)."""
+    if name not in _libs:
+        build((name,))
+    return _libs[name]
+
+
+def check_cuda_tensor(t: torch.Tensor, what: str, ndim: int):
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what}: expected float32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def launch(name: str, fn_name: str, argtypes, *args, device: torch.device):
+    """Call one C entry point on the current stream of `device`; raise on a
+    refused launch, count it otherwise."""
+    lib = library(name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.frtm_error_string.argtypes = [ctypes.c_int]
+        lib.frtm_error_string.restype = ctypes.c_char_p
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, index, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.frtm_error_string(rc).decode()}")
+    LAUNCHES[name] += 1
