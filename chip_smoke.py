@@ -114,7 +114,7 @@ def cuda_ms(fn):
 def warp_source_pixels(M, src_hw, size, mode):
     """Source pixels a warp must read: the in-range taps of every output
     pixel (1, 4 or 16 per pixel), counted once each. The map is the kernel's
-    own (the inverse of M in float64, then float32 as the kernel takes it)."""
+    own (the float32 inverse_coefficients of M, evaluated in float64)."""
     from frtm_tpu_torch.ops.warp import inverse_coefficients
     h = torch.tensor(inverse_coefficients(M), dtype=torch.float32, device="cuda").double()
     yo, xo = torch.meshgrid(torch.arange(size[0], device="cuda", dtype=torch.float64),
@@ -135,6 +135,19 @@ def warp_source_pixels(M, src_hw, size, mode):
             ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
             read[(y * W + x)[ok]] = True
     return int(read.sum())
+
+
+def inverse_grid(M, size, src_hw):
+    """F.grid_sample's grid (align_corners=True) for the warp by the forward
+    matrix M: the kernel's own inverse map over the output size, in the
+    source's normalised coordinates."""
+    from frtm_tpu_torch.ops.warp import inverse_coefficients
+    h = [float(v) for v in inverse_coefficients(M)]
+    yo, xo = torch.meshgrid(torch.arange(float(size[0]), device="cuda"),
+                            torch.arange(float(size[1]), device="cuda"), indexing="ij")
+    w = h[6] * xo + h[7] * yo + h[8]
+    return torch.stack([(h[0] * xo + h[1] * yo + h[2]) / w / (src_hw[1] - 1) * 2 - 1,
+                        (h[3] * xo + h[4] * yo + h[5]) / w / (src_hw[0] - 1) * 2 - 1], -1)[None]
 
 
 def bound_ms(nbytes, flops):
@@ -170,8 +183,11 @@ def phase_build():
     seconds = kbuild.build()
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in kbuild.BUILD_LOG.items()}
+    spill_free = {n: all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                         for ln in lines if "spill" in ln)
+                  for n, lines in ptxas.items()}
     emit({"phase": "build", "seconds": seconds, "kernels": list(kbuild.KERNELS),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "spill_free": spill_free})
 
 
 def _compare(name, shape, kernel_fn, plain_fn, library_fn, nbytes, flops, tol):
@@ -185,10 +201,11 @@ def _compare(name, shape, kernel_fn, plain_fn, library_fn, nbytes, flops, tol):
         fail(f"{name} {shape}: max abs difference {err} over tolerance {tol}")
     b, by = bound_ms(nbytes, flops)
     ms, method = cuda_ms(kernel_fn)
+    library_ms = None if library_fn is None else cuda_ms(library_fn)[0]
     return {"shape": shape, "max_abs_err": err, "tolerance": tol,
-            "ms": ms, "plain_ms": cuda_ms(plain_fn)[0],
-            "library_ms": None if library_fn is None else cuda_ms(library_fn)[0],
-            "ms_method": method, "event_ms": event_ms(kernel_fn),
+            "ms": ms, "plain_ms": cuda_ms(plain_fn)[0], "library_ms": library_ms,
+            "library_ratio": None if library_ms is None else ms / library_ms,
+            "bound_share": b / ms, "ms_method": method, "event_ms": event_ms(kernel_fn),
             "bound_ms": b, "bound_by": by}
 
 
@@ -203,9 +220,10 @@ def phase_kernels():
     g = torch.Generator(device="cpu").manual_seed(0)
     rows = {}
 
-    # kernel 1: the decoder's two pyrup stages (exact: same op order)
+    # kernel 1: the decoder's two pyrup stages (exact: same op order), at
+    # N=1 and at N=8, the fused tracker's decode window
     stages = []
-    for shape in [(1, 32, 120, 214), (1, 16, 240, 428)]:
+    for shape in [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214), (8, 16, 240, 428)]:
         x = torch.randn(shape, generator=g).cuda()
         n_out = 4 * x.numel()
         stages.append(_compare(
@@ -216,16 +234,20 @@ def phase_kernels():
             nbytes=4 * (x.numel() + n_out), flops=35 * n_out, tol=0.0))
     rows["pyrup"] = stages
 
-    # kernel 2: the head conv, (1, 16, 480, 854) -> 1, with bias
-    x = torch.relu(torch.randn(1, 16, 480, 854, generator=g)).cuda()
+    # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1 and 8
     w = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
     b = (torch.rand(1, generator=g) * 0.2 - 0.1).cuda()
-    rows["conv3x3_cout1"] = [_compare(
-        "conv3x3_cout1", [1, 16, 480, 854], lambda: conv3x3_cout1(x, w, b),
-        lambda: conv3x3_cout1_plain(x, w, b),
-        lambda: F.conv2d(x, w, b, padding=1),
-        nbytes=4 * (x.numel() + 480 * 854 + w.numel() + 1),
-        flops=2 * 9 * 16 * 480 * 854, tol=5e-5)]
+    convs = []
+    for n in (1, 8):
+        x = torch.relu(torch.randn(n, 16, 480, 854, generator=g)).cuda()
+        convs.append(_compare(
+            "conv3x3_cout1", [n, 16, 480, 854], lambda x=x: conv3x3_cout1(x, w, b),
+            lambda x=x: conv3x3_cout1_plain(x, w, b),
+            lambda x=x: F.conv2d(x, w, b, padding=1),
+            nbytes=4 * (x.numel() + n * 480 * 854 + w.numel() + 1),
+            flops=2 * 9 * x.numel(), tol=5e-5))
+        del x
+    rows["conv3x3_cout1"] = convs
 
     # kernel 3: a full-frame background warp (bicubic, 3 planes), a
     # foreground RGBA sub-box (bicubic) and its label (nearest, float32 0/1
@@ -236,12 +258,6 @@ def phase_kernels():
     rgba = (torch.rand(4, 480, 854, generator=g) * 255).cuda()
     lbl = (torch.rand(1, 480, 854, generator=g) > 0.5).float().cuda()
     Ts = np.array([[1, 0, -300.0], [0, 1, -150.0], [0, 0, 1]]) @ T
-    hinv = inverse_coefficients(T)
-    yo, xo = torch.meshgrid(torch.arange(480.0, device="cuda"),
-                            torch.arange(854.0, device="cuda"), indexing="ij")
-    h = [float(v) for v in hinv]
-    grid = torch.stack([(h[0] * xo + h[1] * yo + h[2]) / 853 * 2 - 1,
-                        (h[3] * xo + h[4] * yo + h[5]) / 479 * 2 - 1], -1)[None]
     warps = []
     for label, src, M, size, mode in [
             ("background", img, T, (480, 854), "bicubic"),
@@ -250,10 +266,11 @@ def phase_kernels():
         n_out = src.shape[0] * size[0] * size[1]
         n_read = src.shape[0] * warp_source_pixels(M, src.shape[1:], size, mode)
         taps = {"nearest": 1, "bilinear": 4, "bicubic": 16}[mode]
-        lib = None
-        if label == "background":
-            lib = lambda: F.grid_sample(img[None], grid, mode="bicubic",
-                                        padding_mode="zeros", align_corners=True)
+        # the library call: grid_sample on the kernel's own map (its nearest
+        # rounds halves to even where the kernel takes floor(x + 0.5))
+        grid = inverse_grid(M, size, src.shape[1:])
+        lib = lambda src=src, grid=grid, mode=mode: F.grid_sample(
+            src[None], grid, mode=mode, padding_mode="zeros", align_corners=True)
         row = _compare(
             "warp_affine", [src.shape[0], 480, 854, mode, list(size)],
             lambda src=src, M=M, size=size, mode=mode: warp_affine(src, M, size, mode),

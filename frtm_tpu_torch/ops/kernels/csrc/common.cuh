@@ -10,3 +10,27 @@
 FRTM_EXPORT const char* frtm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// Asynchronous global -> shared copies of 4 or 8 bytes (sm_80+); with
+// src_bytes = 0 nothing is read and `dst` is zero-filled.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, int src_bytes = 8) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `Pending` committed groups are still in flight.
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
+}

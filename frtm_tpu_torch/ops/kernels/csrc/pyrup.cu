@@ -11,81 +11,170 @@
 //   frtm_tpu/models/seg_network.py::pyr_up_bicubic and the port's plain
 //   version, so on the card the two agree bit for bit.
 //
-// Bound: bytes. Each output needs 16 taps of 4-byte input and 35 flops, while
-// the function moves 5 bytes per output (4 written, 1 read): ~7 flop/byte,
-// below the ~20 flop/byte ridge of the f32 CUDA cores. One block computes a 16 x 64 output tile from a 12 x 36 input tile
-// (2-pixel halo, edge-clamped loads instead of a padded copy) staged once in
-// shared memory, so device memory sees each input about 1.3 times and each
-// output once. The TPU kernel's host-side halo pre-stacking and even/odd
-// output planes were Mosaic workarounds and have no counterpart here.
+// Bound: bytes. The function moves 5 bytes per output (4 written, 1 read)
+// and does 35 flops for it (~7 flop/byte), below the ~20 flop/byte ridge of
+// the f32 CUDA cores; four fifths of the bytes are the output's stores.
+//
+// Design. A thread computes a 2-row x 4-column output patch: output rows 2p
+// and 2p+1 (odd and even row taps) both read padded rows p .. p+4, and the 4
+// columns 4q .. 4q+3 read padded columns 2q .. 2q+5. So per output row 6
+// row-filtered values feed the 4 outputs (each output takes the same value
+// the one-output form would compute, in the same order), and each row goes
+// out as one 16-byte store (two 8-byte stores when 2W is not a multiple of 4,
+// where rows are only 8-byte aligned). A block owns 64 x 128 output tiles
+// (8 warps; a warp is one row pair of 32 patches, four row pairs per thread)
+// and walks over them, tile after tile and plane after plane, with as many
+// blocks as the SMs hold at once. The next tile's 36 x 68 input halo is
+// copied into a second shared buffer with cp.async while the current tile is
+// computed and stored. The replicate padding is a clamp in the copy's source
+// index. Input rows are only 4-byte aligned in general (214 floats at the
+// main path's first stage), which also rules out TMA, whose global strides
+// must be multiples of 16 bytes; the input is a fifth of the bytes, so 4-byte
+// copies do. Stores keep the default cache policy: the decoder reads the
+// output next, and it fits in the 50 MB L2.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTileOX = 64;                 // output columns per block
-constexpr int kTileOY = 16;                 // output rows per block
-constexpr int kInX = kTileOX / 2 + 4;       // input columns incl. halo
-constexpr int kInY = kTileOY / 2 + 4;       // input rows incl. halo
-constexpr int kThreadsX = 64;
-constexpr int kThreadsY = 4;
+constexpr int kThreads = 256;
+constexpr int kPatchCols = 32;                            // 4-column patches across a tile
+constexpr int kRowPairs = 32;                             // output row pairs down a tile
+constexpr int kInX = 2 * kPatchCols + 4;                  // padded input columns incl. halo
+constexpr int kInY = kRowPairs + 4;                       // padded input rows incl. halo
+constexpr int kWarps = kThreads / 32;
 
 struct Taps {
   float even[4];
   float odd[4];
 };
 
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-pyrup_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W,
-             Taps taps) {
-  __shared__ float tile[kInY][kInX];
-  const int plane = blockIdx.z;
-  const int oy0 = blockIdx.y * kTileOY;
-  const int ox0 = blockIdx.x * kTileOX;
-  const int rb = oy0 / 2;  // tile origin in padded-input coordinates
-  const int cb = ox0 / 2;
-  const float* xp = x + static_cast<size_t>(plane) * H * W;
+struct Tiles {
+  int x, y, per_plane, total;  // tiles across, down, per plane, in all
+};
 
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  for (int idx = tid; idx < kInY * kInX; idx += kThreadsX * kThreadsY) {
-    const int i = idx / kInX;
-    const int j = idx - i * kInX;
-    const int sy = min(max(rb + i - 2, 0), H - 1);
-    const int sx = min(max(cb + j - 2, 0), W - 1);
-    tile[i][j] = __ldg(xp + static_cast<size_t>(sy) * W + sx);
+struct TileOrigin {
+  int plane, pair0, patch0;  // plane, first output row pair, first patch
+};
+
+__device__ __forceinline__ TileOrigin origin(int tile, const Tiles& t) {
+  const int plane = tile / t.per_plane;
+  const int rem = tile - plane * t.per_plane;
+  const int ty = rem / t.x;
+  return {plane, ty * kRowPairs, (rem - ty * t.x) * kPatchCols};
+}
+
+// Padded rows pair0 .. pair0 + kInY - 1 and columns 2 * patch0 .. + kInX - 1
+// of one plane into buf (padded index i is source index i - 2, clamped).
+__device__ __forceinline__ void load_halo(float* buf, const float* x, const TileOrigin& o,
+                                          int H, int W) {
+  const float* xp = x + static_cast<size_t>(o.plane) * H * W;
+  const int r0 = o.pair0 - 2;
+  const int c0 = 2 * o.patch0 - 2;
+  for (int e = threadIdx.x; e < kInY * kInX; e += kThreads) {
+    const int i = e / kInX;
+    const int j = e - i * kInX;
+    const int sy = min(max(r0 + i, 0), H - 1);
+    const int sx = min(max(c0 + j, 0), W - 1);
+    cp_async4(buf + e, xp + static_cast<size_t>(sy) * W + sx);
   }
-  __syncthreads();
+}
 
-  const int OH = 2 * H;
+__device__ __forceinline__ float filt4(const float* w, float v0, float v1, float v2, float v3) {
+  float s = __fmul_rn(w[0], v0);
+  s = __fadd_rn(s, __fmul_rn(w[1], v1));
+  s = __fadd_rn(s, __fmul_rn(w[2], v2));
+  return __fadd_rn(s, __fmul_rn(w[3], v3));
+}
+
+// One output row's 4 outputs from its 6 row-filtered values v (padded
+// columns 2q .. 2q+5): columns 4q+1 and 4q+3 have odd C, 4q+2 and 4q+4 even.
+__device__ __forceinline__ float4 columns(const Taps& t, const float* v) {
+  return make_float4(filt4(t.odd, v[0], v[1], v[2], v[3]), filt4(t.even, v[1], v[2], v[3], v[4]),
+                     filt4(t.odd, v[1], v[2], v[3], v[4]), filt4(t.even, v[2], v[3], v[4], v[5]));
+}
+
+template <bool kVec4>
+__device__ __forceinline__ void store_row(float* row, int col, int OW, float4 v) {
+  if (kVec4) {
+    *reinterpret_cast<float4*>(row + col) = v;
+  } else {
+    *reinterpret_cast<float2*>(row + col) = make_float2(v.x, v.y);
+    if (col + 2 < OW) *reinterpret_cast<float2*>(row + col + 2) = make_float2(v.z, v.w);
+  }
+}
+
+template <bool kVec4>
+__device__ __forceinline__ void compute_tile(const float* buf, float* y, const TileOrigin& o,
+                                             int H, int W, const Taps& taps) {
+  const int lane = threadIdx.x & 31;
+  const int q = o.patch0 + lane;
   const int OW = 2 * W;
-  const int ox = ox0 + threadIdx.x;
-  if (ox >= OW) return;
-  const int Cc = ox + 1;
-  const int c = (Cc >> 1) - cb;
-  float wc[4];
+  if (4 * q >= OW) return;
+  float* yp = y + static_cast<size_t>(o.plane) * 2 * H * OW;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) wc[k] = (Cc & 1) ? taps.odd[k] : taps.even[k];
-  float* yp = y + static_cast<size_t>(plane) * OH * OW;
-
-  for (int ty = threadIdx.y; ty < kTileOY; ty += kThreadsY) {
-    const int oy = oy0 + ty;
-    if (oy >= OH) break;
-    const int R = oy + 1;
-    const int r = (R >> 1) - rb;
-    float wr[4];
+  for (int k = 0; k < kRowPairs / kWarps; ++k) {
+    const int rp = (threadIdx.x >> 5) + k * kWarps;
+    const int p = o.pair0 + rp;
+    if (p >= H) break;
+    const float* s = buf + rp * kInX + 2 * lane;
+    float vo[6], ve[6];  // row-filtered: odd taps at rows 0..3, even taps at rows 1..4
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wr[k] = (R & 1) ? taps.odd[k] : taps.even[k];
-    float acc = 0.f;
+    for (int r = 0; r < 5; ++r) {
+      float a[6];
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      float col = __fmul_rn(wr[0], tile[r][c + kc]);
-      col = __fadd_rn(col, __fmul_rn(wr[1], tile[r + 1][c + kc]));
-      col = __fadd_rn(col, __fmul_rn(wr[2], tile[r + 2][c + kc]));
-      col = __fadd_rn(col, __fmul_rn(wr[3], tile[r + 3][c + kc]));
-      const float t = __fmul_rn(wc[kc], col);
-      acc = kc == 0 ? t : __fadd_rn(acc, t);
+      for (int j = 0; j < 3; ++j) {
+        const float2 t = *reinterpret_cast<const float2*>(s + r * kInX + 2 * j);
+        a[2 * j] = t.x;
+        a[2 * j + 1] = t.y;
+      }
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        if (r < 4) vo[j] = r == 0 ? __fmul_rn(taps.odd[0], a[j])
+                                  : __fadd_rn(vo[j], __fmul_rn(taps.odd[r], a[j]));
+        if (r > 0) ve[j] = r == 1 ? __fmul_rn(taps.even[0], a[j])
+                                  : __fadd_rn(ve[j], __fmul_rn(taps.even[r - 1], a[j]));
+      }
     }
-    yp[static_cast<size_t>(oy) * OW + ox] = acc;
+    float* row = yp + static_cast<size_t>(2 * p) * OW;
+    store_row<kVec4>(row, 4 * q, OW, columns(taps, vo));
+    store_row<kVec4>(row + OW, 4 * q, OW, columns(taps, ve));
   }
+}
+
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+pyrup_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, Taps taps,
+             Tiles tiles) {
+  __shared__ __align__(16) float buf[2][kInY * kInX];
+  int tile = blockIdx.x;
+  load_halo(buf[0], x, origin(tile, tiles), H, W);
+  cp_async_commit();
+  for (int cur = 0; tile < tiles.total; tile += gridDim.x, cur ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < tiles.total) load_halo(buf[cur ^ 1], x, origin(next, tiles), H, W);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    compute_tile<kVec4>(buf[cur], y, origin(tile, tiles), H, W, taps);
+    __syncthreads();  // buf[cur] is refilled in the next iteration
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Blocks of `kernel` that the SMs of `device` hold at once, kept in *cached
+// after the first call (one cache per kernel and device); 0 on error.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads, int device, int* cached) {
+  if (*cached == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) !=
+            cudaSuccess)
+      return 0;
+    *cached = sms * per_sm;
+  }
+  return *cached;
 }
 
 }  // namespace
@@ -96,14 +185,31 @@ FRTM_EXPORT int frtm_pyrup_f32(const float* x, float* y, int planes, int H,
                                int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (planes <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+  if (reinterpret_cast<size_t>(y) % 16 != 0) return cudaErrorMisalignedAddress;
   Taps taps;
   for (int k = 0; k < 4; ++k) {
     taps.even[k] = even[k];
     taps.odd[k] = odd[k];
   }
-  dim3 block(kThreadsX, kThreadsY);
-  dim3 grid((2 * W + kTileOX - 1) / kTileOX, (2 * H + kTileOY - 1) / kTileOY,
-            planes);
-  pyrup_kernel<<<grid, block, 0, stream>>>(x, y, H, W, taps);
+  Tiles t;
+  t.x = ((2 * W + 3) / 4 + kPatchCols - 1) / kPatchCols;
+  t.y = (H + kRowPairs - 1) / kRowPairs;
+  t.per_plane = t.x * t.y;
+  const long long total = static_cast<long long>(t.per_plane) * planes;
+  if (total > (1LL << 30)) return cudaErrorInvalidValue;
+  t.total = static_cast<int>(total);
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  static int resident_cache[2][kMaxDevices];
+  const bool vec4 = (2 * W) % 4 == 0;
+  const int resident =
+      vec4 ? resident_blocks(pyrup_kernel<true>, kThreads, device, &resident_cache[1][device])
+           : resident_blocks(pyrup_kernel<false>, kThreads, device, &resident_cache[0][device]);
+  if (resident <= 0) return cudaErrorInvalidConfiguration;
+  const int grid = t.total < resident ? t.total : resident;
+  if (vec4)
+    pyrup_kernel<true><<<grid, kThreads, 0, stream>>>(x, y, H, W, taps, t);
+  else
+    pyrup_kernel<false><<<grid, kThreads, 0, stream>>>(x, y, H, W, taps, t);
   return cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 version of kernel 3 (ops/kernels/warp_affine.py), copied from
 frtm_tpu/ops/warp.py::warp_affine and _resample.
 
-The forward 2x3/3x3 matrix is inverted on the host; each output pixel is
+The forward 2x3/3x3 matrix is inverted on the host in float32, in the
+operation order of frtm_tpu's `jnp.linalg.inv`; each output pixel is
 mapped through the inverse to source coordinates and sampled with nearest /
 bilinear / bicubic (Keys A=-0.75) taps; out-of-range taps contribute zero
 (cv2 BORDER_CONSTANT). Images are channel planes (C, H, W), the port's
@@ -14,16 +15,82 @@ import torch
 
 MODES = ("nearest", "bilinear", "bicubic")
 
+_f32 = np.float32
+
+
+def _fma(a, b, c):
+    """a * b + c in float32, rounded once (a fused multiply-add)."""
+    p = float(a) * float(b)                 # exact: 24-bit factors
+    s = p + float(c)
+    t = s - p
+    lo = (p - (s - t)) + (float(c) - t)     # p + c == s + lo exactly
+    r = _f32(s)
+    if lo != 0.0 and float(r) != s:
+        # s rounds to float32 correctly unless it is a float32 midpoint; then
+        # the exact sum lies on the side of lo
+        other = np.nextafter(r, _f32(np.inf if float(r) < s else -np.inf))
+        if (float(r) + float(other)) / 2 == s:
+            return max(r, other) if lo > 0 else min(r, other)
+    return r
+
+
+def _inverse3(m):
+    """Inverse of a 3x3 float32 matrix with the float32 roundings of
+    `jnp.linalg.inv` on the CPU: LAPACK sgetrf, then strsm with a unit lower
+    and a non-unit upper factor against the permuted identity, as the
+    OpenBLAS that SciPy ships computes them. sgetrf is left-looking: each
+    column takes the earlier columns' updates (a dot product of rounded
+    products, or an FMA chain), then its pivot, the first of largest
+    magnitude, then scales the multipliers by the pivot's reciprocal. The
+    solves scale by reciprocal diagonals; the upper solve takes row 2's
+    term as a rounded product and row 1's with an FMA."""
+    a = [[_f32(v) for v in row] for row in m]
+    perm = [0, 1, 2]
+    one = _f32(1)
+
+    def pivot(j):
+        p = max(range(j, 3), key=lambda i: (abs(a[i][j]), -i))
+        if a[p][j] == 0:
+            raise ValueError("warp matrix is singular")
+        a[j], a[p] = a[p], a[j]
+        perm[j], perm[p] = perm[p], perm[j]
+        return one / a[j][j]
+
+    r = pivot(0)
+    a[1][0], a[2][0] = a[1][0] * r, a[2][0] * r
+    a[1][1] = a[1][1] - a[1][0] * a[0][1]
+    a[2][1] = a[2][1] - a[2][0] * a[0][1]
+    r = pivot(1)
+    a[2][1] = a[2][1] * r
+    a[1][2] = a[1][2] - a[1][0] * a[0][2]
+    a[2][2] = a[2][2] - _fma(a[2][1], a[1][2], a[2][0] * a[0][2])
+    if a[2][2] == 0:
+        raise ValueError("warp matrix is singular")
+    inv_diag = [one / a[i][i] for i in range(3)]
+
+    out = np.empty((3, 3), np.float32)
+    for col in range(3):
+        b = [_f32(perm[i] == col) for i in range(3)]
+        y1 = _fma(-b[0], a[1][0], b[1])
+        y2 = b[2] - _fma(a[2][1], y1, a[2][0] * b[0])
+        x2 = y2 * inv_diag[2]
+        c0 = b[0] - a[0][2] * x2
+        x1 = (y1 - a[1][2] * x2) * inv_diag[1]
+        x0 = _fma(-x1, a[0][1], c0) * inv_diag[0]
+        out[:, col] = x0, x1, x2
+    return out
+
 
 def inverse_coefficients(H) -> np.ndarray:
     """Forward 2x3 or 3x3 matrix -> the nine float32 entries of its inverse
-    (the 3x3 form, so the homogeneous divide of frtm_tpu's warp is kept)."""
+    (the 3x3 form, so the homogeneous divide of frtm_tpu's warp is kept),
+    bit-equal to `jnp.linalg.inv` of the float32 matrix on the CPU."""
     H = np.asarray(H, np.float32)
     if H.shape == (2, 3):
         H = np.concatenate([H, np.asarray([[0.0, 0.0, 1.0]], np.float32)], axis=0)
     if H.shape != (3, 3):
         raise ValueError(f"warp matrix must be 2x3 or 3x3, got {H.shape}")
-    return np.linalg.inv(H).astype(np.float32).reshape(9)
+    return _inverse3(H).reshape(9)
 
 
 def _inverse_map(hinv, out_h, out_w, device):

@@ -29,8 +29,14 @@ def gen():
     return torch.Generator().manual_seed(0)
 
 
-@pytest.mark.parametrize("shape", [(1, 32, 120, 214), (1, 16, 240, 428), (2, 3, 7, 5),
-                                   (1, 1, 1, 1), (1, 2, 9, 131)])
+# the main path's two stages and N=8 (the fused tracker's decode window);
+# odd W (2W = 2 mod 4: 8-byte stores); 2W just below, at and above the
+# 128-column tile (W = 63, 64, 65, 66); H below and just above the
+# 32-row-pair tile (H = 5, 32, 33); a single pixel
+@pytest.mark.parametrize("shape", [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214),
+                                   (2, 3, 7, 5), (1, 1, 1, 1), (1, 2, 9, 131),
+                                   (1, 3, 5, 63), (1, 3, 32, 64), (1, 3, 17, 65),
+                                   (2, 2, 33, 66)])
 def test_pyrup_kernel_is_bit_exact(gen, shape):
     x = torch.randn(shape, generator=gen).cuda()
     before = LAUNCHES["pyrup"]
@@ -39,8 +45,13 @@ def test_pyrup_kernel_is_bit_exact(gen, shape):
     assert torch.equal(got, pyr_up_bicubic_plain(x))
 
 
+# the head conv at N=1 and N=8; Cin 1, 3, 16 and 64; rows only 4-byte
+# aligned (W = 129, 127: 4-byte copies); H below (4, 5, 7, 9) and just above
+# (17) the 16-row tile
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("shape", [(1, 16, 480, 854), (2, 3, 5, 129), (1, 64, 17, 33)])
+@pytest.mark.parametrize("shape", [(1, 16, 480, 854), (8, 16, 480, 854), (2, 3, 5, 129),
+                                   (1, 64, 17, 33), (1, 1, 9, 130), (3, 1, 4, 7),
+                                   (1, 3, 7, 127)])
 def test_conv3x3_cout1_kernel_matches_plain(gen, shape, bias):
     x = torch.randn(shape, generator=gen).cuda()
     w = (torch.rand(1, shape[1], 3, 3, generator=gen) * 0.2 - 0.1).cuda()
@@ -84,5 +95,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         pyr_up_bicubic(x.transpose(2, 3))
     with pytest.raises(ValueError):
         conv3x3_cout1(x, torch.zeros(1, 3, 3, 3, device="cuda"))
+    with pytest.raises(RuntimeError):   # weights and halos beyond 48 KB of shared memory
+        conv3x3_cout1(torch.zeros(1, 926, 4, 4, device="cuda"),
+                      torch.zeros(1, 926, 3, 3, device="cuda"))
     with pytest.raises(ValueError):
         warp_affine(x[0], np.eye(2), (8, 10))
