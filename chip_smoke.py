@@ -10,14 +10,17 @@ Phases, each printing one JSON line:
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes (max abs difference within the stated
                 tolerance), with CUDA-event times of kernel, plain version and
-                the one PyTorch call computing the same function;
+                the one PyTorch call computing the same function; the warp
+                rows name the variant they took (staged or direct), and the
+                phase gives the launch floor (a one-element zero_());
   4. decode   — one full seg_network_apply at 480x854, kernels against plain
                 (its logits also set the scale of the random refiner's head,
                 so that the masks hold both classes);
   5. main     — the rn101 eval configuration (seeded random weights) tracking
                 one object through a synthetic 17-frame 480x854 sequence with
-                Tracker.run_sequence; launch counts of every kernel, per-phase
-                seconds, peak memory, finiteness;
+                Tracker.run_sequence; launch counts of every kernel (every warp
+                must take the staged variant), per-phase seconds, peak memory,
+                finiteness;
   6. small    — a 6-frame 96x128 rn18 sequence through the port on the CPU
                 (plain versions) and on the card (kernels); masks must agree,
                 and each run must re-solve its filter twice.
@@ -213,12 +216,15 @@ def phase_kernels():
     """Each kernel against its plain version at the main path's shapes."""
     import torch.nn.functional as F
     from frtm_tpu_torch.ops.kernels import (
-        pyr_up_bicubic, pyr_up_bicubic_plain, conv3x3_cout1, conv3x3_cout1_plain,
+        VARIANTS, pyr_up_bicubic, pyr_up_bicubic_plain, conv3x3_cout1, conv3x3_cout1_plain,
         warp_affine)
     from frtm_tpu_torch.ops.warp import inverse_coefficients, warp_affine_plain
 
     g = torch.Generator(device="cpu").manual_seed(0)
     rows = {}
+    # the least device time of a kernel launch: one float zeroed
+    one = torch.empty(1, device="cuda")
+    launch_floor_ms = device_ms(lambda: one.zero_())
 
     # kernel 1: the decoder's two pyrup stages (exact: same op order), at
     # N=1 and at N=8, the fused tracker's decode window
@@ -249,20 +255,30 @@ def phase_kernels():
         del x
     rows["conv3x3_cout1"] = convs
 
-    # kernel 3: a full-frame background warp (bicubic, 3 planes), a
-    # foreground RGBA sub-box (bicubic) and its label (nearest, float32 0/1
-    # planes, as the augmenter passes them)
+    # kernel 3: a full-frame background warp (bicubic, 3 planes, rotated),
+    # the eval augmenter's own background (scale 1.2 about the frame centre,
+    # no rotation), a foreground RGBA sub-box (bicubic) and its label
+    # (nearest, float32 0/1 planes, as the augmenter passes them), and the
+    # augmenter's worst footprint: an RGBA target at 45 degrees and scale 0.5
+    # (inverse step 2)
     T = np.array([[1.2 * np.cos(0.3), 1.2 * np.sin(0.3), -60.0],
                   [-1.2 * np.sin(0.3), 1.2 * np.cos(0.3), 90.0], [0, 0, 1]])
+    Te = np.array([[1.2, 0, 427.0 - 1.2 * 427.0], [0, 1.2, 240.0 - 1.2 * 240.0], [0, 0, 1]])
     img = (torch.rand(3, 480, 854, generator=g) * 255).cuda()
     rgba = (torch.rand(4, 480, 854, generator=g) * 255).cuda()
     lbl = (torch.rand(1, 480, 854, generator=g) > 0.5).float().cuda()
     Ts = np.array([[1, 0, -300.0], [0, 1, -150.0], [0, 0, 1]]) @ T
+    a = np.deg2rad(45)
+    Tw = (np.array([[1, 0, 120.0], [0, 1, 100.0], [0, 0, 1]])
+          @ np.array([[np.cos(a), np.sin(a), 0], [-np.sin(a), np.cos(a), 0], [0, 0, 1]])
+          @ np.diag([0.5, 0.5, 1.0]) @ np.array([[1, 0, -427.0], [0, 1, -240.0], [0, 0, 1]]))
     warps = []
     for label, src, M, size, mode in [
             ("background", img, T, (480, 854), "bicubic"),
+            ("background_eval", img, Te, (480, 854), "bicubic"),
             ("foreground", rgba, Ts, (200, 240), "bicubic"),
-            ("label", lbl, Ts, (200, 240), "nearest")]:
+            ("label", lbl, Ts, (200, 240), "nearest"),
+            ("foreground_worst", rgba, Tw, (200, 240), "bicubic")]:
         n_out = src.shape[0] * size[0] * size[1]
         n_read = src.shape[0] * warp_source_pixels(M, src.shape[1:], size, mode)
         taps = {"nearest": 1, "bilinear": 4, "bicubic": 16}[mode]
@@ -277,12 +293,16 @@ def phase_kernels():
             lambda src=src, M=M, size=size, mode=mode: warp_affine_plain(
                 src, inverse_coefficients(M), size, mode),
             lib, nbytes=src.element_size() * (n_read + n_out),
-            flops=n_out * (2 * taps + 20), tol=1e-3)
+            flops=n_out * (2 * taps + 20), tol=0.0)
+        before = dict(VARIANTS["warp_affine"])
+        warp_affine(src, M, size, mode)
+        row["variant"] = [v for v, n in VARIANTS["warp_affine"].items() if n > before[v]][0]
         row["role"] = label
         row["source_values_read"] = n_read
+        row["launch_floor_ms"] = launch_floor_ms
         warps.append(row)
     rows["warp_affine"] = warps
-    emit({"phase": "kernels", "rows": rows})
+    emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms, "rows": rows})
     return rows
 
 
@@ -376,7 +396,7 @@ def phase_main(tracker, seq):
     """The main path: Tracker.run_sequence through the rn101 eval config."""
     from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
     from frtm_tpu_torch.models.augmenter import cut_and_inpaint
-    from frtm_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
 
     cfg = tracker.cfg
     # warm-up on a 3-frame sequence (cuDNN algorithm choice, first launches)
@@ -392,6 +412,7 @@ def phase_main(tracker, seq):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    warp_variants = dict(VARIANTS["warp_affine"])
 
     # the host share of "augment": cutting and Telea-inpainting the target once
     t1 = time.perf_counter()
@@ -412,7 +433,7 @@ def phase_main(tracker, seq):
           "size": list(seq.images[0].shape[:2]), "fps": fps, "wall_s": wall,
           "phase_seconds": dict(tracker.phase_seconds),
           "host_cut_inpaint_s": host_inpaint_s,
-          "launches": launches,
+          "launches": launches, "warp_variants": warp_variants,
           "launches_per_tracked_frame": {k: v / tracked for k, v in launches.items()},
           "resolves": target.state.n_resolves,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -425,6 +446,8 @@ def phase_main(tracker, seq):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"main: kernels never launched on the main path: {missing}")
+    if warp_variants["direct"] or warp_variants["staged"] != launches["warp_affine"]:
+        fail(f"main: every warp must take the staged kernel, got {warp_variants}")
     if launches["pyrup"] != 2 * tracked or launches["conv3x3_cout1"] != tracked:
         fail(f"main: expected 2 pyrup and 1 head-conv launch per tracked frame, got {launches}")
     if target.state.n_resolves != (len(seq) - 1) // cfg.disc.train_skipping:

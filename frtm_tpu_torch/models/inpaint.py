@@ -11,7 +11,11 @@ from its known neighbours within `radius`, weighted by direction, distance
 and level-set difference, with OpenCV's image-gradient terms. OpenCV keeps
 its narrow band in a sorted list where equal times leave in arrival order;
 a heap keyed by (time, arrival number) pops in the same order. Arithmetic is
-float32 where OpenCV's is `float` and float64 where it is `double`.
+float32 where OpenCV's is `float` and float64 where it is `double`: the
+arrival-time solve, the distance weight, and the level-set weight
+1 / (1 + |dt|), whose `fabs` promotes the float32 time difference to double
+so that the sum and the quotient are double (rounded to float32 once). The
+rest of the fill (direction, weights, sums) is float32.
 """
 import heapq
 
@@ -134,7 +138,7 @@ def _fill(f, t, out, i, j, radius, gx, gy):
                 ry, rx = f32(i - k), f32(j - l)
                 length = rx * rx + ry * ry
                 dst = f32(1.0 / (float(length) * np.sqrt(float(length))))
-                lev = f32(1.0 / float(f32(1.0) + abs(t[k][l] - tij)))
+                lev = f32(1.0 / (1.0 + abs(float(t[k][l] - tij))))
                 direction = rx * gx + ry * gy
                 if abs(float(direction)) <= 0.01:
                     direction = f32(0.000001)

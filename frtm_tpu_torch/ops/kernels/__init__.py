@@ -2,11 +2,11 @@
 each beside its plain PyTorch version. A wrapper launches its kernel for a
 CUDA tensor and runs the plain version for a CPU tensor."""
 from . import build
-from .build import KERNELS, LAUNCHES, reset_launches
+from .build import KERNELS, LAUNCHES, VARIANTS, reset_launches
 from .pyrup import pyr_up_bicubic, pyr_up_bicubic_plain
 from .conv3x3_cout1 import conv3x3_cout1, conv3x3_cout1_plain
 from .warp_affine import warp_affine
 
-__all__ = ["KERNELS", "LAUNCHES", "build", "reset_launches",
+__all__ = ["KERNELS", "LAUNCHES", "VARIANTS", "build", "reset_launches",
            "pyr_up_bicubic", "pyr_up_bicubic_plain",
            "conv3x3_cout1", "conv3x3_cout1_plain", "warp_affine"]

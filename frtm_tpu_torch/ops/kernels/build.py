@@ -8,7 +8,8 @@ flags, and loaded with ctypes. Nothing prebuilt is committed. A failed build
 raises; there is no fallback.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; a run reads it to
-show which kernels the main path went through.
+show which kernels the main path went through. VARIANTS splits the count of a
+kernel with several variants by the variant each launch took.
 """
 import ctypes
 import hashlib
@@ -27,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 LAUNCHES = {name: 0 for name in KERNELS}
+VARIANTS = {"warp_affine": {"staged": 0, "direct": 0}}
 BUILD_LOG = {}      # kernel name -> nvcc output (ptxas register/smem report)
 
 _libs = {}
@@ -36,6 +38,9 @@ _lock = threading.Lock()
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in VARIANTS.values():
+        for variant in counts:
+            counts[variant] = 0
 
 
 def build_dir() -> Path:
@@ -119,9 +124,9 @@ def check_cuda_tensor(t: torch.Tensor, what: str, ndim: int):
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def launch(name: str, fn_name: str, argtypes, *args, device: torch.device):
+def launch(name: str, fn_name: str, argtypes, *args, device: torch.device, variant=None):
     """Call one C entry point on the current stream of `device`; raise on a
-    refused launch, count it otherwise."""
+    refused launch, count it (and its variant) otherwise."""
     lib = library(name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
@@ -136,3 +141,5 @@ def launch(name: str, fn_name: str, argtypes, *args, device: torch.device):
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.frtm_error_string(rc).decode()}")
     LAUNCHES[name] += 1
+    if variant is not None:
+        VARIANTS[name][variant] += 1

@@ -32,19 +32,18 @@ def test_telea_matches_cv2_on_solid_holes(rng, box):
     np.testing.assert_array_equal(inpaint_telea(img, m, 1), want)
 
 
-def test_telea_close_to_cv2_on_scattered_holes(rng):
-    """Scattered one-pixel holes are the hard case: measured 136 of 14823
-    hole values (0.9%) off by 1-2 counts over 40 such images, from float
-    rounding in the weighted sum where cv2's value lands on x.5; pixels
-    outside the hole are untouched."""
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_telea_close_to_cv2_on_scattered_holes(seed, radius):
+    """Scattered one-pixel holes, the hard case for the level-set weight
+    (many small time differences): identical to cv2 on every value. With
+    the weight's 1 + |dt| summed in float32 instead of OpenCV's double,
+    0.9 % of hole values were 1-2 counts off."""
+    rng = np.random.RandomState(seed)
     img = (rng.rand(31, 37, 3) * 255).astype(np.uint8)
     m = (rng.rand(31, 37) > 0.75).astype(np.uint8)
-    want = cv2.inpaint(img, m, 1, cv2.INPAINT_TELEA).astype(int)
-    got = inpaint_telea(img, m, 1).astype(int)
-    d = np.abs(got - want)
-    assert d[m == 0].max() == 0
-    assert d.max() <= 2
-    assert (d > 0).mean() < 0.02
+    want = cv2.inpaint(img, m, radius, cv2.INPAINT_TELEA)
+    np.testing.assert_array_equal(inpaint_telea(img, m, radius), want)
 
 
 def test_cut_and_inpaint_matches_jax_augmenter():
@@ -53,12 +52,13 @@ def test_cut_and_inpaint_matches_jax_augmenter():
     jt, ji = JaxAugmenter.cut_and_inpaint(image, mask, d=1, f=1)
     tt, ti = cut_and_inpaint(image, mask)
     np.testing.assert_array_equal(tt, jt)
-    # the textured hole: measured 4 of 36864 values (0.011%) 1 count apart
-    d = np.abs(ti.astype(int) - ji.astype(int))
-    assert d.max() <= 1 and (d > 0).mean() < 1e-3
+    # the textured hole (4 of 36864 values were 1 count apart before the
+    # level-set weight was summed in double, as OpenCV does)
+    np.testing.assert_array_equal(ti, ji)
 
 
-@pytest.mark.parametrize("seed", [0, 3])
+# seed 2 puts the square on the textured hole that showed the Telea fault
+@pytest.mark.parametrize("seed", [0, 2, 3, 5, 7])
 def test_augment_first_frame_matches_jax(seed):
     seq = make_moving_square_sequence(n_frames=1, size=(96, 128), square=24, seed=seed)
     image = seq.images[0]
@@ -74,9 +74,7 @@ def test_augment_first_frame_matches_jax(seed):
     tlb = tlb.permute(0, 2, 3, 1).numpy()
     assert tim.shape == jim.shape and tlb.shape == jlb.shape
     np.testing.assert_array_equal(tlb, jlb)
-    # images: measured at most 1 count apart (float rounding before the
-    # uint8 cast), on under 0.1% of values
-    d = np.abs(tim.astype(int) - jim.astype(int))
-    assert d.max() <= 1
-    assert (d > 0).mean() < 1e-3
+    # images: equal on every value (the same inverse bits, warp float order
+    # and Telea roundings as the JAX augmenter)
+    np.testing.assert_array_equal(tim, jim)
     np.testing.assert_array_equal(tim[0], image)

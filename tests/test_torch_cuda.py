@@ -9,13 +9,18 @@ version's float operations in the same order without FMA contraction, so they
 must agree bit for bit; the head conv sums 9 * Cin products with FMA in
 another order, so it is held to 5e-5 absolute at unit-scale inputs.
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from frtm_tpu_torch.device import resolve_device
-from frtm_tpu_torch.ops.kernels import (LAUNCHES, conv3x3_cout1, conv3x3_cout1_plain,
-                                        pyr_up_bicubic, pyr_up_bicubic_plain, warp_affine)
+from frtm_tpu_torch.ops.kernels import (LAUNCHES, VARIANTS, conv3x3_cout1,
+                                        conv3x3_cout1_plain, pyr_up_bicubic,
+                                        pyr_up_bicubic_plain, warp_affine)
 from frtm_tpu_torch.ops.warp import inverse_coefficients, warp_affine_plain
 
 pytestmark = pytest.mark.cuda
@@ -69,15 +74,96 @@ _MATS = {
 }
 
 
+def _warp_checked(src, M, size, mode, variant):
+    """The kernel's warp, checked to launch once, by `variant`, and to equal
+    the plain version bit for bit."""
+    want = warp_affine_plain(src, inverse_coefficients(M), size, mode)
+    before, vbefore = LAUNCHES["warp_affine"], dict(VARIANTS["warp_affine"])
+    got = warp_affine(src, M, size, mode)
+    assert LAUNCHES["warp_affine"] == before + 1
+    assert VARIANTS["warp_affine"][variant] == vbefore[variant] + 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("mode", ["nearest", "bilinear", "bicubic"])
 @pytest.mark.parametrize("mat", sorted(_MATS))
 def test_warp_kernel_is_bit_exact(gen, mode, mat):
     src = (torch.rand(4, 48, 85, generator=gen) * 255).cuda()
-    want = warp_affine_plain(src, inverse_coefficients(_MATS[mat]), (40, 90), mode)
-    before = LAUNCHES["warp_affine"]
-    got = warp_affine(src, _MATS[mat], (40, 90), mode)
-    assert LAUNCHES["warp_affine"] == before + 1
-    assert torch.equal(got, want)
+    _warp_checked(src, _MATS[mat], (40, 90), mode,
+                  "direct" if mat == "projective" else "staged")
+
+
+def _affine(angle, scale, flip=False, skew=0.0, to=(120.0, 100.0), frm=(160.0, 120.0)):
+    """The augmenter's map: the source point `frm` to the output point `to`,
+    with mirror, scale, rotation (degrees) and skew about it."""
+    a = np.deg2rad(angle)
+    return (np.array([[1, 0, to[0]], [0, 1, to[1]], [0, 0, 1]])
+            @ np.array([[1, skew, 0], [skew, 1, 0], [0, 0, 1]])
+            @ np.array([[np.cos(a), np.sin(a), 0], [-np.sin(a), np.cos(a), 0], [0, 0, 1]])
+            @ np.diag([-scale if flip else scale, scale, 1.0])
+            @ np.array([[1, 0, -frm[0]], [0, 1, -frm[1]], [0, 0, 1]]))
+
+
+# (channels, map, output size, variant) on a 240x320 source: inverse step 2
+# at 45 degrees (the augmenter's worst footprint), mirrors and skew, output
+# boxes of one pixel, 3x5 and odd widths (ragged tiles), C = 1, 2, 3, 4,
+# 480x854 outputs rotated (most tiles border) and axis-aligned (the eval
+# background's map), footprints partly and fully off the frame, and a
+# shrink by 5, or 40 channels, whose boxes exceed the shared-memory budget
+_WARPS = {
+    "step2_45deg": (4, _affine(45, 0.5), (200, 240), "staged"),
+    "step2_skew_flip": (4, _affine(-45, 0.5, flip=True, skew=0.1), (200, 240), "staged"),
+    "flip": (3, _affine(20, 1.3, flip=True), (200, 240), "staged"),
+    "skew": (3, _affine(-30, 0.7, skew=0.1), (131, 97), "staged"),
+    "one_pixel": (4, _affine(10, 1.5), (1, 1), "staged"),
+    "3x5": (3, _affine(30, 2.0), (3, 5), "staged"),
+    "odd_width": (1, _affine(-10, 1.0), (37, 33), "staged"),
+    "c1": (1, _affine(5, 1.2), (480, 854), "staged"),
+    "axis_aligned": (3, _affine(0, 1.2), (480, 854), "staged"),
+    "c2": (2, _affine(-60, 1.7), (120, 150), "staged"),
+    "partly_off": (3, _affine(60, 0.7, to=(50.0, 50.0), frm=(10.0, 10.0)), (100, 130),
+                   "staged"),
+    "fully_off": (4, _affine(0, 1.0, to=(0.0, 0.0), frm=(900.0, 900.0)), (64, 96), "staged"),
+    "over_budget": (3, _affine(45, 0.2), (200, 240), "direct"),
+    "channels_over_budget": (40, _affine(10, 1.0), (64, 96), "direct"),
+}
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "bicubic"])
+@pytest.mark.parametrize("case", sorted(_WARPS))
+def test_warp_variants_are_bit_exact(gen, mode, case):
+    c, M, size, variant = _WARPS[case]
+    src = (torch.rand(c, 240, 320, generator=gen) * 255).cuda()
+    _warp_checked(src, M, size, mode, variant)
+
+
+_OVER_PLAN = """
+import ctypes, torch
+from frtm_tpu_torch.ops.kernels import build
+from frtm_tpu_torch.ops.kernels.warp_affine import _ARGTYPES
+src = torch.rand(1, 64, 64, device="cuda")
+out = torch.empty(1, 32, 32, device="cuda")
+fn = build.library("warp_affine").frtm_warp_affine_staged_f32
+fn.argtypes = _ARGTYPES + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+identity = (ctypes.c_float * 9)(1, 0, 0, 0, 1, 0, 0, 0, 1)
+# a planned box of 2x2 against the identity's ~20x38 tile boxes
+assert fn(src.data_ptr(), out.data_ptr(), 1, 64, 64, 32, 32, identity, 2, 2, 2, 0, None) == 0
+try:
+    torch.cuda.synchronize()
+    print("no error")
+except RuntimeError as e:
+    print("launch failed:", e)
+"""
+
+
+def test_staged_warp_fails_on_a_box_over_its_plan(gen):
+    """A tile whose source box exceeds the planned box stops the staged
+    launch with an error; nothing stands in for it. In a child process,
+    since the error leaves that process's CUDA context unusable."""
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", _OVER_PLAN], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert "launch failed" in r.stdout, r.stdout + r.stderr
 
 
 def test_warp_kernel_keeps_uint8_labels(gen):
