@@ -21,7 +21,17 @@ Phases, each printing one JSON line:
                 Tracker.run_sequence; launch counts of every kernel (every warp
                 must take the staged variant), per-phase seconds, peak memory,
                 finiteness;
-  6. small    — a 6-frame 96x128 rn18 sequence through the port on the CPU
+  6. fused    — the fused tracker (BatchedSequenceTracker, online merge) on a
+                33-frame 480x854 sequence with two objects, same weights:
+                against the host-loop Tracker on the same sequence (labels
+                under 0.5 % of pixels apart in every frame, both objects in
+                the output), and with the compact augment against the dense
+                one; launch counts per run; fps of both engines, phase
+                seconds from a synchronised pass, the scan's host waits, peak
+                memory, and the device busy share of an unsynchronised pass
+                (device time of everything in a torch.profiler trace over
+                the wall);
+  7. small    — a 6-frame 96x128 rn18 sequence through the port on the CPU
                 (plain versions) and on the card (kernels); masks must agree,
                 and each run must re-solve its filter twice.
 Then a {"kernels": [...]} line (one entry per kernel) and, last, the
@@ -227,9 +237,11 @@ def phase_kernels():
     launch_floor_ms = device_ms(lambda: one.zero_())
 
     # kernel 1: the decoder's two pyrup stages (exact: same op order), at
-    # N=1 and at N=8, the fused tracker's decode window
+    # N=1, at N=8 (the fused tracker's decode window with one object) and at
+    # N=16 (with two, the fused phase's batch)
     stages = []
-    for shape in [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214), (8, 16, 240, 428)]:
+    for shape in [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214), (8, 16, 240, 428),
+                  (16, 32, 120, 214), (16, 16, 240, 428)]:
         x = torch.randn(shape, generator=g).cuda()
         n_out = 4 * x.numel()
         stages.append(_compare(
@@ -240,11 +252,11 @@ def phase_kernels():
             nbytes=4 * (x.numel() + n_out), flops=35 * n_out, tol=0.0))
     rows["pyrup"] = stages
 
-    # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1 and 8
+    # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1, 8, 16
     w = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
     b = (torch.rand(1, generator=g) * 0.2 - 0.1).cuda()
     convs = []
-    for n in (1, 8):
+    for n in (1, 8, 16):
         x = torch.relu(torch.randn(n, 16, 480, 854, generator=g)).cuda()
         convs.append(_compare(
             "conv3x3_cout1", [n, 16, 480, 854], lambda x=x: conv3x3_cout1(x, w, b),
@@ -403,7 +415,7 @@ def phase_main(tracker, seq):
     tracker.run_sequence(make_moving_square_sequence(n_frames=3, size=(480, 854),
                                                      square=120, seed=5))
     torch.cuda.synchronize()
-    tracker.phase_seconds.clear()
+    tracker.timer.reset()
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
@@ -456,6 +468,129 @@ def phase_main(tracker, seq):
     return launches
 
 
+def trace_device_seconds(fn):
+    """Runs fn under torch.profiler's CUDA activity; returns (fn's result,
+    seconds of device time summed over everything the trace holds: kernels,
+    copies, memsets)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            total_us += getattr(ev, "device_time", None) or getattr(ev, "cuda_time", 0.0)
+    return out, total_us / 1e6
+
+
+def phase_fused(cfg, backbone, refiner):
+    """The fused tracker's main path: two objects, 33 frames (four windows of
+    8, four re-solves per object), against the host loop and against its own
+    compact-augment run."""
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    from frtm_tpu_torch.runtime.tracker import Tracker
+
+    n_objects, n_frames = 2, 33
+    seq = make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
+                                      n_objects=n_objects, seed=0)
+    tracked = n_frames - 1
+    windows = -(-tracked // cfg.disc.train_skipping)
+    fused = BatchedSequenceTracker(cfg, backbone, refiner, device="cuda")
+    # warm-up on a short sequence (first launches at the window's batch)
+    fused.run_sequence(make_moving_square_sequence(n_frames=9, size=(480, 854), square=120,
+                                                   n_objects=n_objects, seed=5))
+    torch.cuda.synchronize()
+
+    def counted(run):
+        reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, dict(LAUNCHES), dict(VARIANTS["warp_affine"])
+
+    # the timed pass: no synchronisation inside, no profiler
+    torch.cuda.reset_peak_memory_stats()
+    (out_fused, fps_fused), launches, variants = counted(lambda: fused.run_sequence(seq))
+    peak = torch.cuda.max_memory_allocated()
+    enqueue_seconds = {k: v["total_s"] for k, v in fused.last_phase_stats.items()}
+    resolves = [int(s.n_resolves) for _, s in fused.last_models]
+    finite = all(bool(torch.isfinite(p.filter).all()) for p, _ in fused.last_models)
+
+    # the same pass under the profiler: device time of all it ran over its wall
+    (out_traced, fps_traced), device_s = trace_device_seconds(lambda: fused.run_sequence(seq))
+    traced_wall = n_frames / fps_traced
+    # and once more with a synchronise at every phase edge, counting host waits
+    fused.profile = True
+    _, fps_profiled = fused.run_sequence(seq)
+    fused.profile = False
+    stats = fused.last_phase_stats
+    phase_seconds = {k: v["total_s"] for k, v in stats.items()}
+    host_cpu_seconds = {k: v["cpu_ms_per_call"] * v["count"] / 1e3 for k, v in stats.items()}
+    host_syncs = stats["scan"]["host_syncs"]
+    host_syncs_at = stats["scan"]["host_syncs_at"]
+
+    host = Tracker(cfg, backbone, refiner, device="cuda")
+    (out_host, fps_host), launches_host, variants_host = counted(lambda: host.run_sequence(seq))
+    # and the host loop's phase seconds, from a pass of its own
+    host_profiled = Tracker(cfg, backbone, refiner, device="cuda", profile=True)
+    _, fps_host_profiled = host_profiled.run_sequence(seq)
+    compact = BatchedSequenceTracker(cfg, backbone, refiner, device="cuda", aug_compact=True)
+    (out_compact, fps_compact), launches_compact, variants_compact = counted(
+        lambda: compact.run_sequence(seq))
+
+    def diffs(a, b):
+        return [float(np.mean(x != y)) for x, y in zip(a, b)]
+
+    d_host, d_compact, d_traced = (diffs(out_fused, o) for o in (out_host, out_compact, out_traced))
+    pixels = {i: [int((o == i).sum()) for o in out_fused] for i in range(1, n_objects + 1)}
+    emit({"phase": "fused", "arch": cfg.feature_extractor, "frames": n_frames,
+          "objects": n_objects, "size": [480, 854], "windows": windows,
+          "fps_fused": fps_fused, "fps_host_loop": fps_host, "fps_fused_compact": fps_compact,
+          "fps_fused_traced": fps_traced, "fps_fused_profiled": fps_profiled,
+          "fps_host_loop_profiled": fps_host_profiled,
+          "phase_seconds": phase_seconds, "enqueue_seconds_timed_pass": enqueue_seconds,
+          "phase_seconds_host_loop": dict(host_profiled.phase_seconds),
+          "host_cpu_seconds": host_cpu_seconds,
+          "scan_host_syncs": host_syncs, "scan_host_syncs_per_window": host_syncs / windows,
+          "scan_host_syncs_at": host_syncs_at,
+          "max_memory_allocated": peak,
+          "device_busy_share": device_s / traced_wall, "device_seconds": device_s,
+          "traced_wall_s": traced_wall,
+          "launches": launches, "warp_variants": variants, "launches_host_loop": launches_host,
+          "launches_compact": launches_compact, "resolves": resolves, "finite": finite,
+          "label_mismatch_vs_host_loop_max": max(d_host),
+          "label_mismatch_vs_compact_max": max(d_compact),
+          "label_mismatch_vs_traced_rerun_max": max(d_traced),
+          "label_mismatch_vs_host_loop": d_host,
+          "object_pixels_min": {i: min(v[1:]) for i, v in pixels.items()},
+          "tolerance": {"labels": 5e-3}})
+    if not finite or len(out_fused) != n_frames or any(
+            o.shape != (480, 854) or o.dtype != np.uint8 for o in out_fused):
+        fail("fused: outputs are not finite uint8 label images of the frame size")
+    if max(d_host) >= 5e-3:
+        fail(f"fused: labels differ from the host loop's on {max(d_host):.4%} of a frame")
+    if max(d_compact) >= 5e-3:
+        fail(f"fused: compact-augment labels differ from dense on {max(d_compact):.4%}")
+    if max(d_traced) >= 5e-3:
+        fail(f"fused: two runs of the same tracker differ on {max(d_traced):.4%} of a frame")
+    lost = [i for i, v in pixels.items() if min(v[1:]) == 0]
+    if lost:
+        fail(f"fused: objects {lost} are missing from a tracked frame")
+    for name, ln, vr in (("dense", launches, variants), ("compact", launches_compact,
+                                                         variants_compact)):
+        if ln["pyrup"] != 2 * windows or ln["conv3x3_cout1"] != windows:
+            fail(f"fused ({name}): expected 2 pyrup and 1 head-conv launch per decode call "
+                 f"({windows} windows), got {ln}")
+        if vr["direct"] or vr["staged"] != ln["warp_affine"] or ln["warp_affine"] != 8 * n_objects:
+            fail(f"fused ({name}): expected 8 staged warps per object and no direct one, "
+                 f"got {ln['warp_affine']} launches, {vr}")
+    if resolves != [tracked // cfg.disc.train_skipping] * n_objects:
+        fail(f"fused: filter re-solves {resolves}, expected one per window and object")
+    return launches
+
+
 def phase_small(arch="resnet18"):
     """A small sequence through the port twice: on the CPU (plain versions)
     and on the card (kernels, cuDNN), with the head scaled alike from the
@@ -494,15 +629,18 @@ def phase_small(arch="resnet18"):
         fail(f"small: filter re-solves {resolves}, expected {expected} on each device")
 
 
-def kernels_line(rows, launches):
+def kernels_line(rows, launches, launches_fused):
     """The contract line: one entry per kernel at its main-path shape (pyrup
-    stage 2, the head conv, the full-frame background warp)."""
+    stage 2, the head conv, the full-frame background warp). `launches` sums
+    the two main paths' runs (host loop and fused), each counted from 0."""
     main_row = {"pyrup": 1, "conv3x3_cout1": 0, "warp_affine": 0}
     out = []
     for name, (replaces, source) in KERNEL_INFO.items():
         r = rows[name][main_row[name]]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                    "launches": launches[name] + launches_fused[name],
+                    "launches_host_loop": launches[name],
+                    "launches_fused": launches_fused[name], "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "shape": r["shape"], "tolerance": r["tolerance"],
@@ -532,10 +670,11 @@ def main():
     tracker = Tracker(cfg, *build_models("resnet101", cfg, "cuda"), device="cuda", profile=True)
     phase_decode(tracker, seq)
     launches = phase_main(tracker, seq)
+    launches_fused = phase_fused(cfg, tracker.backbone, tracker.refiner)
     del tracker
     phase_small()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
-    emit(kernels_line(rows, launches))
+    emit(kernels_line(rows, launches, launches_fused))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -71,6 +71,9 @@ class TrackerConfig:
     refnet_use_bn: bool = True
     aug_params: dict = field(default_factory=eval_aug_params)
     compute_dtype: str = "float32"
+    # one target model per named layer; () = single-layer via disc.layer,
+    # the only form the port's trackers take so far
+    disc_layers: Tuple[str, ...] = ()
 
     def __post_init__(self):
         object.__setattr__(self, "aug_params", dict(self.aug_params))

@@ -1,4 +1,4 @@
-"""First-frame augmentation (frtm_tpu/models/augmenter.py, the dense path):
+"""First-frame augmentation (frtm_tpu/models/augmenter.py, dense and compact):
 cut the target out, inpaint the hole, and paste the target back under random
 affine and blur transforms to build the target model's initial training set.
 
@@ -8,6 +8,8 @@ exactly as in the JAX augmenter. Cutting and Telea inpainting run on the host
 foreground's bicubic RGBA and nearest label warps — runs through kernel 3
 (ops/kernels/warp_affine.py) on the augmenter's device, the blur filters are
 zero-border per-channel convolutions there, and the batch is composed there.
+With `compact=True` the pieces of the batch are returned instead of its K
+full frames (CompactAugBatch; models/aug_compose.py composes them).
 """
 from dataclasses import dataclass
 
@@ -29,6 +31,37 @@ _DEFAULT_SELECTIONS = dict(
     blur_size=[0.0, 0.0, 0.0, 2.0, 5.0],
     blur_angle=[0, 45, 90, 135],
 )
+
+
+@dataclass
+class CompactAugBatch:
+    """The pieces of one object's augment batch, on the augmenter's device:
+    every augmented frame is a memoised background plus a box-sized blended
+    paste of the target.
+
+      * slot 0 is the real frame;
+      * the inpainted background differs from it only inside the dilated
+        target mask and rides as that rectangle;
+      * an identity-transform background IS the inpainted frame, a blur-only
+        one is a small convolution of it (the kernel rides along), and a
+        warped one carries one pre-blur uint8 base per distinct transform;
+      * each paste is the final blended uint8 rectangle (blended against the
+        float32 background, as the dense path blends it) with its box.
+
+    Against the dense batch: slot 0, labels, paste rectangles and every
+    background that is not both warped and blurred are bit-exact; a blurred
+    warped background sees the uint8 quantization of its base, at most 1
+    count."""
+    image: torch.Tensor          # (3, H, W) uint8 real frame (slot 0)
+    mask: torch.Tensor           # (H, W) uint8 slot-0 label
+    inpaint_patch: torch.Tensor  # (3, hi, wi) uint8 inpainted rectangle
+    inpaint_box: tuple           # (y, x, hi, wi)
+    warp_bases: list             # [(3, H, W) uint8] pre-blur warped backgrounds
+    bg_idx: list                 # per slot: 0 = inpainted, i >= 1 -> warp_bases[i - 1]
+    kernels: list                # per slot: (k, k) float32 numpy blur kernel ((1, 1) = none)
+    patches: list                # per slot: (3, h, w) uint8 blended rectangle
+    boxes: list                  # per slot: (y, x, h, w)
+    lbl_patches: list            # per slot: (h, w) uint8 label rectangle
 
 
 @dataclass
@@ -210,13 +243,18 @@ class ImageAugmenter:
     # -- top level ----------------------------------------------------------
 
     @torch.no_grad()
-    def augment_first_frame(self, image, mask, rng: np.random.RandomState):
+    def augment_first_frame(self, image, mask, rng: np.random.RandomState,
+                            compact: bool = False):
         """num_aug augmented (image, label) pairs; slot 0 is the real frame.
 
         :param image: (H, W, 3) uint8-range array
         :param mask:  (H, W, 1) binary object mask
+        :param compact: return a CompactAugBatch instead of full frames. The
+                 spec and accept sequence and every patch are those of the
+                 dense path (the two modes share this loop); only the
+                 full-frame writes are skipped.
         :return: (images (K, 3, H, W) uint8, labels (K, 1, H, W) uint8) on
-                 the augmenter's device
+                 the augmenter's device, or a CompactAugBatch
         """
         p = self.params
         dev = self.device
@@ -233,6 +271,11 @@ class ImageAugmenter:
             raise ValueError("Augmentation failed: No object to augment.")
 
         target, inpainted = cut_and_inpaint(image, mask)
+        # the inpaint writes only inside the dilated mask: its rectangle
+        diff = (inpainted != image).any(axis=-1)
+        dys, dxs = np.flatnonzero(diff.any(axis=1)), np.flatnonzero(diff.any(axis=0))
+        inpaint_box = ((int(dys[0]), int(dxs[0]), int(dys[-1] - dys[0]) + 1,
+                        int(dxs[-1] - dxs[0]) + 1) if len(dys) else (0, 0, 0, 0))
         target = torch.from_numpy(np.ascontiguousarray(target.transpose(2, 0, 1))).to(dev)
         labels = torch.from_numpy(np.ascontiguousarray(
             np.asarray(mask, np.float32).transpose(2, 0, 1))).to(dev)
@@ -243,19 +286,24 @@ class ImageAugmenter:
         bg_sel = p.get("bg_aug_params")
 
         K = p["num_aug"]
-        out_im = torch.empty((K, 3, H, W), dtype=torch.uint8, device=dev)
-        out_lb = torch.zeros((K, 1, H, W), dtype=torch.uint8, device=dev)
-        out_im[0] = torch.from_numpy(np.ascontiguousarray(image.transpose(2, 0, 1))).to(dev)
-        out_lb[0] = torch.from_numpy(np.ascontiguousarray(
-            mask.transpose(2, 0, 1).astype(np.uint8))).to(dev)
+        image0 = torch.from_numpy(np.ascontiguousarray(image.transpose(2, 0, 1))).to(dev)
+        mask0 = labels.to(torch.uint8)
+        if not compact:
+            out_im = torch.empty((K, 3, H, W), dtype=torch.uint8, device=dev)
+            out_lb = torch.zeros((K, 1, H, W), dtype=torch.uint8, device=dev)
+            out_im[0] = image0
+            out_lb[0] = mask0
 
-        # backgrounds are deterministic per spec: memoise (f32, uint8) per
-        # spec, and the warp per distinct transform
+        # backgrounds are deterministic per spec: memoise (base index, blur
+        # kernel, f32, uint8) per spec, and the warp per distinct transform
+        # (base index 0 = the inpainted frame, i >= 1 = warp_bases[i - 1])
         bg_cache, warp_cache = {}, {}
+        warp_bases = []
+        identity = np.ones((1, 1), np.float32)
 
         def bg_for(bg_spec):
             if bg_spec is None:
-                return None, inpainted
+                return 0, identity, None, inpainted
             key = (tuple(bg_spec.location), bg_spec.rotation, bg_spec.fliplr,
                    bg_spec.scale, tuple(bg_spec.skew), bg_spec.blur_size, bg_spec.blur_angle)
             if key not in bg_cache:
@@ -263,22 +311,25 @@ class ImageAugmenter:
                                           limit_scale=False)
                 ident_T = np.allclose(T, np.eye(3), atol=1e-12)
                 if ident_T and G.shape == (1, 1):
-                    bg_cache[key] = (None, inpainted)
+                    bg_cache[key] = (0, identity, None, inpainted)
                 else:
                     if ident_T:
-                        base = inpainted.float()
+                        bi, base = 0, inpainted.float()
                     else:
                         tkey = T.tobytes()
                         if tkey not in warp_cache:
-                            warp_cache[tkey] = warp_affine(inpainted.float(), T, im_sz,
-                                                           "bicubic").clamp(0, 255)
-                        base = warp_cache[tkey]
+                            w32 = warp_affine(inpainted.float(), T, im_sz,
+                                              "bicubic").clamp(0, 255)
+                            warp_bases.append(w32.to(torch.uint8))
+                            warp_cache[tkey] = (len(warp_bases), w32)
+                        bi, base = warp_cache[tkey]
                     f32 = self._filter(base, G)
-                    bg_cache[key] = (f32, f32.to(torch.uint8))
+                    bg_cache[key] = (bi, G, f32, f32.to(torch.uint8))
             return bg_cache[key]
 
         min_px = p["min_px_count"]
         max_px = H * W - min_px
+        slots = []               # compact per-slot records
         N = K - 1
         n_good = 0
         retries = -1
@@ -294,7 +345,7 @@ class ImageAugmenter:
             for fg_spec, bg_spec in zip(fg_specs, bg_specs):
                 if n_good >= N:
                     break
-                bg_f32, bg_u8 = bg_for(bg_spec)
+                base_idx, bg_kern, bg_f32, bg_u8 = bg_for(bg_spec)
                 T, G = self.get_transform(fg_spec, tg_bbox, im_sz)
                 tgt, (y0, y1, x0, x1), lbl = self._paste_bbox(target, labels, T, G,
                                                               tg_bbox, im_sz)
@@ -305,13 +356,31 @@ class ImageAugmenter:
                     px = 0
                 if not (px >= min_px and (px < max_px or no_background)):
                     continue
-                k = n_good + 1
-                out_im[k] = bg_u8
                 if tgt is not None:
                     alpha = tgt[3:4] / 255.0
                     bg_region = (bg_u8 if bg_f32 is None else bg_f32)[:, y0:y1, x0:x1].float()
                     patch = (tgt[:3] * alpha + bg_region * (1.0 - alpha)).clamp(0, 255)
-                    out_im[k, :, y0:y1, x0:x1] = patch.to(torch.uint8)
+                    patch = patch.to(torch.uint8)
+                else:  # accepted with no paste (only min_px_count == 0)
+                    patch = torch.zeros((3, 1, 1), dtype=torch.uint8, device=dev)
+                    lbl_u8 = torch.zeros((1, 1, 1), dtype=torch.uint8, device=dev)
+                    y0 = x0 = y1 = x1 = 0
+                k = n_good + 1
+                if compact:
+                    slots.append(dict(bg_idx=base_idx, kernel=bg_kern, patch=patch,
+                                      box=(y0, x0, y1 - y0, x1 - x0), lbl=lbl_u8[0]))
+                else:
+                    out_im[k] = bg_u8
+                    out_im[k, :, y0:y1, x0:x1] = patch
                     out_lb[k, :, y0:y1, x0:x1] = lbl_u8
                 n_good += 1
+        if compact:
+            yi, xi, hi, wi = inpaint_box
+            return CompactAugBatch(
+                image=image0, mask=mask0[0],
+                inpaint_patch=inpainted[:, yi:yi + hi, xi:xi + wi].contiguous(),
+                inpaint_box=inpaint_box, warp_bases=warp_bases,
+                bg_idx=[s["bg_idx"] for s in slots], kernels=[s["kernel"] for s in slots],
+                patches=[s["patch"] for s in slots], boxes=[s["box"] for s in slots],
+                lbl_patches=[s["lbl"] for s in slots])
         return out_im, out_lb

@@ -5,15 +5,21 @@ augmented raw features, then re-projection into a large memory and a
 filter-only solve whose CG state persists), classification, and the online
 update that inserts every frame and re-solves every `train_skipping` frames.
 
-The JAX update's `lax.cond` becomes a host branch: `disc_update` reads the
-foreground count once per frame (one device sync) and decides there.
+The JAX update's `lax.cond` becomes a host branch in the host loop:
+`disc_update` reads the foreground count once per frame (one device sync)
+and decides there. The fused tracker's pieces read nothing on the host:
+`insert_sample` gates the insert with a tensor and `resolve_due` selects
+between the old and the re-solved filter with one. Objects are a list of
+(DiscParams, DiscState); `project_all` and `classify_objects` apply all of
+them in one convolution each.
 Weights are OIHW: project (c, Cin, 1, 1), filter (out, c, 3, 3).
 """
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import DiscConfig
 from ..device import resolve_device
@@ -33,7 +39,7 @@ class DiscState:
     memory: MemoryState
     cg: CGState
     frame_num: int
-    n_resolves: int = 0
+    n_resolves: object = 0   # int (host loop) or int64 device scalar (fused)
 
 
 def init_disc_params(cfg: DiscConfig, generator: torch.Generator, device=None) -> DiscParams:
@@ -168,3 +174,60 @@ def disc_update(params: DiscParams, state: DiscState, compressed_sample, train_y
         params, state.cg = filter_resolve(params, state, cfg)
         state.n_resolves += 1
     return params, state
+
+
+# -- the fused tracker's pieces: N objects, nothing read on the host ---------
+
+
+def project_all(features, projects):
+    """Every object's projection of every frame in one 1x1 convolution.
+
+    :param features: (T, Cin, h, w)
+    :param projects: N weights (c, Cin, 1, 1)
+    :return: (T, N, c, h, w)
+    """
+    out = conv2d(features, torch.cat(list(projects)))
+    return out.view(features.shape[0], len(projects), -1, *features.shape[-2:])
+
+
+def classify_objects(compressed, filters):
+    """N filters on N projected maps as one grouped convolution.
+
+    :param compressed: (B, N, c, h, w)
+    :param filters: N weights (1, c, 3, 3)
+    :return: (B, N, h, w) coarse scores
+    """
+    B, N, c, h, w = compressed.shape
+    weight = torch.cat(list(filters))
+    if tuple(weight.shape) != (N, c, 3, 3):
+        raise ValueError(f"classify_objects: filters {tuple(weight.shape)} for "
+                         f"{N} objects of {c} channels")
+    return F.conv2d(compressed.reshape(B, N * c, h, w), weight, padding=1, groups=N)
+
+
+def insert_sample(state: DiscState, compressed_sample, train_y, enabled, cfg: DiscConfig):
+    """One tracked frame of one object: the memory insert, gated at the row
+    by the 0-dim bool tensor `enabled` (>= 10 foreground pixels), and the
+    frame counter, which advances whatever the mask holds."""
+    label, pw = online_update_weights(train_y, cfg)
+    state.memory = memory_update(state.memory, compressed_sample, label, pw,
+                                 cfg.learning_rate, enabled=enabled)
+    state.frame_num += 1
+
+
+def resolve_due(params: DiscParams, state: DiscState, due, cfg: DiscConfig) -> DiscParams:
+    """Filter re-solve whose result is taken where the 0-dim bool tensor
+    `due` holds: only the filter and the CG state pass through the select,
+    the memory buffers are read by the solve and never copied."""
+    new_params, new_cg = filter_resolve(params, state, cfg)
+
+    def sel(a, b):
+        return torch.where(due, a, b)
+
+    cg = state.cg
+    state.cg = replace(cg, p=tuple(map(sel, new_cg.p, cg.p)),
+                       r_prev=tuple(map(sel, new_cg.r_prev, cg.r_prev)),
+                       rho=sel(new_cg.rho, cg.rho), have_p=sel(new_cg.have_p, cg.have_p),
+                       step_alpha=sel(new_cg.step_alpha, cg.step_alpha))
+    state.n_resolves = state.n_resolves + due.long()
+    return params._replace(filter=sel(new_params.filter, params.filter))

@@ -27,13 +27,20 @@ def _shifted_products(in_size, out_size):
     return out.astype(np.float32)
 
 
+@lru_cache(maxsize=64)
+def _on(device: torch.device, matrix, in_size: int, out_size: int) -> torch.Tensor:
+    """One of the constant matrices above on `device`, uploaded once: an
+    upload per solve would stall the host on the card's queue each time."""
+    return torch.from_numpy(matrix(in_size, out_size)).to(device)
+
+
 def precompute_stencil(w2, score_hw):
     """:param w2: (S, H, W) squared residual weights
     :return: (S, 3, 3, h, w) stencil maps"""
     S, H, W = w2.shape
     h, w = score_hw
-    Ph = torch.from_numpy(_shifted_products(h, H)).to(w2.device)   # (3, H, h)
-    Pw = torch.from_numpy(_shifted_products(w, W)).to(w2.device)   # (3, W, w)
+    Ph = _on(w2.device, _shifted_products, h, H)   # (3, H, h)
+    Pw = _on(w2.device, _shifted_products, w, W)   # (3, W, w)
     row = torch.einsum("dYa,SYX->dSaX", Ph, w2)
     return torch.einsum("dSaX,eXb->Sdeab", row, Pw)
 
@@ -42,8 +49,8 @@ def project_targets(w2, y, score_hw):
     """v = U'(w^2 * y) at score resolution: (S, h, w)."""
     S, H, W = w2.shape
     h, w = score_hw
-    Uh = torch.from_numpy(_linear_matrix(h, H)).to(w2.device)
-    Uw = torch.from_numpy(_linear_matrix(w, W)).to(w2.device)
+    Uh = _on(w2.device, _linear_matrix, h, H)
+    Uw = _on(w2.device, _linear_matrix, w, W)
     g = torch.einsum("Ya,SYX->SaX", Uh, w2 * y)
     return torch.einsum("SaX,Xb->Sab", g, Uw)
 

@@ -1,0 +1,513 @@
+"""The fused sequence tracker (frtm_tpu/runtime/sequence_tracker.py).
+
+The backbone is frozen and stateless, so the pyramid of the WHOLE sequence is
+extracted in batches before tracking starts, and each object's projection
+(fixed after init) compresses all frames in one convolution. Between two
+filter re-solves the target models are constant, so classify -> decode ->
+merge for a whole `train_skipping` window runs as one batch of
+window x objects; only the memory inserts inside a window are sequential.
+Objects are lanes with start-frame masks: all are initialised up front, a
+lane is silent before its start frame, contributes its ground truth at it,
+and is tracked after it.
+
+Two merge modes:
+  * 'online'  — per-frame soft aggregation with entering objects' ground
+    truth rows taking part; labels per frame.
+  * 'deferred' — per-frame updates use the exclusive merge, but the outputs
+    are the raw suppressed per-object soft masks, merged once over the whole
+    sequence with ground truth inserted at the start frames.
+
+What the JAX package compiles as two `lax.scan` programs is here one Python
+loop over windows (`_track`; `_window_track` runs it at a window of
+train_skipping frames): the per-frame program is that loop at a window of 1
+(`_scan_track`), taken when some object's start frame does not
+fall on a window boundary. The order of work is the JAX package's: the
+whole-sequence extract is enqueued BEFORE the host augment and nothing in
+it waits for the card, so the card computes the pyramid while the host
+inpaints; frames are uploaded, and the uploads have landed, before the fps
+clock starts; downloads happen after it. The loop reads nothing back from
+the card: the >= 10 pixel gate of the memory insert and the choice between
+the old and the re-solved filter are tensors (models/discriminator.py).
+
+Nothing is compiled per shape, so there is no `scan_bucket`: the JAX package
+pads the tracked frames to a multiple of it (and skips the pad windows) so
+that sequence lengths share a program; the port tracks the real number of
+frames and its last window is short. Not ported yet: `mesh` and the sharded
+paths, multilayer target models, the device augment backend, bfloat16,
+`run_dataset` and PNG output.
+"""
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import TrackerConfig
+from ..device import resolve_device
+from ..models.aug_compose import compose_aug_batch, pack_bits, pack_compact_batch, unpack_bits
+from ..models.augmenter import ImageAugmenter
+from ..models.discriminator import (DiscParams, DiscState, classify_objects, disc_init,
+                                    init_disc_params, insert_sample, project_all,
+                                    resolve_due)
+from ..models.resnet import ResNet
+from ..models.seg_network import SegNetwork, seg_network_apply, seg_network_reduce
+from ..utils.profiling import PhaseTimer, count_host_syncs
+
+
+def merge_volume(fg: torch.Tensor, obj_ids_lut: torch.Tensor) -> torch.Tensor:
+    """Whole-volume soft aggregation: fg (T, N, H, W) -> (T, H, W) uint8 labels."""
+    fg = fg.clamp(1e-7, 1 - 1e-7)
+    bg = (1.0 - fg).amin(dim=1, keepdim=True)
+    p = torch.cat([bg, fg], dim=1)
+    idx = torch.softmax(p / (1.0 - p), dim=1).argmax(dim=1)
+    return obj_ids_lut[idx].to(torch.uint8)
+
+
+def merge_rows_and_label(rows: torch.Tensor, obj_ids_lut: torch.Tensor):
+    """Soft aggregation and labelling in one pass: rows (..., N, H, W) of
+    suppressed soft foreground masks -> (merged (..., N, H, W) exclusive
+    object rows, uint8 (..., H, W) label image).
+
+    The winners are those of merge_soft_masks followed by masks_to_labels,
+    with one softmax: the second step's argmax over the exclusive volume
+    reduces to "the step-1 winner keeps its label iff its merged
+    probability > 0.5, else background" (for a winner value s the re-derived
+    odds are s / (1 - s) against (1 - s) / s, and the first is larger iff
+    s > 0.5; ties go to background, the first maximum)."""
+    N = rows.shape[-3]
+    lut = obj_ids_lut
+    if N == 1:
+        # single object: the 2-way softmax over [bg, fg] odds is exactly the
+        # sigmoid of the odds difference
+        p = rows[..., 0, :, :].clamp(1e-7, 1 - 1e-7)
+        r1 = p / (1.0 - p)
+        r0 = (1.0 - p) / p
+        win = r1 > r0
+        s1 = torch.sigmoid(r1 - r0)
+        merged = (s1 * win.to(s1.dtype)).unsqueeze(-3)
+        label = torch.where(win & (s1 > 0.5), lut[1], lut[0])
+        return merged, label.to(torch.uint8)
+    p = rows.clamp(1e-7, 1 - 1e-7)
+    bg = (1.0 - p).amin(dim=-3)
+    r = p / (1.0 - p)
+    r_bg = bg / (1.0 - bg)
+    m = torch.maximum(r.amax(dim=-3), r_bg)
+    e = torch.exp(r - m.unsqueeze(-3))
+    e_bg = torch.exp(r_bg - m)
+    z = e_bg + e.sum(dim=-3)
+    seg = e / z.unsqueeze(-3)             # object softmax rows
+    seg_bg = e_bg / z
+    k = e.argmax(dim=-3)                  # winner among objects (first max)
+    s_win = seg.amax(dim=-3)
+    obj_wins = s_win > seg_bg             # strict: ties go to background
+    lane = torch.arange(N, device=rows.device).view(N, 1, 1)
+    merged = seg * ((lane == k.unsqueeze(-3)) & obj_wins.unsqueeze(-3)).to(seg.dtype)
+    label = torch.where(obj_wins & (s_win > 0.5), lut[1:][k], lut[0])
+    return merged, label.to(torch.uint8)
+
+
+Model = Tuple[DiscParams, DiscState]
+
+
+class BatchedSequenceTracker:
+    """Whole-sequence tracking as (batched extract) + (one loop over windows).
+
+    Beyond the JAX class: `device` (the card unless "cpu" is asked for),
+    `disc_params0` and `augmenter` as for the host-loop Tracker, and
+    `profile`: the timed pass then synchronises the card at every phase edge
+    (nothing overlaps, fps drops) and counts the scan's host waits, so that
+    `last_phase_stats` holds device-inclusive phase seconds."""
+
+    def __init__(self, cfg: TrackerConfig, backbone: ResNet, refiner: SegNetwork,
+                 extract_chunk: int = 8, merge_mode: str = "online",
+                 augment_backend: str = "host", decode_chunk: int = 0,
+                 aug_compact: bool = False, device=None,
+                 disc_params0: Optional[DiscParams] = None, augmenter=None,
+                 profile: bool = False):
+        """decode_chunk: decode a window in sub-batches of this many lanes
+        (0 = the whole window at once). aug_compact: take first-frame
+        augment batches in the compact encoding and compose them before the
+        init (models/aug_compose.py). Both default to off, as the JAX class
+        has them off the TPU."""
+        if merge_mode not in ("online", "deferred"):
+            raise ValueError(f"merge_mode {merge_mode!r}: 'online' or 'deferred'")
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError("the port's tracker computes in float32")
+        if cfg.disc_layers:
+            raise NotImplementedError("multilayer target models are not ported")
+        if augment_backend != "host":
+            raise NotImplementedError(f"augment backend {augment_backend!r} is not ported")
+        if cfg.disc.clamp_output:
+            raise NotImplementedError("clamp_output is not ported")
+        self.device = dev = resolve_device(device)
+        self.cfg = cfg
+        self.disc_cfg = cfg.disc
+        self.backbone = backbone.to(dev).eval()
+        self.refiner = refiner.to(dev).eval()
+        self.augmenter = augmenter or ImageAugmenter(cfg.aug_params, dev)
+        if disc_params0 is None:
+            disc_params0 = init_disc_params(cfg.disc, torch.Generator().manual_seed(0), dev)
+        self.disc_params0 = DiscParams(*(t.to(dev) for t in disc_params0))
+        self.extract_chunk = extract_chunk
+        self.merge_mode = merge_mode
+        self.decode_chunk = decode_chunk
+        self.aug_compact = aug_compact
+        self.profile = profile
+        self._all_layers = tuple(sorted(set(cfg.refnet_layers) | {cfg.disc.layer},
+                                        reverse=True))
+        self.last_phase_report = ""
+        self.last_phase_stats = {}
+        self.last_models: List[Model] = []
+
+    # -- frames and features --------------------------------------------------
+
+    def _upload_chunks(self, images_np) -> List[torch.Tensor]:
+        """The frames as (<= extract_chunk, H, W, 3) uint8 tensors on the
+        device. Called before the timed region, as the reference preloads
+        all frames before its fps clock starts."""
+        C = self.extract_chunk
+        return [torch.from_numpy(images_np[s:s + C]).to(self.device)
+                for s in range(0, images_np.shape[0], C)]
+
+    def _extract_sequence(self, chunks) -> dict:
+        """Chunked batched feature extraction over all frames:
+        {layer: (T, c, h, w)}. Only enqueues; nothing waits for the card."""
+        outs = [self.backbone.extract_features(c.permute(0, 3, 1, 2),
+                                               output_layers=self._all_layers)
+                for c in chunks]
+        return {L: torch.cat([o[L] for o in outs]) for L in outs[0]}
+
+    def _frame_dev(self, t: int, chunks) -> torch.Tensor:
+        """Frame t, (H, W, 3) uint8, from the preloaded buffers."""
+        if t == 0:
+            return self._frame0_dev
+        C = self.extract_chunk
+        return chunks[(t - 1) // C][(t - 1) % C]
+
+    def _frame0_label(self, objects, im_size) -> np.ndarray:
+        lb = np.zeros(im_size, np.uint8)
+        for obj_id, start_idx, mask, _ in objects:
+            if start_idx == 0:
+                lb[mask > 0] = obj_id
+        return lb
+
+    # -- objects: augment and init ----------------------------------------------
+
+    def _collect_objects(self, sequence):
+        """[(obj_id, start frame index, start mask (H, W) float32, init
+        image)] from the sequence's start-frame metadata, by (start, id)."""
+        frame_of = {f: i for i, f in enumerate(sequence.frame_names)}
+        objects = []
+        for frame_name, obj_ids in sequence.start_frames.items():
+            idx = frame_of[frame_name]
+            image, labels, _ = sequence[idx]
+            for obj_id in obj_ids:
+                mask = (np.asarray(labels).squeeze() == obj_id).astype(np.float32)
+                objects.append((obj_id, idx, mask, image))
+        objects.sort(key=lambda o: (o[1], o[0]))
+        return objects
+
+    def _pack_aug_batch(self, im_aug, lb_aug):
+        """One object's dense augment batch as the init takes it: slot 0 of
+        the images elided (it IS the real frame, which the preload holds)
+        and the binary masks bit-packed (np.packbits layout). Returns
+        (ims_rest (K-1, 3, H, W) uint8, lbs_packed (K, H, ceil(W / 8)) uint8)
+        on the device."""
+        ims = torch.as_tensor(im_aug).to(self.device)
+        lbs = torch.as_tensor(lb_aug).to(self.device)
+        return ims[1:], pack_bits(lbs[:, 0])
+
+    def _augment_objects(self, objects, timer: Optional[PhaseTimer] = None):
+        """First-frame augmentation for every object, in object order.
+        Returns per object (ims_rest, lbs_packed) as from _pack_aug_batch,
+        or in compact mode a pack_compact_batch dict."""
+        timer = timer or PhaseTimer(sync=False)
+        batches = []
+        for obj_id, start_idx, mask, image in objects:
+            rng = np.random.RandomState(0)  # per-object reseed, as the reference
+            if self.aug_compact:
+                with timer.phase("augment"):
+                    compact = self.augmenter.augment_first_frame(
+                        image, mask[..., None], rng, compact=True)
+                with timer.phase("aug_upload"):
+                    batches.append(pack_compact_batch(compact))
+                continue
+            with timer.phase("augment"):
+                im_aug, lb_aug = self.augmenter.augment_first_frame(image, mask[..., None], rng)
+            with timer.phase("aug_upload"):
+                batches.append(self._pack_aug_batch(im_aug, lb_aug))
+        return batches
+
+    def _init_objects_dense(self, images, labels) -> List[Model]:
+        """One target model per object: per object one backbone pass over its
+        augmented frames and the two-phase GN-CG init.
+
+        :param images: N tensors (K, 3, H, W) uint8
+        :param labels: N tensors (K, 1, H, W)
+        """
+        layer = self.disc_cfg.layer
+        models = []
+        for im, lb in zip(images, labels):
+            ft = self.backbone.extract_features(im, output_layers=[layer])
+            params, state = disc_init(self.disc_params0, ft[layer], lb, self.disc_cfg)
+            state.n_resolves = torch.zeros((), dtype=torch.int64, device=self.device)
+            models.append((params, state))
+        return models
+
+    def _init_objects(self, f0, ims_rest, lbs_packed):
+        """Init from the packed dense batches: reattach slot 0, unpack the
+        masks. Returns (models, (N, H, W) float32 slot-0 masks, the scan's
+        start masks)."""
+        W = f0[0].shape[1]
+        images = [torch.cat([f.permute(2, 0, 1)[None], rest]) for f, rest in zip(f0, ims_rest)]
+        labels = [unpack_bits(p, W)[:, None] for p in lbs_packed]
+        return (self._init_objects_dense(images, labels),
+                torch.stack([lb[0, 0] for lb in labels]).float())
+
+    def _init_objects_compact(self, f0, packs):
+        """Init from compact encodings: each object's batch is composed on
+        the device from its packed pieces. Returns as _init_objects."""
+        pairs = [compose_aug_batch(f.permute(2, 0, 1), pk) for f, pk in zip(f0, packs)]
+        labels = [lb for _, lb in pairs]
+        return (self._init_objects_dense([im for im, _ in pairs], labels),
+                torch.stack([lb[0, 0] for lb in labels]).float())
+
+    # -- the frame loop ---------------------------------------------------------
+
+    def _decode(self, scores, reduced, im_size):
+        """(B, 1, h, w) scores and per-lane TSE reductions -> (B, H, W) soft
+        foreground masks, in sub-batches of decode_chunk where that divides B."""
+        layers = self.cfg.refnet_layers
+        B, dc = scores.shape[0], self.decode_chunk
+        if dc and B > dc and B % dc == 0:
+            logits = torch.cat([
+                seg_network_apply(self.refiner, scores[i:i + dc], None, im_size, layers=layers,
+                                  reduced={L: (h[i:i + dc], hp[i:i + dc])
+                                           for L, (h, hp) in reduced.items()})
+                for i in range(0, B, dc)])
+        else:
+            logits = seg_network_apply(self.refiner, scores, None, im_size, layers=layers,
+                                       reduced=reduced)
+        return torch.sigmoid(logits[:, 0])
+
+    def _track(self, feats_all, models: List[Model], start_frames, start_masks,
+               obj_ids_lut, im_size, window: int):
+        """Track frames 1..T' in windows of `window` frames: one batched
+        classify + decode of window x objects lanes, a merge per frame, the
+        window's memory inserts in frame order, then the filter re-solve of
+        every object whose own counter is due.
+
+        :param feats_all:    {layer: (T', c, h, w)} frames 1..T'
+        :param models:       per object (DiscParams, DiscState); the states
+                             are updated in place, the filters in the list
+        :param start_frames: per object, its start frame index (host ints)
+        :param start_masks:  (N, H, W) float32 ground-truth start masks
+        :param obj_ids_lut:  (N + 1,) int labels, background first
+        :return: (T', H, W) uint8 labels (online) or (T', N, H, W) float32
+                 suppressed soft rows (deferred)
+        """
+        cfg = self.disc_cfg
+        online = self.merge_mode == "online"
+        N = len(models)
+        W = window
+        dev = self.device
+        layers = self.cfg.refnet_layers
+        n_track = feats_all[cfg.layer].shape[0]
+        compressed_all = project_all(feats_all[cfg.layer], [p.project for p, _ in models])
+        t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
+        starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
+        active_all = t_all > starts          # (T', N) tracked this frame
+        fresh_all = t_all == starts          # entering this frame
+        outs = []
+        for i0 in range(0, n_track, W):
+            i1 = min(i0 + W, n_track)
+            w = i1 - i0
+            active = active_all[i0:i1]
+            fresh = fresh_all[i0:i1]
+            # the same facts on the host, where the control flow needs them
+            active_h = [[t > s for s in start_frames] for t in range(i0 + 1, i1 + 1)]
+            entering = any(s in range(i0 + 1, i1 + 1) for s in start_frames)
+
+            cft = compressed_all[i0:i1]                          # (w, N, c, h, w)
+            scores = classify_objects(cft, [p.filter for p, _ in models])
+            # the object-independent TSE reductions run once per frame and
+            # are repeated, at 32 channels, across the object lanes
+            red = seg_network_reduce(self.refiner, {L: feats_all[L][i0:i1] for L in layers},
+                                     layers)
+            if N > 1:
+                red = {L: (h.repeat_interleave(N, dim=0), hp.repeat_interleave(N, dim=0))
+                       for L, (h, hp) in red.items()}
+            y = self._decode(scores.reshape(w * N, 1, *scores.shape[-2:]), red, im_size)
+            y = y.view(w, N, *y.shape[-2:]) * active[..., None, None]
+            if entering:
+                # suppress tracked masks under this window's entering objects
+                sup = torch.prod(1.0 - start_masks[None] * fresh[..., None, None], dim=1)
+                y = y * sup[:, None]
+                rows = torch.where(fresh[..., None, None], start_masks[None], y) if online else y
+            else:
+                rows = y
+            merged, labels = merge_rows_and_label(rows, obj_ids_lut)
+            outs.append(labels if online else rows)
+
+            if not cfg.update_filters:
+                for k, (_, state) in enumerate(models):
+                    state.frame_num += sum(a[k] for a in active_h)
+                continue
+            enough = ((merged > 0.5).sum(dim=(-2, -1)) >= 10) & active      # (w, N)
+            for f in range(w):
+                for k, (_, state) in enumerate(models):
+                    if active_h[f][k]:
+                        insert_sample(state, cft[f, k], merged[f, k][None], enough[f, k], cfg)
+            for k, (params, state) in enumerate(models):
+                if active_h[-1][k] and state.frame_num % cfg.train_skipping == 0:
+                    models[k] = (resolve_due(params, state, enough[-1, k], cfg), state)
+        return torch.cat(outs)
+
+    def _window_track(self, *args):
+        """The windowed loop, a window of train_skipping frames: with every
+        start frame on a window boundary the re-solves fall exactly at the
+        window ends, as in the per-frame loop."""
+        return self._track(*args, window=max(int(self.disc_cfg.train_skipping), 1))
+
+    def _scan_track(self, *args):
+        """The per-frame loop: every object on its own re-solve cadence."""
+        return self._track(*args, window=1)
+
+    def _merge_volume_windows(self, outs, start_frames, start_masks, lut, T,
+                              window: int = 32):
+        """Deferred whole-sequence merge in windows of `window` frames, so
+        that its temporaries are bounded whatever the sequence length: frame
+        0 is an all-zeros row, frame t > 0 is outs[t - 1], and each object's
+        start mask is inserted at its start frame. Equal to the one-shot
+        merge (the merge is per frame)."""
+        chunks = []
+        for w0 in range(0, T, window):
+            w1 = min(w0 + window, T)
+            fg = outs[max(w0 - 1, 0):w1 - 1]
+            if w0 == 0:
+                fg = torch.cat([torch.zeros_like(outs[:1]), fg])
+            else:
+                fg = fg.clone()
+            for k, start_idx in enumerate(start_frames):
+                if w0 <= start_idx < w1:
+                    fg[start_idx - w0, k] = start_masks[k]
+            chunks.append(merge_volume(fg, lut))
+        return torch.cat(chunks)
+
+    # -- entry points -----------------------------------------------------------
+
+    def prepare_sequence(self, sequence) -> dict:
+        """The host-side preparation of a sequence, separable from tracking:
+        stack the frames, upload them, and run the first-frame augmentation.
+        The result feeds run_sequence(preloaded=)."""
+        images_np = np.stack([sequence[t][0] for t in range(len(sequence))])
+        return {"images_np": images_np,
+                "frame0_dev": torch.from_numpy(images_np[0]).to(self.device),
+                "chunks": self._upload_chunks(images_np[1:]),
+                "aug_batches": self._augment_objects(self._collect_objects(sequence))}
+
+    def run_sequence(self, sequence, speedrun: bool = False, soft: bool = False,
+                     aug_batches=None, preloaded=None):
+        """Track a sequence (objects may enter mid-sequence). Returns (list
+        of (H, W) uint8 label images, fps).
+
+        aug_batches: precomputed first-frame augment batches (from
+        _augment_objects, same object order); the timed region then excludes
+        augmentation. preloaded: a prepare_sequence() result. speedrun: one
+        untimed pass first (the convolution algorithm search, first
+        launches). soft=True (merge_mode='deferred' only) returns the raw
+        soft foreground volume (T, N, H, W) float32, ground truth inserted
+        at the start frames, instead of labels."""
+        if soft and self.merge_mode != "deferred":
+            raise ValueError("soft output is the deferred merge's pre-merge volume")
+        if preloaded is not None:
+            images_np = preloaded["images_np"]
+            self._frame0_dev = preloaded["frame0_dev"]
+            chunks = preloaded["chunks"]
+            if aug_batches is None:
+                aug_batches = preloaded["aug_batches"]
+        else:
+            images_np = np.stack([sequence[t][0] for t in range(len(sequence))])
+            self._frame0_dev = torch.from_numpy(images_np[0]).to(self.device)
+            chunks = self._upload_chunks(images_np[1:])
+
+        if speedrun:
+            self._run(images_np, sequence, PhaseTimer(sync=False), chunks, soft=soft,
+                      aug_batches=aug_batches)
+        timer = PhaseTimer(sync=self.profile, device=self.device)
+        # the preload has landed (and a warm-up pass has drained) before the clock
+        self._synchronize()
+        t0 = time.perf_counter()
+        result = self._run(images_np, sequence, timer, chunks, soft=soft,
+                           aug_batches=aug_batches)
+        self._synchronize()
+        fps = len(sequence) / max(time.perf_counter() - t0, 1e-9)
+        self.last_phase_report = timer.report()
+        stats = timer.stats()
+        if "scan" in stats:
+            stats["scan"]["host_syncs"] = self._scan_host_syncs.count
+            stats["scan"]["host_syncs_at"] = list(self._scan_host_syncs.where)
+        self.last_phase_stats = stats
+        # downloads happen after the clock
+        if soft:
+            return result[0].cpu().numpy(), fps
+        outputs = []
+        for arr in result:
+            a = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr, np.uint8)
+            outputs.extend(list(a) if a.ndim == 3 else [a])
+        return outputs, fps
+
+    def _synchronize(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def _run(self, images_np, sequence, timer: PhaseTimer, chunks, soft: bool = False,
+             aug_batches=None):
+        T = images_np.shape[0]
+        im_size = tuple(images_np.shape[1:3])
+        objects = self._collect_objects(sequence)
+        if not objects:
+            raise ValueError("sequence has no objects")
+        frame0_label = self._frame0_label(objects, im_size)
+        if T == 1:  # nothing to track: the output is the start labels
+            return (frame0_label,)
+        start_frames = [o[1] for o in objects]
+        # uploaded while the card's queue is still empty
+        lut = torch.tensor([0] + [o[0] for o in objects], dtype=torch.int32, device=self.device)
+
+        # The extract reads only frames that are already on the card, so it
+        # is enqueued before the host augment and runs under it.
+        with timer.phase("extract"):
+            feats_all = self._extract_sequence(chunks)
+        if aug_batches is None:
+            aug_batches = self._augment_objects(objects, timer)
+        with timer.phase("disc_init"):
+            f0 = [self._frame_dev(s, chunks) for s in start_frames]
+            if self.aug_compact:
+                models, start_masks = self._init_objects_compact(f0, aug_batches)
+            else:
+                models, start_masks = self._init_objects(
+                    f0, [a for a, _ in aug_batches], [b for _, b in aug_batches])
+        self.last_models = models
+
+        # the windowed loop when re-solves provably fall on window ends
+        # (every start frame = 0 mod train_skipping, or no online updates)
+        W = max(int(self.disc_cfg.train_skipping), 1)
+        aligned = (not self.disc_cfg.update_filters) or all(s % W == 0 for s in start_frames)
+        track = self._window_track if aligned else self._scan_track
+        with timer.phase("scan"):
+            with count_host_syncs(self.device if self.profile else "cpu") as syncs:
+                outs = track(feats_all, models, start_frames, start_masks, lut, im_size)
+        self._scan_host_syncs = syncs
+        if self.merge_mode == "online":
+            return (frame0_label, outs)
+
+        # deferred: whole-sequence merge with ground truth at the start frames
+        with timer.phase("deferred_merge"):
+            if soft:
+                fg = torch.cat([torch.zeros_like(outs[:1]), outs])
+                for k, start_idx in enumerate(start_frames):
+                    fg[start_idx, k] = start_masks[k]
+                return (fg,)
+            return (self._merge_volume_windows(outs, start_frames, start_masks, lut, T),)

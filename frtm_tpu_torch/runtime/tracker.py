@@ -8,12 +8,10 @@ starting weights; by default the port's own seeded init — the JAX tracker
 draws them from jax.random.PRNGKey(0), which torch cannot reproduce) and
 `augmenter` (any object with `augment_first_frame(image, mask, rng)`
 returning (K, 3, H, W) / (K, 1, H, W) uint8 tensors on the tracker's device).
-With `profile=True` each phase ends in a device synchronise and its seconds
-accumulate in `phase_seconds`.
+With `profile=True` each phase starts and ends in a device synchronise
+(utils/profiling.py); its seconds accumulate in `phase_seconds`.
 """
 import time
-from collections import defaultdict
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -27,6 +25,7 @@ from ..models.discriminator import (DiscParams, DiscState, disc_apply, disc_init
                                     disc_update, init_disc_params)
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, seg_network_apply
+from ..utils.profiling import PhaseTimer
 
 
 @dataclass
@@ -76,6 +75,8 @@ class Tracker:
                  augmenter=None, profile: bool = False):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError("the port's tracker computes in float32")
+        if cfg.disc_layers:
+            raise NotImplementedError("multilayer target models are not ported")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.disc_cfg = cfg.disc
@@ -88,26 +89,15 @@ class Tracker:
         self._all_layers = tuple(sorted(set(cfg.refnet_layers) | {cfg.disc.layer},
                                         reverse=True))
         self.profile = profile
-        self.phase_seconds = defaultdict(float)
+        self.timer = PhaseTimer(sync=profile, device=dev)
+        self._phase = self.timer.phase
+        self.phase_seconds = self.timer.totals
         self.clear()
 
     def clear(self):
         self.targets: Dict[int, TargetObject] = {}
         self.current_frame = 0
         self.current_masks: Optional[torch.Tensor] = None
-
-    @contextmanager
-    def _phase(self, name):
-        if not self.profile:
-            yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.phase_seconds[name] += time.perf_counter() - t0
 
     @torch.no_grad()
     def initialize(self, image: np.ndarray, labels: np.ndarray, new_objects):

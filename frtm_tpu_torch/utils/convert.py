@@ -6,6 +6,10 @@
   first; this module imports no JAX) and return the port's state dicts:
   HWIO -> OIHW, BN scale / bias / mean / var -> weight / bias /
   running_mean / running_var.
+* `disc_objects_from_jax` takes the fused tracker's target models (params
+  and states with a leading object axis) and returns the port's per-object
+  list, so that a test can compare both sides after the init or hand one
+  side's state to the other.
 * The port's own seeded init from a torch.Generator: `init_resnet`
   (He-normal fan-out convs; see its note on residual gains) and
   `init_seg_network` (torch Conv2d's default uniform bounds).
@@ -14,9 +18,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.discriminator import DiscParams
+from ..models.discriminator import DiscParams, DiscState
+from ..models.memory import MemoryState
 from ..models.resnet import RESNET_SPECS, ResNet
 from ..models.seg_network import SegNetwork
+from ..models.solver import CGState
 
 _RESIDUAL_GAIN = 0.1
 
@@ -90,6 +96,47 @@ def seg_network_from_jax(tree) -> dict:
 def disc_params_from_jax(project, filter) -> DiscParams:
     """JAX DiscParams leaves (1, 1, Cin, c) / (3, 3, c, out) -> OIHW."""
     return DiscParams(_oihw(project), _oihw(filter))
+
+
+def _nchw(a) -> torch.Tensor:
+    # always a copy: the memory's stores are written in place
+    return torch.from_numpy(np.array(np.transpose(np.asarray(a, np.float32), (0, 3, 1, 2)),
+                                     order="C"))
+
+
+def disc_objects_from_jax(params, states, device=None):
+    """The JAX fused tracker's target models -> the port's list of
+    (DiscParams, DiscState), one per object.
+
+    :param params: DiscParams leaves with a leading object axis, as numpy:
+        (project (N, 1, 1, Cin, c), filter (N, 3, 3, c, out))
+    :param states: DiscState with a leading object axis, as nested tuples of
+        numpy arrays in the JAX field order: (memory (samples (N, cap, h, w, c),
+        labels (N, cap, H, W, 1), pixel_weights, weights (N, cap),
+        current_size (N,), prev_ind (N,)), cg (p, r_prev, rho, have_p,
+        step_alpha), frame_num (N,))
+    """
+    dev = resolve_device(device)
+    project, filt = params
+    memory, cg, frame_num = states
+    samples, labels, pixel_weights, weights, current_size, prev_ind = memory
+    cg_p, cg_r_prev, rho, have_p, step_alpha = cg
+    models = []
+    for k in range(np.asarray(project).shape[0]):
+        mem = MemoryState(
+            samples=_nchw(samples[k]).to(dev), labels=_nchw(labels[k]).to(dev),
+            pixel_weights=_nchw(pixel_weights[k]).to(dev), weights=_t(weights[k]).to(dev),
+            current_size=torch.tensor(int(current_size[k]), dtype=torch.int64, device=dev),
+            prev_ind=torch.tensor(int(prev_ind[k]), dtype=torch.int64, device=dev))
+        cg_k = CGState(p=tuple(_oihw(a[k]).to(dev) for a in cg_p),
+                       r_prev=tuple(_oihw(a[k]).to(dev) for a in cg_r_prev),
+                       rho=_t(rho[k]).to(dev),
+                       have_p=torch.tensor(bool(have_p[k]), device=dev),
+                       step_alpha=_t(step_alpha[k]).to(dev))
+        state = DiscState(memory=mem, cg=cg_k, frame_num=int(frame_num[k]),
+                          n_resolves=torch.zeros((), dtype=torch.int64, device=dev))
+        models.append((DiscParams(_oihw(project[k]).to(dev), _oihw(filt[k]).to(dev)), state))
+    return models
 
 
 @torch.no_grad()

@@ -34,12 +34,14 @@ def gen():
     return torch.Generator().manual_seed(0)
 
 
-# the main path's two stages and N=8 (the fused tracker's decode window);
+# the main path's two stages, N=8 (the fused tracker's decode window), and
+# N=16 and 40 (that window with 2 and 5 objects);
 # odd W (2W = 2 mod 4: 8-byte stores); 2W just below, at and above the
 # 128-column tile (W = 63, 64, 65, 66); H below and just above the
 # 32-row-pair tile (H = 5, 32, 33); a single pixel
 @pytest.mark.parametrize("shape", [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214),
-                                   (2, 3, 7, 5), (1, 1, 1, 1), (1, 2, 9, 131),
+                                   (16, 32, 120, 214), (16, 16, 240, 428),
+                                   (40, 32, 120, 214), (40, 16, 240, 428), (2, 3, 7, 5), (1, 1, 1, 1), (1, 2, 9, 131),
                                    (1, 3, 5, 63), (1, 3, 32, 64), (1, 3, 17, 65),
                                    (2, 2, 33, 66)])
 def test_pyrup_kernel_is_bit_exact(gen, shape):
@@ -50,11 +52,13 @@ def test_pyrup_kernel_is_bit_exact(gen, shape):
     assert torch.equal(got, pyr_up_bicubic_plain(x))
 
 
-# the head conv at N=1 and N=8; Cin 1, 3, 16 and 64; rows only 4-byte
+# the head conv at N=1, 8, 16 and 40 (the batch is the grid's z extent,
+# limit 65535); Cin 1, 3, 16 and 64; rows only 4-byte
 # aligned (W = 129, 127: 4-byte copies); H below (4, 5, 7, 9) and just above
 # (17) the 16-row tile
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("shape", [(1, 16, 480, 854), (8, 16, 480, 854), (2, 3, 5, 129),
+@pytest.mark.parametrize("shape", [(1, 16, 480, 854), (8, 16, 480, 854), (16, 16, 480, 854),
+                                   (40, 16, 480, 854), (2, 3, 5, 129),
                                    (1, 64, 17, 33), (1, 1, 9, 130), (3, 1, 4, 7),
                                    (1, 3, 7, 127)])
 def test_conv3x3_cout1_kernel_matches_plain(gen, shape, bias):
@@ -186,3 +190,58 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                       torch.zeros(1, 926, 3, 3, device="cuda"))
     with pytest.raises(ValueError):
         warp_affine(x[0], np.eye(2), (8, 10))
+
+
+def test_fused_tracker_decodes_through_the_kernels(gen, monkeypatch):
+    """The fused tracker's window decode on the card launches kernels 1 and 2
+    (2 pyrups and 1 head conv per decode call), never their plain versions."""
+    from dataclasses import replace
+    from frtm_tpu_torch.config import eval_config
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.models.resnet import resnet_out_channels
+    from importlib import import_module
+    from frtm_tpu_torch.ops.kernels import reset_launches
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    from frtm_tpu_torch.utils.convert import init_resnet, init_seg_network
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    cfg = eval_config("resnet18", fast=True, num_aug=3)
+    cfg = replace(cfg, disc=replace(cfg.disc, init_iters=(3, 5), update_iters=(3,),
+                                    memory_size=8, c_channels=16, train_skipping=2))
+    ch = {L: c for L, c in resnet_out_channels("resnet18").items() if L in cfg.refnet_layers}
+    tracker = BatchedSequenceTracker(
+        cfg, init_resnet("resnet18", torch.Generator().manual_seed(1)),
+        init_seg_network(ch, torch.Generator().manual_seed(2)))
+    assert tracker.device.type == "cuda"
+    seq = make_moving_square_sequence(n_frames=6, size=(96, 128), square=24, n_objects=2,
+                                      seed=2)
+    # the wrappers' own modules (the package re-exports the functions under
+    # the same names)
+    monkeypatch.setattr(import_module("frtm_tpu_torch.ops.kernels.pyrup"),
+                        "pyr_up_bicubic_plain", refuse)
+    monkeypatch.setattr(import_module("frtm_tpu_torch.ops.kernels.conv3x3_cout1"),
+                        "conv3x3_cout1_plain", refuse)
+    reset_launches()
+    outputs, _ = tracker.run_sequence(seq)
+    windows = 3                                  # 5 tracked frames, windows of 2
+    assert LAUNCHES["pyrup"] == 2 * windows and LAUNCHES["conv3x3_cout1"] == windows
+    assert VARIANTS["warp_affine"]["direct"] == 0 and LAUNCHES["warp_affine"] > 0
+    assert len(outputs) == 6 and all(o.shape == (96, 128) for o in outputs)
+
+
+def test_count_host_syncs_sees_reads_and_blocking_uploads(gen):
+    """The counter behind the fused tracker's `host_syncs`: a read and a
+    blocking upload count, launches and views do not."""
+    from frtm_tpu_torch.utils.profiling import count_host_syncs
+    x = torch.ones(8, device="cuda")
+    with count_host_syncs("cuda") as syncs:
+        y = (x * 2).sum()
+        z = y[None].expand(3)
+    assert syncs.count == 0
+    with count_host_syncs("cuda") as syncs:
+        float(y)
+        torch.arange(4.0).to("cuda")
+    assert syncs.count == 2, syncs.where
+    assert torch.cuda.get_sync_debug_mode() == 0 and z.shape == (3,)
