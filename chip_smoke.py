@@ -6,43 +6,71 @@ is right on one NVIDIA GPU (built for Hopper, sm_90a).
 
 Phases, each printing one JSON line:
   1. probe    — CUDA present, a real launch, card name and power limit;
-  2. build    — the three CUDA kernels compiled from frtm_tpu_torch/ops/kernels/csrc;
+  2. build    — the three CUDA kernels compiled from frtm_tpu_torch/ops/kernels/csrc
+                (kernels 1 and 2 hold a float32 and a bfloat16 instance each);
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes (max abs difference within the stated
                 tolerance), with CUDA-event times of kernel, plain version and
-                the one PyTorch call computing the same function; the warp
-                rows name the variant they took (staged or direct), and the
-                phase gives the launch floor (a one-element zero_());
+                the one PyTorch call computing the same function; kernels 1
+                and 2 in float32 and in bfloat16 (half the bytes, so half the
+                bound); the warp rows name the variant they took (staged or
+                direct), and the phase gives the launch floor (a one-element
+                zero_());
   4. decode   — one full seg_network_apply at 480x854, kernels against plain
                 (its logits also set the scale of the random refiner's head,
-                so that the masks hold both classes);
+                so that the masks hold both classes); then the same decode in
+                bfloat16, kernels against plain, and its gap to float32;
   5. main     — the rn101 eval configuration (seeded random weights) tracking
                 one object through a synthetic 17-frame 480x854 sequence with
                 Tracker.run_sequence; launch counts of every kernel (every warp
                 must take the staged variant), per-phase seconds, peak memory,
                 finiteness;
   6. fused    — the fused tracker (BatchedSequenceTracker, online merge) on a
-                33-frame 480x854 sequence with two objects, same weights:
-                against the host-loop Tracker on the same sequence (labels
-                under 0.5 % of pixels apart in every frame, both objects in
-                the output), and with the compact augment against the dense
-                one; launch counts per run; fps of both engines, phase
-                seconds from a synchronised pass, the scan's host waits, peak
-                memory, and the device busy share of an unsynchronised pass
-                (device time of everything in a torch.profiler trace over
-                the wall);
-  7. small    — a 6-frame 96x128 rn18 sequence through the port on the CPU
+                17-frame 480x854 sequence with two objects, same weights, in
+                float32: against the host-loop Tracker on the same sequence
+                (labels under 0.5 % of pixels apart in every frame, both
+                objects in the output), and with the compact augment against
+                the dense one; launch counts per run; fps of both engines,
+                phase seconds from a synchronised pass, the scan's host waits,
+                peak memory, and the device busy share of an unsynchronised
+                pass (device time of everything in a torch.profiler trace
+                over the wall);
+  7. eval     — the evaluation entry point at full width, in bfloat16:
+                `frtm_tpu_torch.evaluate.main` with --dev cuda --dtype bfloat16
+                --engine fused on a fabricated reference-format .pth and a
+                torchvision-format backbone .pth (the same weights, written to
+                a temporary directory) over 3 synthetic 480x854 sequences of
+                25 frames with two objects, once without and once with
+                --pipeline. Checked: the loaded models equal the saved
+                tensors; 25 PNGs per sequence that read back (the port's own
+                codec) equal to what run_sequence returned; frame 0 equals the
+                ground truth; the pipelined run's PNGs equal the others byte
+                for byte; both report files, whose dataset means equal
+                evaluate_dataset's return; per run 18 pyrup, 9 head-conv and
+                48 warp launches, every decode launch the bfloat16 instance,
+                every warp staged; no host wait in the scan; a re-run equal.
+                Printed: fps per sequence, the average, the pipelined
+                aggregate, the host's seconds per phase, and on the first
+                sequence, its augment batches made once, fps and phase
+                seconds without the augment in bfloat16 and in float32, peak
+                memory of each, and the label gap between the two (it fails
+                above 5 % of a frame);
+  8. small    — a 6-frame 96x128 rn18 sequence through the port on the CPU
                 (plain versions) and on the card (kernels); masks must agree,
                 and each run must re-solve its filter twice.
-Then a {"kernels": [...]} line (one entry per kernel) and, last, the
+Then a {"kernels": [...]} line (one entry per kernel instance) and, last, the
 {"ok": true, "device": ...} line. Any failure exits non-zero before it.
 Without CUDA, or without the frtm_tpu_torch package beside this file, the
 script exits non-zero and prints no result.
 """
+import contextlib
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -203,12 +231,22 @@ def phase_build():
           "ptxas": ptxas, "spill_free": spill_free})
 
 
+def bf16_ulp(peak):
+    """The spacing of bfloat16 values at `peak` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(peak)) - 7)
+
+
 def _compare(name, shape, kernel_fn, plain_fn, library_fn, nbytes, flops, tol):
+    """tol: the largest max abs difference allowed, or "bf16_ulp" for one
+    bfloat16 ulp at the plain version's peak."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
-    if got.shape != want.shape:
-        fail(f"{name} {shape}: kernel shape {tuple(got.shape)} != plain {tuple(want.shape)}")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name} {shape}: kernel gives {tuple(got.shape)} {got.dtype}, "
+             f"plain {tuple(want.shape)} {want.dtype}")
+    if tol == "bf16_ulp":
+        tol = bf16_ulp(float(want.float().abs().max()))
     err = float((got.float() - want.float()).abs().max())
     if not np.isfinite(err) or err > tol:
         fail(f"{name} {shape}: max abs difference {err} over tolerance {tol}")
@@ -238,8 +276,8 @@ def phase_kernels():
 
     # kernel 1: the decoder's two pyrup stages (exact: same op order), at
     # N=1, at N=8 (the fused tracker's decode window with one object) and at
-    # N=16 (with two, the fused phase's batch)
-    stages = []
+    # N=16 (with two, the fused and eval phases' batch)
+    stages, stages16 = [], []
     for shape in [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214), (8, 16, 240, 428),
                   (16, 32, 120, 214), (16, 16, 240, 428)]:
         x = torch.randn(shape, generator=g).cuda()
@@ -250,12 +288,25 @@ def phase_kernels():
             lambda x=x: F.interpolate(x, scale_factor=2, mode="bicubic",
                                       align_corners=False),
             nbytes=4 * (x.numel() + n_out), flops=35 * n_out, tol=0.0))
+        # the bfloat16 instance on the same values, rounded: half the bytes,
+        # the float32 sums, one rounding at the store, so exact again
+        xh = x.to(torch.bfloat16)
+        stages16.append(_compare(
+            "pyrup_bf16", list(shape), lambda x=xh: pyr_up_bicubic(x),
+            lambda x=xh: pyr_up_bicubic_plain(x),
+            lambda x=xh: F.interpolate(x, scale_factor=2, mode="bicubic",
+                                       align_corners=False),
+            nbytes=2 * (x.numel() + n_out), flops=35 * n_out, tol=0.0))
     rows["pyrup"] = stages
+    rows["pyrup_bf16"] = stages16
 
-    # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1, 8, 16
+    # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1, 8, 16;
+    # in bfloat16 within one ulp at the output's peak (a float32 sum that
+    # differs in its last bits can round to the neighbouring value)
     w = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
     b = (torch.rand(1, generator=g) * 0.2 - 0.1).cuda()
-    convs = []
+    wh, bh = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    convs, convs16 = [], []
     for n in (1, 8, 16):
         x = torch.relu(torch.randn(n, 16, 480, 854, generator=g)).cuda()
         convs.append(_compare(
@@ -264,8 +315,20 @@ def phase_kernels():
             lambda x=x: F.conv2d(x, w, b, padding=1),
             nbytes=4 * (x.numel() + n * 480 * 854 + w.numel() + 1),
             flops=2 * 9 * x.numel(), tol=5e-5))
+        xh = x.to(torch.bfloat16)
         del x
+        row = _compare(
+            "conv3x3_cout1_bf16", [n, 16, 480, 854], lambda x=xh: conv3x3_cout1(x, wh, bh),
+            lambda x=xh: conv3x3_cout1_plain(x, wh, bh),
+            lambda x=xh: F.conv2d(x, wh, bh, padding=1),
+            nbytes=2 * (xh.numel() + n * 480 * 854 + w.numel() + 1),
+            flops=2 * 9 * xh.numel(), tol="bf16_ulp")
+        row["values_equal_share"] = float(
+            (conv3x3_cout1(xh, wh, bh) == conv3x3_cout1_plain(xh, wh, bh)).float().mean())
+        convs16.append(row)
+        del xh
     rows["conv3x3_cout1"] = convs
+    rows["conv3x3_cout1_bf16"] = convs16
 
     # kernel 3: a full-frame background warp (bicubic, 3 planes, rotated),
     # the eval augmenter's own background (scale 1.2 about the frame centre,
@@ -346,7 +409,11 @@ def build_models(arch, cfg, device):
 @torch.no_grad()
 def frame1_decoder(tracker, seq):
     """The tracker's own target model, solved on frame 0, applied to frame 1:
-    returns a function that decodes frame 1's logits with the refiner."""
+    returns a function that decodes frame 1's logits with the refiner, in
+    float32 or, given torch.bfloat16, as the fused tracker decodes in that
+    type: a bfloat16 copy of the refiner, features and scores cast at its
+    door."""
+    from frtm_tpu_torch.ops.conv import compute_copy
     from frtm_tpu_torch.models.discriminator import disc_apply
     from frtm_tpu_torch.models.seg_network import seg_network_apply
     cfg = tracker.cfg
@@ -360,8 +427,12 @@ def frame1_decoder(tracker, seq):
     scores, _ = disc_apply(params, feats[cfg.disc.layer])
     refnet_feats = {L: feats[L] for L in cfg.refnet_layers}
     size = seq.images[1].shape[:2]
-    return lambda: seg_network_apply(tracker.refiner, scores, refnet_feats, size,
-                                     layers=cfg.refnet_layers)
+
+    def decode(dtype=torch.float32):
+        return seg_network_apply(compute_copy(tracker.refiner, dtype), scores.to(dtype),
+                                 {L: f.to(dtype) for L, f in refnet_feats.items()}, size,
+                                 layers=cfg.refnet_layers)
+    return decode
 
 
 @torch.no_grad()
@@ -386,7 +457,8 @@ def logit_stats(logits):
 def phase_decode(tracker, seq):
     """One full decode at 480x854 with the kernels against the same call
     with their plain versions, on the card; then the head is scaled as in
-    scale_head, from the same logits."""
+    scale_head, from the same logits; then the decode in bfloat16."""
+    from frtm_tpu_torch.ops.kernels import VARIANTS, reset_launches
     decode = frame1_decoder(tracker, seq)
     got = decode()
     with plain_decoder():
@@ -399,9 +471,36 @@ def phase_decode(tracker, seq):
         fail(f"decode: kernels vs plain logits differ by {err} (tolerance {tol})")
     median, std = float(got.median()), float(got.std())
     scale_head(tracker.refiner, median, std)
+    after = decode()
+
+    # the same decode as the fused tracker runs it in bfloat16 (scaled head):
+    # kernels against plain versions, counted per instance. Kernel 1 is
+    # exact, so only the head conv's last rounding can differ: one ulp at the
+    # logits' peak. The gap to float32 is reported, not limited.
+    reset_launches()
+    got16 = decode(torch.bfloat16)
+    instances = {k: dict(VARIANTS[k]) for k in ("pyrup", "conv3x3_cout1")}
+    with plain_decoder():
+        want16 = decode(torch.bfloat16)
+    torch.cuda.synchronize()
+    if got16.dtype != torch.bfloat16 or not bool(torch.isfinite(got16.float()).all()):
+        fail(f"decode: bfloat16 logits are {got16.dtype}, or not finite")
+    if instances != {"pyrup": {"f32": 0, "bf16": 2}, "conv3x3_cout1": {"f32": 0, "bf16": 1}}:
+        fail(f"decode: a bfloat16 decode must launch only bfloat16 instances, got {instances}")
+    err16 = float((got16.float() - want16.float()).abs().max())
+    tol16 = bf16_ulp(float(want16.float().abs().max()))
+    if err16 > tol16:
+        fail(f"decode: bfloat16 kernels vs plain logits differ by {err16} (tolerance {tol16})")
+    gap = (got16.float() - after).abs()
     emit({"phase": "decode", "logits_shape": list(got.shape), "max_abs_err": err,
           "logit_scale": scale, "tolerance": tol, "head_median": median, "head_std": std,
-          "logits_before": logit_stats(got), "logits_after": logit_stats(decode())})
+          "logits_before": logit_stats(got), "logits_after": logit_stats(after),
+          "bf16": {"max_abs_err": err16, "tolerance": tol16, "instances": instances,
+                   "values_equal_share": float((got16 == want16).float().mean()),
+                   "logit_peak": float(after.abs().max()),
+                   "gap_to_float32_max": float(gap.max()),
+                   "gap_to_float32_rms": float(gap.square().mean().sqrt()),
+                   "sign_flips_share": float(((got16.float() > 0) != (after > 0)).float().mean())}})
 
 
 def phase_main(tracker, seq):
@@ -485,15 +584,15 @@ def trace_device_seconds(fn):
 
 
 def phase_fused(cfg, backbone, refiner):
-    """The fused tracker's main path: two objects, 33 frames (four windows of
-    8, four re-solves per object), against the host loop and against its own
-    compact-augment run."""
+    """The fused tracker's float32 path: two objects, 17 frames (two windows
+    of 8, two re-solves per object), against the host loop and against its
+    own compact-augment run."""
     from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
     from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
     from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
     from frtm_tpu_torch.runtime.tracker import Tracker
 
-    n_objects, n_frames = 2, 33
+    n_objects, n_frames = 2, 17
     seq = make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
                                       n_objects=n_objects, seed=0)
     tracked = n_frames - 1
@@ -591,6 +690,236 @@ def phase_fused(cfg, backbone, refiner):
     return launches
 
 
+class SyntheticDataset:
+    """Synthetic sequences behind the interface the CLI reads of a dataset:
+    a name, iteration over sequences, and per sequence the ground-truth
+    annotation files (`annos`), written here as indexed PNGs."""
+
+    def __init__(self, name, sequences, anno_root):
+        from frtm_tpu_torch.data.image import imwrite_indexed
+        self.name = name
+        self.sequences = sequences
+        self.all_annotations = False
+        for seq in sequences:
+            (anno_root / seq.name).mkdir(parents=True)
+            seq.annos = []
+            for frame, labels in zip(seq.frame_names, seq.labels):
+                seq.annos.append(anno_root / seq.name / f"{frame}.png")
+                imwrite_indexed(seq.annos[-1], labels)
+
+    def __len__(self):
+        return len(self.sequences)
+
+    def __getitem__(self, i):
+        return self.sequences[i]
+
+
+def phase_eval(cfg, backbone, refiner):
+    """This slice's path: the evaluation CLI in bfloat16 on fabricated
+    checkpoints and a synthetic dataset, without and with --pipeline."""
+    from dataclasses import replace
+    from frtm_tpu_torch import evaluate
+    from frtm_tpu_torch.data.image import imread
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+
+    n_seqs, n_frames, n_objects = 3, 25, 2
+    tracked = n_frames - 1
+    windows = -(-tracked // cfg.disc.train_skipping)
+    expected = {"pyrup": 2 * windows * n_seqs, "conv3x3_cout1": windows * n_seqs,
+                "warp_affine": 8 * n_objects * n_seqs}
+
+    recorded = {}           # run tag -> {sequence name: (labels, fps)}
+    enqueue = {}            # run tag -> {sequence name: {phase: host seconds}}
+    original = BatchedSequenceTracker.run_sequence
+
+    def recording(self, sequence, *args, **kwargs):
+        out = original(self, sequence, *args, **kwargs)
+        recorded.setdefault(self.run_tag, {})[sequence.name] = out
+        enqueue.setdefault(self.run_tag, {})[sequence.name] = {
+            k: v["total_s"] for k, v in self.last_phase_stats.items()}
+        return out
+
+    walls = {}              # run tag -> seconds inside run_dataset (tracking and PNG writes)
+    original_dataset = BatchedSequenceTracker.run_dataset
+
+    def timed_dataset(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = original_dataset(self, *args, **kwargs)
+        walls[self.run_tag] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="frtm_smoke_") as tmp:
+        tmp = Path(tmp)
+        # the reference's trainer checkpoint (refiner.* keys under "model";
+        # the head is the one `decode` scaled) and a torchvision-format backbone
+        saved_refiner = {k: v.detach().cpu().clone() for k, v in refiner.state_dict().items()}
+        saved_backbone = {k: v.detach().cpu().clone() for k, v in backbone.state_dict().items()}
+        torch.save({"model": {"refiner." + k: v for k, v in saved_refiner.items()},
+                    "epoch": 260}, tmp / "rn101_smoke.pth")
+        torch.save(saved_backbone, tmp / "resnet101.pth")
+        seqs = [make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
+                                            n_objects=n_objects, seed=20 + i, name=f"synth{i}")
+                for i in range(n_seqs)]
+        dataset = SyntheticDataset("synthval", seqs, tmp / "annotations")
+        argv = ["--model", str(tmp / "rn101_smoke.pth"), "--backbone", str(tmp / "resnet101.pth"),
+                "--dset", "dv2017val", "--dev", "cuda", "--dtype", "bfloat16",
+                "--engine", "fused"]
+
+        runs = {}
+        BatchedSequenceTracker.run_sequence = recording
+        BatchedSequenceTracker.run_dataset = timed_dataset
+        try:
+            for tag, extra in (("plain", []), ("pipelined", ["--pipeline"])):
+                BatchedSequenceTracker.run_tag = tag
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    result = evaluate.main(argv + ["--output", str(tmp / tag)] + extra,
+                                           dataset=dataset)
+                torch.cuda.synchronize()
+                runs[tag] = dict(result, wall_s=time.perf_counter() - t0,
+                                 launches=dict(LAUNCHES),
+                                 variants={k: dict(v) for k, v in VARIANTS.items()},
+                                 peak=torch.cuda.max_memory_allocated(), text=text.getvalue())
+                print(text.getvalue(), end="", flush=True)
+        finally:
+            BatchedSequenceTracker.run_sequence = original
+            BatchedSequenceTracker.run_dataset = original_dataset
+            del BatchedSequenceTracker.run_tag
+
+        # the loaded models are the saved tensors
+        tracker = runs["plain"]["tracker"]
+        for name, module, saved in (("refiner", tracker.refiner, saved_refiner),
+                                    ("backbone", tracker.backbone, saved_backbone)):
+            loaded = module.state_dict()
+            if set(loaded) != set(saved) or not all(
+                    torch.equal(loaded[k].cpu(), saved[k]) for k in saved):
+                fail(f"eval: the loaded {name} is not the saved one")
+        if tracker.cfg.compute_dtype != "bfloat16" or tracker.last_feats_dtype != torch.bfloat16 \
+                or tracker.extract_chunk != 16 \
+                or tracker.cfg.feature_extractor != cfg.feature_extractor:
+            fail(f"eval: the CLI did not build the {cfg.feature_extractor} bfloat16 tracker "
+                 "with extract_chunk=16")
+
+        # PNGs: all there, equal to what run_sequence returned, frame 0 the
+        # ground truth, the pipelined run's equal byte for byte
+        for tag, run in runs.items():
+            if run["out_path"] != (tmp / tag).resolve() / "synthval-rn101_smoke":
+                fail(f"eval: results went to {run['out_path']}")
+            for seq in seqs:
+                labels, _ = recorded[tag][seq.name]
+                files = sorted((run["out_path"] / seq.name).glob("*.png"))
+                if [f.stem for f in files] != seq.frame_names or len(labels) != n_frames:
+                    fail(f"eval ({tag}): {seq.name} has {len(files)} PNGs, {len(labels)} labels")
+                for f, lb in zip(files, labels):
+                    if not np.array_equal(imread(f)[..., 0], lb):
+                        fail(f"eval ({tag}): {f.name} of {seq.name} is not what was tracked")
+                    if tag == "pipelined" and f.read_bytes() != (
+                            runs["plain"]["out_path"] / seq.name / f.name).read_bytes():
+                        fail(f"eval: {seq.name}/{f.name} differs between the pipelined run "
+                             "and the other")
+                if not np.array_equal(labels[0], seq.labels[0][..., 0]):
+                    fail(f"eval ({tag}): frame 0 of {seq.name} is not the ground truth")
+                lost = [i for i in range(1, n_objects + 1)
+                        if min(int((lb == i).sum()) for lb in labels[1:]) == 0]
+                if lost:
+                    fail(f"eval ({tag}): objects {lost} are missing from a frame of {seq.name}")
+            # both reports, their last line the returned dataset mean
+            for measure in ("J", "F"):
+                report = run["out_path"] / f"evaluation-{measure}.txt"
+                if not report.exists():
+                    fail(f"eval ({tag}): {report.name} is missing")
+                last = report.read_text().splitlines()[-1]
+                if not (np.isfinite(run[measure]) and 0.0 <= run[measure] <= 1.0
+                        and last.startswith(f"{measure}: {run[measure]:.3f}, recall: ")):
+                    fail(f"eval ({tag}): report ends {last!r}, returned {run[measure]}")
+            # launches: what the code implies, all decodes in bfloat16, all warps staged
+            ln, vr = run["launches"], run["variants"]
+            if {k: ln[k] for k in expected} != expected:
+                fail(f"eval ({tag}): expected launches {expected}, got {ln}")
+            if vr["pyrup"] != {"f32": 0, "bf16": expected["pyrup"]} \
+                    or vr["conv3x3_cout1"] != {"f32": 0, "bf16": expected["conv3x3_cout1"]} \
+                    or vr["warp_affine"] != {"staged": expected["warp_affine"], "direct": 0}:
+                fail(f"eval ({tag}): every decode launch must take the bfloat16 instance and "
+                     f"every warp the staged one, got {vr}")
+        if (runs["plain"]["J"], runs["plain"]["F"]) != (runs["pipelined"]["J"],
+                                                          runs["pipelined"]["F"]):
+            fail("eval: the pipelined run scored differently")
+        if "(ex-augment)" in runs["plain"]["text"] \
+                or runs["pipelined"]["text"].count("(ex-augment)") != n_seqs:
+            fail("eval: the per-sequence fps lines are not tagged as the protocol says")
+        aggregate = [ln for ln in runs["pipelined"]["text"].splitlines()
+                     if ln.startswith("Pipelined dataset pass: ")]
+        if len(aggregate) != 1:
+            fail("eval: the pipelined run printed no aggregate line")
+
+        # the first sequence again, its augment batches made once and handed
+        # to every pass (the augment is the host's and the same in both
+        # types): on the CLI's tracker, timed and then with a synchronise at
+        # every phase edge (phase seconds, the scan's host waits), and the
+        # same through a float32 tracker of the same weights (the label gap)
+        batches = tracker._augment_objects(tracker._collect_objects(seqs[0]))
+
+        def passes(tr):
+            tr.run_sequence(seqs[0], aug_batches=batches)    # first launches in this type
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out, fps = tr.run_sequence(seqs[0], aug_batches=batches)
+            peak = torch.cuda.max_memory_allocated()
+            tr.profile = True
+            _, fps_profiled = tr.run_sequence(seqs[0], aug_batches=batches)
+            tr.profile = False
+            stats = tr.last_phase_stats
+            return {"labels": out, "fps_ex_augment": fps, "fps_ex_augment_profiled": fps_profiled,
+                    "phase_seconds": {k: v["total_s"] for k, v in stats.items()},
+                    "scan_host_syncs": stats["scan"]["host_syncs"],
+                    "scan_host_syncs_at": stats["scan"]["host_syncs_at"],
+                    "max_memory_allocated": peak}
+
+        bf16 = passes(tracker)
+        rerun_diff = max(float(np.mean(a != b)) for a, b in zip(
+            bf16["labels"], recorded["plain"][seqs[0].name][0]))
+        f32 = passes(BatchedSequenceTracker(replace(cfg, compute_dtype="float32"), backbone,
+                                            refiner, extract_chunk=16, device="cuda"))
+        gap = [float(np.mean(a != b)) for a, b in zip(bf16.pop("labels"), f32.pop("labels"))]
+
+    emit({"phase": "eval", "arch": cfg.feature_extractor, "dtype": "bfloat16", "engine": "fused",
+          "sequences": n_seqs, "frames": n_frames, "objects": n_objects, "size": [480, 854],
+          "windows_per_sequence": windows,
+          "fps_per_sequence": {t: {n: fps for n, (_, fps) in recorded[t].items()}
+                               for t in runs},
+          "fps_average": {t: r["fps"] for t, r in runs.items()},
+          "pipelined_aggregate_line": aggregate[0],
+          "pipelined_aggregate_fps": float(aggregate[0].split()[3]),
+          "run_dataset_wall_s": walls,
+          "run_dataset_fps": {t: n_seqs * n_frames / w for t, w in walls.items()},
+          "wall_s_with_load_and_scoring": {t: r["wall_s"] for t, r in runs.items()},
+          "J": runs["plain"]["J"], "F": runs["plain"]["F"],
+          "launches": {t: r["launches"] for t, r in runs.items()},
+          "instances": {t: r["variants"] for t, r in runs.items()},
+          "max_memory_allocated": {t: r["peak"] for t, r in runs.items()},
+          "host_seconds_per_phase": enqueue,
+          "first_sequence": {
+              "fps_cli_run": recorded["plain"][seqs[0].name][1],
+              "bf16": bf16, "float32": f32,
+              "label_mismatch_bf16_rerun_max": rerun_diff,
+              "label_gap_bf16_vs_float32": gap, "label_gap_bf16_vs_float32_max": max(gap)},
+          "tolerance": {"label_gap_bf16_vs_float32": 5e-2}})
+    if bf16["scan_host_syncs"] != 0:
+        fail(f"eval: the scan waited for the card {bf16['scan_host_syncs']} times: "
+             f"{bf16['scan_host_syncs_at']}")
+    if rerun_diff != 0:
+        fail(f"eval: a re-run of the CLI's tracker differs on {rerun_diff:.4%} of a frame")
+    if not max(gap) <= 5e-2:
+        fail(f"eval: bfloat16 labels differ from float32 on {max(gap):.2%} of a frame")
+    return runs["plain"]["launches"], runs["plain"]["variants"]
+
+
 def phase_small(arch="resnet18"):
     """A small sequence through the port twice: on the CPU (plain versions)
     and on the card (kernels, cuDNN), with the head scaled alike from the
@@ -629,23 +958,32 @@ def phase_small(arch="resnet18"):
         fail(f"small: filter re-solves {resolves}, expected {expected} on each device")
 
 
-def kernels_line(rows, launches, launches_fused):
-    """The contract line: one entry per kernel at its main-path shape (pyrup
-    stage 2, the head conv, the full-frame background warp). `launches` sums
-    the two main paths' runs (host loop and fused), each counted from 0."""
-    main_row = {"pyrup": 1, "conv3x3_cout1": 0, "warp_affine": 0}
+def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval):
+    """The contract line: one entry per kernel instance at its main-path
+    shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
+    host loop runs them, and at N = 16 in bfloat16, the eval path's window of
+    8 frames and two objects; the full-frame background warp). `launches`
+    sums the paths that run the instance, each counted from 0: the host loop
+    and the float32 fused tracker for the float32 instances, the unpipelined
+    CLI run for the bfloat16 ones, all three for the warp."""
+    entries = [("pyrup", "pyrup", 1, False), ("conv3x3_cout1", "conv3x3_cout1", 0, False),
+               ("warp_affine", "warp_affine", 0, True), ("pyrup_bf16", "pyrup", 5, True),
+               ("conv3x3_cout1_bf16", "conv3x3_cout1", 2, True)]
     out = []
-    for name, (replaces, source) in KERNEL_INFO.items():
-        r = rows[name][main_row[name]]
+    for name, kernel, main_row, in_eval in entries:
+        replaces, source = KERNEL_INFO[kernel]
+        r = rows[name][main_row]
+        bf16 = name.endswith("_bf16")
+        n_eval = (instances_eval[kernel]["bf16"] if bf16 else launches_eval[kernel]) * in_eval
+        n_host, n_fused = (0, 0) if bf16 else (launches[kernel], launches_fused[kernel])
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name] + launches_fused[name],
-                    "launches_host_loop": launches[name],
-                    "launches_fused": launches_fused[name], "max_abs_err": r["max_abs_err"],
+                    "launches": n_host + n_fused + n_eval,
+                    "launches_host_loop": n_host, "launches_fused": n_fused,
+                    "launches_eval": n_eval, "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "shape": r["shape"], "tolerance": r["tolerance"],
-                    "other_shapes": [o for i, o in enumerate(rows[name])
-                                     if i != main_row[name]]})
+                    "other_shapes": [o for i, o in enumerate(rows[name]) if i != main_row]})
     return {"kernels": out}
 
 
@@ -671,10 +1009,11 @@ def main():
     phase_decode(tracker, seq)
     launches = phase_main(tracker, seq)
     launches_fused = phase_fused(cfg, tracker.backbone, tracker.refiner)
+    launches_eval, instances_eval = phase_eval(cfg, tracker.backbone, tracker.refiner)
     del tracker
     phase_small()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
-    emit(kernels_line(rows, launches, launches_fused))
+    emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -1,6 +1,7 @@
 """Typed configuration: the port's own copies of frtm_tpu's DiscConfig,
-TrackerConfig, eval_aug_params and eval_config (the reference evaluate.py
-settings). Values are identical; only the import graph differs."""
+TrackerConfig, eval_aug_params, autodetect_arch and eval_config (the
+reference evaluate.py settings). Values are identical; only the import graph
+differs."""
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -62,7 +63,7 @@ def eval_aug_params(num_aug: int = 5) -> dict:
 
 @dataclass(frozen=True)
 class TrackerConfig:
-    """Inference configuration (single-layer target model, f32)."""
+    """Inference configuration (single-layer target model)."""
     feature_extractor: str = "resnet101"
     num_aug: int = 5
     disc: DiscConfig = field(default_factory=DiscConfig)
@@ -70,6 +71,9 @@ class TrackerConfig:
     refnet_channels: int = 64
     refnet_use_bn: bool = True
     aug_params: dict = field(default_factory=eval_aug_params)
+    # 'float32' or 'bfloat16': the type the backbone (both trackers) and the
+    # decoder (the fused tracker) compute in; target model, solver, memory
+    # and merge are float32 either way
     compute_dtype: str = "float32"
     # one target model per named layer; () = single-layer via disc.layer,
     # the only form the port's trackers take so far
@@ -79,7 +83,30 @@ class TrackerConfig:
         object.__setattr__(self, "aug_params", dict(self.aug_params))
 
 
-def eval_config(arch: str, fast: bool = False, num_aug: int = 5) -> TrackerConfig:
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def compute_dtype_of(cfg: "TrackerConfig"):
+    """cfg.compute_dtype as a torch dtype; raises on any other name."""
+    import torch
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {COMPUTE_DTYPES}")
+    return getattr(torch, cfg.compute_dtype)
+
+
+def autodetect_arch(refiner_state_dict) -> str:
+    """The backbone, from the input width of the refiner checkpoint's layer4
+    reduce conv ('refiner.TSE.layer4.reduce.0.weight', (O, I, kh, kw))."""
+    in_channels = refiner_state_dict["refiner.TSE.layer4.reduce.0.weight"].shape[1]
+    if in_channels == 1024:
+        return "resnet101"
+    if in_channels == 256:
+        return "resnet18"
+    raise ValueError(f"Cannot autodetect backbone from {in_channels} input channels")
+
+
+def eval_config(arch: str, fast: bool = False, num_aug: int = 5,
+                compute_dtype: str = "float32") -> TrackerConfig:
     """The reference eval settings; `fast` selects the (5,10,10,10)/(5,)
     schedule."""
     from .models.resnet import resnet_out_channels
@@ -102,4 +129,4 @@ def eval_config(arch: str, fast: bool = False, num_aug: int = 5) -> TrackerConfi
         layer="layer4",
     )
     return TrackerConfig(feature_extractor=arch, num_aug=num_aug, disc=disc,
-                         aug_params=eval_aug_params(num_aug))
+                         aug_params=eval_aug_params(num_aug), compute_dtype=compute_dtype)

@@ -1,0 +1,173 @@
+"""Image IO (frtm_tpu/data/image.py): reading frames and annotations, and
+writing label images as indexed-colour PNGs with the DAVIS palette, which is
+what the DAVIS tooling reads. (H, W, C) numpy arrays throughout.
+
+PNG goes through this module's own codec, on `zlib` and `struct` from the
+standard library, because the port must run where neither PIL nor cv2 nor
+libpng's headers are installed. It writes 8-bit indexed PNG with a PLTE
+chunk; it reads non-interlaced 8-bit PNG of every colour type (greyscale,
+RGB, indexed, and both with alpha) with all five scanline filters (None, Sub,
+Up, Average, Paeth: other writers choose a filter per row), and raises on
+what it does not read (16-bit samples, bit depths under 8, interlacing). An
+indexed PNG is read as its indices, (H, W, 1), like a label image.
+
+JPEG cannot be decoded with the standard library. `imread` of a .jpg imports
+PIL inside the function and raises an error that says so where PIL is absent;
+nothing else in the port names PIL.
+"""
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+# 256-entry palette; the first 22 are the DAVIS colours, the rest a grey ramp.
+davis_palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+davis_palette[:22] = [
+    [0, 0, 0], [128, 0, 0], [0, 128, 0], [128, 128, 0],
+    [0, 0, 128], [128, 0, 128], [0, 128, 128], [128, 128, 128],
+    [64, 0, 0], [191, 0, 0], [64, 128, 0], [191, 128, 0],
+    [64, 0, 128], [191, 0, 128], [64, 128, 128], [191, 128, 128],
+    [0, 64, 0], [128, 64, 0], [0, 191, 0], [128, 191, 0],
+    [0, 64, 128], [128, 64, 128],
+]
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# samples per pixel by PNG colour type
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png_indexed(labels, palette) -> bytes:
+    """The bytes of an 8-bit indexed PNG: (H, W) indices, (<= 256, 3) palette."""
+    labels = np.ascontiguousarray(labels, np.uint8)
+    if labels.ndim != 2:
+        raise ValueError(f"encode_png_indexed: expected (H, W) labels, got {labels.shape}")
+    palette = np.ascontiguousarray(palette, np.uint8)
+    if palette.ndim != 2 or palette.shape[1] != 3 or not 1 <= palette.shape[0] <= 256:
+        raise ValueError(f"encode_png_indexed: palette shape {palette.shape}")
+    h, w = labels.shape
+    # every scanline starts with its filter type; 0 = None
+    rows = np.zeros((h, w + 1), np.uint8)
+    rows[:, 1:] = labels
+    return (_PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+            + _chunk(b"PLTE", palette.tobytes())
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def _paeth_row(line, prev, bpp):
+    out = bytearray(line)
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        c = prev[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+        out[i] = (out[i] + pred) & 0xFF
+    return out
+
+
+def _average_row(line, prev, bpp):
+    out = bytearray(line)
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        out[i] = (out[i] + ((a + prev[i]) >> 1)) & 0xFF
+    return out
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters: (height, stride) uint8."""
+    if len(raw) != height * (stride + 1):
+        raise ValueError(f"PNG: {len(raw)} bytes of image data, expected "
+                         f"{height * (stride + 1)}")
+    out = np.empty((height, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(height):
+        start = y * (stride + 1)
+        ftype = raw[start]
+        line = np.frombuffer(raw, np.uint8, stride, start + 1)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:        # Sub: a running sum per sample, modulo 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:        # Up
+            cur = line + prev
+        elif ftype == 3:
+            cur = np.frombuffer(_average_row(line.tobytes(), prev.tobytes(), bpp), np.uint8)
+        elif ftype == 4:
+            cur = np.frombuffer(_paeth_row(line.tobytes(), prev.tobytes(), bpp), np.uint8)
+        else:
+            raise ValueError(f"PNG: unknown filter type {ftype} in row {y}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, C) uint8 from the bytes of a non-interlaced 8-bit PNG; C is 1
+    for greyscale and for indexed colour (the indices), 3 for RGB, 2 and 4
+    with alpha."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            raise ValueError("PNG: truncated chunk")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG: no IHDR or no IDAT chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8:
+        raise ValueError(f"PNG: bit depth {depth} is not supported (8 only)")
+    if interlace != 0:
+        raise ValueError("PNG: interlaced files are not supported")
+    if ctype not in _CHANNELS:
+        raise ValueError(f"PNG: unknown colour type {ctype}")
+    c = _CHANNELS[ctype]
+    return _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c).reshape(h, w, c)
+
+
+def imread(filename) -> np.ndarray:
+    """Read an image to (H, W, C) uint8 (C = 1 for indexed and grey label PNGs)."""
+    suffix = Path(filename).suffix.lower()
+    if suffix == ".png":
+        return decode_png(Path(filename).read_bytes())
+    if suffix in (".jpg", ".jpeg"):
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise RuntimeError(
+                f"imread({str(filename)!r}): decoding a JPEG needs PIL, which is not "
+                "installed here; the port's own codec reads PNG only") from e
+        with Image.open(filename) as im:
+            return np.atleast_3d(np.array(im))
+    raise ValueError(f"imread: unsupported file type {suffix!r} ({filename})")
+
+
+def imread_batch(filenames):
+    """Read many same-size frames into one (N, H, W, C) array."""
+    return np.stack([imread(f) for f in filenames])
+
+
+def imwrite_indexed(filename, labels, color_palette=None):
+    """Write a (H, W[, 1]) label image as an indexed-colour PNG."""
+    palette = davis_palette if color_palette is None else color_palette
+    labels = np.asarray(labels, np.uint8)
+    if labels.ndim == 3 and labels.shape[2] == 1:
+        labels = labels[..., 0]
+    Path(filename).write_bytes(encode_png_indexed(labels, palette))

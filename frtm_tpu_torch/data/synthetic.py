@@ -14,6 +14,7 @@ class SyntheticSequence:
         self.labels = labels
         self.start_frames = start_frames
         self.obj_ids = sorted({int(v) for lb in labels for v in np.unique(lb) if v != 0})
+        self.merge_objects = False      # read by evaluate_dataset
         self.frame_names = ["%05d" % i for i in range(len(images))]
 
     def __len__(self):

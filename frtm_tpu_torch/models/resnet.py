@@ -6,6 +6,12 @@ affine `x * norm_weight + norm_bias`. `extract_features` returns layer1..layer5
 Parameter names follow torchvision (conv1, bn1, layer1.0.conv1, ...,
 layerN.0.downsample.{0,1}), so a reference state dict loads with
 `load_state_dict`. Batch norm is always the inference form.
+
+The module computes in the type of its own parameters: for bfloat16, take
+`compute_copy(net, torch.bfloat16)` (ops/conv.py) once and call that. Then,
+as in the JAX package, the image is cast to bfloat16 before the
+normalisation, whose two constants are the float32 ones rounded, and every
+convolution and batch norm runs on bfloat16 weights and statistics.
 """
 import numpy as np
 import torch
@@ -109,18 +115,21 @@ class ResNet(nn.Module):
         self.requires_grad_(False)
 
     @torch.no_grad()
-    def extract_features(self, images, output_layers=None):
+    def extract_features(self, images, output_layers=None, out_dtype=torch.float32):
         """:param images: (N, 3, H, W) holding 0..255 values (any dtype)
         :param output_layers: optional iterable of layer names to keep
-        :return: {layer1..layer5: (N, c, h, w) float32 feature maps}"""
+        :param out_dtype: type of the emitted maps (bfloat16 halves the
+            pyramid for consumers that compute in it; the solver takes float32)
+        :return: {layer1..layer5: (N, c, h, w) feature maps}"""
         want = None if output_layers is None else set(output_layers)
         deepest = "layer5" if want is None else max(want)
-        x = images.float() * self.norm_weight[:, None, None] + self.norm_bias[:, None, None]
+        dtype = self.conv1.weight.dtype
+        x = images.to(dtype) * self.norm_weight[:, None, None] + self.norm_bias[:, None, None]
         out = {}
 
         def save(name, t):
             if want is None or name in want:
-                out[name] = t
+                out[name] = t.to(out_dtype)
 
         x = relu(self.bn1(conv2d(x, self.conv1.weight, stride=2)))
         x = max_pool_3x3_s2(x)

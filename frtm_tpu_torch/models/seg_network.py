@@ -10,6 +10,13 @@ BackwardCompatibleUpsampler): kernel 1 (2x bicubic pyramid upsampler), a
 `refiner.*` keys (TSE.{L}.reduce.{0,2}, TSE.{L}.transform.{0,2,4},
 RRB{1,2}.{L}.conv1x1 / .bblock.{0,1,3}, CAB.{L}.convreluconv.{0,2},
 project.conv{1,2}), so its state dict loads with `load_state_dict`.
+
+The module computes in the type of its own parameters. For bfloat16 (the
+fused tracker's decoder) take `compute_copy(net, torch.bfloat16)` once and
+cast features and scores at its door; kernels 1 and 2 then run their
+bfloat16 instances, the resizes compute in float32 and cast back
+(ops/resize.py), and the caller takes the sigmoid in float32 on the cast
+logits.
 """
 import torch
 import torch.nn as nn

@@ -2,9 +2,23 @@
 torch-style k//2 padding (frtm_tpu/ops/conv.py's direct path; the TPU's
 tap-sum, W-fold and space-to-depth lowerings compute the same products and
 have no counterpart here)."""
+import copy
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def compute_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """`module` itself for float32; for another type a copy, made now, whose
+    floating parameters and buffers are cast to it. The port computes in one
+    known type per tensor: a module runs in its parameters' type, callers
+    cast at its edges, and `torch.autocast`, which would choose per
+    operation, is not used. A tracker makes its copies once, when it is
+    built; later changes to the float32 module do not reach them."""
+    if dtype == torch.float32:
+        return module
+    return copy.deepcopy(module).to(dtype)
 
 
 def conv2d(x, w, b=None, stride: int = 1, dilation: int = 1):

@@ -8,8 +8,9 @@ flags, and loaded with ctypes. Nothing prebuilt is committed. A failed build
 raises; there is no fallback.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; a run reads it to
-show which kernels the main path went through. VARIANTS splits the count of a
-kernel with several variants by the variant each launch took.
+show which kernels the main path went through. VARIANTS splits each kernel's
+count by the instance a launch took: the element type of kernels 1 and 2, the
+staged or direct variant of the warp.
 """
 import ctypes
 import hashlib
@@ -28,7 +29,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 LAUNCHES = {name: 0 for name in KERNELS}
-VARIANTS = {"warp_affine": {"staged": 0, "direct": 0}}
+VARIANTS = {"pyrup": {"f32": 0, "bf16": 0},
+            "conv3x3_cout1": {"f32": 0, "bf16": 0},
+            "warp_affine": {"staged": 0, "direct": 0}}
+# the element types kernels 1 and 2 are instantiated for, by instance name
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 BUILD_LOG = {}      # kernel name -> nvcc output (ptxas register/smem report)
 
 _libs = {}
@@ -113,11 +118,19 @@ def library(name: str):
     return _libs[name]
 
 
-def check_cuda_tensor(t: torch.Tensor, what: str, ndim: int):
+def instance_of(t: torch.Tensor, what: str) -> str:
+    """The instance name ("f32" or "bf16") for a tensor's element type."""
+    for name, dtype in DTYPES.items():
+        if t.dtype == dtype:
+            return name
+    raise TypeError(f"{what}: expected float32 or bfloat16, got {t.dtype}")
+
+
+def check_cuda_tensor(t: torch.Tensor, what: str, ndim: int, dtype=torch.float32):
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -11,9 +11,11 @@
 //   frtm_tpu/models/seg_network.py::pyr_up_bicubic and the port's plain
 //   version, so on the card the two agree bit for bit.
 //
-// Bound: bytes. The function moves 5 bytes per output (4 written, 1 read)
-// and does 35 flops for it (~7 flop/byte), below the ~20 flop/byte ridge of
-// the f32 CUDA cores; four fifths of the bytes are the output's stores.
+// Bound: bytes. In float32 the function moves 5 bytes per output (4 written,
+// 1 read) and does 35 flops for it (~7 flop/byte), below the ~20 flop/byte
+// ridge of the f32 CUDA cores; four fifths of the bytes are the output's
+// stores. In bfloat16 it moves 2.5 bytes per output for the same flops
+// (~14 flop/byte): still under the ridge, at half the bytes.
 //
 // Design. A thread computes a 2-row x 4-column output patch: output rows 2p
 // and 2p+1 (odd and even row taps) both read padded rows p .. p+4, and the 4
@@ -32,6 +34,19 @@
 // must be multiples of 16 bytes; the input is a fifth of the bytes, so 4-byte
 // copies do. Stores keep the default cache policy: the decoder reads the
 // output next, and it fits in the 50 MB L2.
+//
+// The kernel is a template on the element type. The bfloat16 instance
+// (frtm_pyrup_bf16) keeps the tiles, the patches and the double buffer; the
+// halo sits in shared memory as bfloat16, is read as pairs and converted to
+// float in registers, the sums are the float32 kernel's in the same order,
+// and each output is rounded once, at the store. What shifts with 2-byte
+// elements: cp.async moves at least 4 bytes, so the halo is copied as column
+// pairs where W is even (a pair that the replicate padding clamps is not
+// contiguous in the source and is written with two plain stores); where W is
+// odd, rows are only 2-byte aligned and every element goes through a plain
+// load and store. A row's 4 outputs are one 8-byte store where W is even
+// (rows of 4W bytes are then 8-byte aligned) and two 4-byte stores where it
+// is odd.
 #include "common.cuh"
 
 namespace {
@@ -65,6 +80,7 @@ __device__ __forceinline__ TileOrigin origin(int tile, const Tiles& t) {
 
 // Padded rows pair0 .. pair0 + kInY - 1 and columns 2 * patch0 .. + kInX - 1
 // of one plane into buf (padded index i is source index i - 2, clamped).
+template <bool kEvenW>
 __device__ __forceinline__ void load_halo(float* buf, const float* x, const TileOrigin& o,
                                           int H, int W) {
   const float* xp = x + static_cast<size_t>(o.plane) * H * W;
@@ -77,6 +93,50 @@ __device__ __forceinline__ void load_halo(float* buf, const float* x, const Tile
     const int sx = min(max(c0 + j, 0), W - 1);
     cp_async4(buf + e, xp + static_cast<size_t>(sy) * W + sx);
   }
+}
+
+// The same in bfloat16. With kEvenW the first padded column's source index
+// (2 * patch0 - 2) and W are even, so a column pair lies inside the row, 4-byte
+// aligned, or outside it, where both values are the clamped edge value.
+template <bool kEvenW>
+__device__ __forceinline__ void load_halo(__nv_bfloat16* buf, const __nv_bfloat16* x,
+                                          const TileOrigin& o, int H, int W) {
+  const __nv_bfloat16* xp = x + static_cast<size_t>(o.plane) * H * W;
+  const int r0 = o.pair0 - 2;
+  const int c0 = 2 * o.patch0 - 2;
+  if (kEvenW) {
+    constexpr int kPairsX = kInX / 2;
+    for (int e = threadIdx.x; e < kInY * kPairsX; e += kThreads) {
+      const int i = e / kPairsX;
+      const int j = 2 * (e - i * kPairsX);
+      const int sy = min(max(r0 + i, 0), H - 1);
+      const __nv_bfloat16* row = xp + static_cast<size_t>(sy) * W;
+      __nv_bfloat16* dst = buf + i * kInX + j;
+      const int sx = c0 + j;
+      if (sx >= 0 && sx + 1 < W) {
+        cp_async4(dst, row + sx);
+      } else {
+        dst[0] = row[min(max(sx, 0), W - 1)];
+        dst[1] = row[min(max(sx + 1, 0), W - 1)];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < kInY * kInX; e += kThreads) {
+      const int i = e / kInX;
+      const int j = e - i * kInX;
+      const int sy = min(max(r0 + i, 0), H - 1);
+      const int sx = min(max(c0 + j, 0), W - 1);
+      buf[e] = xp[static_cast<size_t>(sy) * W + sx];
+    }
+  }
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ float filt4(const float* w, float v0, float v1, float v2, float v3) {
@@ -93,9 +153,11 @@ __device__ __forceinline__ float4 columns(const Taps& t, const float* v) {
                      filt4(t.odd, v[1], v[2], v[3], v[4]), filt4(t.even, v[2], v[3], v[4], v[5]));
 }
 
-template <bool kVec4>
+// One row's 4 outputs. kEvenW: one 16-byte (float) or 8-byte (bfloat16)
+// store; else two stores of half that, the second only where the row has it.
+template <bool kEvenW>
 __device__ __forceinline__ void store_row(float* row, int col, int OW, float4 v) {
-  if (kVec4) {
+  if (kEvenW) {
     *reinterpret_cast<float4*>(row + col) = v;
   } else {
     *reinterpret_cast<float2*>(row + col) = make_float2(v.x, v.y);
@@ -103,27 +165,42 @@ __device__ __forceinline__ void store_row(float* row, int col, int OW, float4 v)
   }
 }
 
-template <bool kVec4>
-__device__ __forceinline__ void compute_tile(const float* buf, float* y, const TileOrigin& o,
+template <bool kEvenW>
+__device__ __forceinline__ void store_row(__nv_bfloat16* row, int col, int OW, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  if (kEvenW) {
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(row + col) = u;
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) = lo;
+    if (col + 2 < OW) *reinterpret_cast<__nv_bfloat162*>(row + col + 2) = hi;
+  }
+}
+
+template <typename T, bool kEvenW>
+__device__ __forceinline__ void compute_tile(const T* buf, T* y, const TileOrigin& o,
                                              int H, int W, const Taps& taps) {
   const int lane = threadIdx.x & 31;
   const int q = o.patch0 + lane;
   const int OW = 2 * W;
   if (4 * q >= OW) return;
-  float* yp = y + static_cast<size_t>(o.plane) * 2 * H * OW;
+  T* yp = y + static_cast<size_t>(o.plane) * 2 * H * OW;
 #pragma unroll
   for (int k = 0; k < kRowPairs / kWarps; ++k) {
     const int rp = (threadIdx.x >> 5) + k * kWarps;
     const int p = o.pair0 + rp;
     if (p >= H) break;
-    const float* s = buf + rp * kInX + 2 * lane;
+    const T* s = buf + rp * kInX + 2 * lane;
     float vo[6], ve[6];  // row-filtered: odd taps at rows 0..3, even taps at rows 1..4
 #pragma unroll
     for (int r = 0; r < 5; ++r) {
       float a[6];
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        const float2 t = *reinterpret_cast<const float2*>(s + r * kInX + 2 * j);
+        const float2 t = load_pair(s + r * kInX + 2 * j);
         a[2 * j] = t.x;
         a[2 * j + 1] = t.y;
       }
@@ -135,28 +212,31 @@ __device__ __forceinline__ void compute_tile(const float* buf, float* y, const T
                                   : __fadd_rn(ve[j], __fmul_rn(taps.even[r - 1], a[j]));
       }
     }
-    float* row = yp + static_cast<size_t>(2 * p) * OW;
-    store_row<kVec4>(row, 4 * q, OW, columns(taps, vo));
-    store_row<kVec4>(row + OW, 4 * q, OW, columns(taps, ve));
+    T* row = yp + static_cast<size_t>(2 * p) * OW;
+    store_row<kEvenW>(row, 4 * q, OW, columns(taps, vo));
+    store_row<kEvenW>(row + OW, 4 * q, OW, columns(taps, ve));
   }
 }
 
-template <bool kVec4>
+template <typename T, bool kEvenW>
 __global__ void __launch_bounds__(kThreads)
-pyrup_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int W, Taps taps,
+pyrup_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, Taps taps,
              Tiles tiles) {
-  __shared__ __align__(16) float buf[2][kInY * kInX];
+  __shared__ __align__(16) unsigned char raw[2 * kInY * kInX * sizeof(T)];
+  T* const buf = reinterpret_cast<T*>(raw);   // two buffers of kInY * kInX
+  constexpr int kBuf = kInY * kInX;
   int tile = blockIdx.x;
-  load_halo(buf[0], x, origin(tile, tiles), H, W);
+  load_halo<kEvenW>(buf, x, origin(tile, tiles), H, W);
   cp_async_commit();
   for (int cur = 0; tile < tiles.total; tile += gridDim.x, cur ^= 1) {
     const int next = tile + gridDim.x;
-    if (next < tiles.total) load_halo(buf[cur ^ 1], x, origin(next, tiles), H, W);
+    if (next < tiles.total)
+      load_halo<kEvenW>(buf + (cur ^ 1) * kBuf, x, origin(next, tiles), H, W);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    compute_tile<kVec4>(buf[cur], y, origin(tile, tiles), H, W, taps);
-    __syncthreads();  // buf[cur] is refilled in the next iteration
+    compute_tile<T, kEvenW>(buf + cur * kBuf, y, origin(tile, tiles), H, W, taps);
+    __syncthreads();  // this buffer is refilled in the next iteration
   }
 }
 
@@ -177,16 +257,20 @@ inline int resident_blocks(Kernel kernel, int threads, int device, int* cached) 
   return *cached;
 }
 
-}  // namespace
-
-// x: (planes, H, W) float32, y: (planes, 2H, 2W) float32, both contiguous.
-FRTM_EXPORT int frtm_pyrup_f32(const float* x, float* y, int planes, int H,
-                               int W, const float* even, const float* odd,
-                               int device, cudaStream_t stream) {
+// Checks, tiling and launch for one element type; the entry points below
+// are its two instances.
+template <typename T>
+int launch_pyrup(const T* x, T* y, int planes, int H, int W, const float* even, const float* odd,
+                 int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (planes <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
-  if (reinterpret_cast<size_t>(y) % 16 != 0) return cudaErrorMisalignedAddress;
+  const bool even_w = W % 2 == 0;
+  // the widest store is 16 bytes; the input is copied 4 bytes at a time
+  // (bfloat16 pairs where W is even), else element by element
+  if (reinterpret_cast<size_t>(y) % 16 != 0 ||
+      reinterpret_cast<size_t>(x) % (even_w ? 4 : sizeof(T)) != 0)
+    return cudaErrorMisalignedAddress;
   Taps taps;
   for (int k = 0; k < 4; ++k) {
     taps.even[k] = even[k];
@@ -200,16 +284,31 @@ FRTM_EXPORT int frtm_pyrup_f32(const float* x, float* y, int planes, int H,
   if (total > (1LL << 30)) return cudaErrorInvalidValue;
   t.total = static_cast<int>(total);
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  static int resident_cache[2][kMaxDevices];
-  const bool vec4 = (2 * W) % 4 == 0;
+  static int resident_cache[2][kMaxDevices];  // one per instance of this template
   const int resident =
-      vec4 ? resident_blocks(pyrup_kernel<true>, kThreads, device, &resident_cache[1][device])
-           : resident_blocks(pyrup_kernel<false>, kThreads, device, &resident_cache[0][device]);
+      even_w ? resident_blocks(pyrup_kernel<T, true>, kThreads, device, &resident_cache[1][device])
+             : resident_blocks(pyrup_kernel<T, false>, kThreads, device,
+                               &resident_cache[0][device]);
   if (resident <= 0) return cudaErrorInvalidConfiguration;
   const int grid = t.total < resident ? t.total : resident;
-  if (vec4)
-    pyrup_kernel<true><<<grid, kThreads, 0, stream>>>(x, y, H, W, taps, t);
+  if (even_w)
+    pyrup_kernel<T, true><<<grid, kThreads, 0, stream>>>(x, y, H, W, taps, t);
   else
-    pyrup_kernel<false><<<grid, kThreads, 0, stream>>>(x, y, H, W, taps, t);
+    pyrup_kernel<T, false><<<grid, kThreads, 0, stream>>>(x, y, H, W, taps, t);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (planes, H, W), y: (planes, 2H, 2W), both contiguous and of one type.
+FRTM_EXPORT int frtm_pyrup_f32(const float* x, float* y, int planes, int H,
+                               int W, const float* even, const float* odd,
+                               int device, cudaStream_t stream) {
+  return launch_pyrup<float>(x, y, planes, H, W, even, odd, device, stream);
+}
+
+FRTM_EXPORT int frtm_pyrup_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int planes, int H,
+                                int W, const float* even, const float* odd,
+                                int device, cudaStream_t stream) {
+  return launch_pyrup<__nv_bfloat16>(x, y, planes, H, W, even, odd, device, stream);
 }

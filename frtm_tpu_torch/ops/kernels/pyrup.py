@@ -6,6 +6,13 @@ PyrUpBicubic2d), replacing frtm_tpu/ops/pallas/pyrup.py::pyr_up_bicubic_pallas.
 `pyr_up_bicubic` launches csrc/pyrup.cu on a CUDA tensor and runs the plain
 version on a CPU tensor; the plain version is written from
 frtm_tpu/models/seg_network.py::pyr_up_bicubic in the same operation order.
+
+float32 and bfloat16, one kernel instance each. In bfloat16 both the kernel
+and the plain version compute in float32 on the upcast input and round once
+at the end, as the TPU kernel does (its output takes the input's type). The
+JAX decoder's own bfloat16 path (pyr_up_bicubic on a bfloat16 array) rounds
+after every product and sum instead, so the port lies closer to the float32
+result than that does.
 """
 import ctypes
 
@@ -35,6 +42,8 @@ def _filt4(x, taps, dim):
 
 
 def pyr_up_bicubic_plain(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        return pyr_up_bicubic_plain(x.float()).to(torch.bfloat16)
     a = F.pad(x, (2, 2, 2, 2), mode="replicate")
     re = _filt4(a, W_EVEN, 2)      # rows: even / odd phase
     ro = _filt4(a, W_ODD, 2)
@@ -55,12 +64,13 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctype
 
 
 def pyr_up_bicubic(x: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) float32 -> (N, C, 2H, 2W)."""
+    """(N, C, H, W) float32 or bfloat16 -> (N, C, 2H, 2W) of the same type."""
+    instance = build.instance_of(x, "pyr_up_bicubic input")
     if x.device.type == "cpu":
         return pyr_up_bicubic_plain(x)
-    build.check_cuda_tensor(x, "pyr_up_bicubic input", 4)
+    build.check_cuda_tensor(x, "pyr_up_bicubic input", 4, x.dtype)
     n, c, h, w = x.shape
     y = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
-    build.launch("pyrup", "frtm_pyrup_f32", _ARGTYPES, x.data_ptr(), y.data_ptr(),
-                 n * c, h, w, *_TAPS_C, device=x.device)
+    build.launch("pyrup", f"frtm_pyrup_{instance}", _ARGTYPES, x.data_ptr(), y.data_ptr(),
+                 n * c, h, w, *_TAPS_C, device=x.device, variant=instance)
     return y

@@ -33,16 +33,27 @@ Nothing is compiled per shape, so there is no `scan_bucket`: the JAX package
 pads the tracked frames to a multiple of it (and skips the pad windows) so
 that sequence lengths share a program; the port tracks the real number of
 frames and its last window is short. Not ported yet: `mesh` and the sharded
-paths, multilayer target models, the device augment backend, bfloat16,
-`run_dataset` and PNG output.
+paths, multilayer target models, the device augment backend.
+
+With cfg.compute_dtype = "bfloat16", as in the JAX class: the whole-sequence
+pyramid is extracted in bfloat16 and kept in it (half the memory), the
+decoder runs on a bfloat16 copy of the refiner with features and scores cast
+at its door (kernels 1 and 2 take their bfloat16 instances) and the sigmoid
+is taken in float32 on the cast logits; the init's extract over the augmented
+frames computes in bfloat16 and emits float32; the projection upcasts the
+target model's layer to float32; target model, solver, memory and merge stay
+float32.
 """
+import contextlib
 import time
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import TrackerConfig
+from ..config import TrackerConfig, compute_dtype_of
+from ..data.image import imwrite_indexed
 from ..device import resolve_device
 from ..models.aug_compose import compose_aug_batch, pack_bits, pack_compact_batch, unpack_bits
 from ..models.augmenter import ImageAugmenter
@@ -51,6 +62,9 @@ from ..models.discriminator import (DiscParams, DiscState, classify_objects, dis
                                     resolve_due)
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, seg_network_apply, seg_network_reduce
+from ..ops.conv import compute_copy
+from ..utils.meters import AverageMeter
+from ..utils.prefetch import prefetch_iter
 from ..utils.profiling import PhaseTimer, count_host_syncs
 
 
@@ -131,8 +145,7 @@ class BatchedSequenceTracker:
         has them off the TPU."""
         if merge_mode not in ("online", "deferred"):
             raise ValueError(f"merge_mode {merge_mode!r}: 'online' or 'deferred'")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the port's tracker computes in float32")
+        self.dtype = compute_dtype_of(cfg)
         if cfg.disc_layers:
             raise NotImplementedError("multilayer target models are not ported")
         if augment_backend != "host":
@@ -144,10 +157,15 @@ class BatchedSequenceTracker:
         self.disc_cfg = cfg.disc
         self.backbone = backbone.to(dev).eval()
         self.refiner = refiner.to(dev).eval()
+        # the copies that compute (the modules themselves in float32), made once
+        self.backbone_c = compute_copy(self.backbone, self.dtype)
+        self.refiner_c = compute_copy(self.refiner, self.dtype)
         self.augmenter = augmenter or ImageAugmenter(cfg.aug_params, dev)
         if disc_params0 is None:
             disc_params0 = init_disc_params(cfg.disc, torch.Generator().manual_seed(0), dev)
         self.disc_params0 = DiscParams(*(t.to(dev) for t in disc_params0))
+        # the pipelined run_dataset prepares the next sequence on this stream
+        self._prep_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self.extract_chunk = extract_chunk
         self.merge_mode = merge_mode
         self.decode_chunk = decode_chunk
@@ -158,6 +176,7 @@ class BatchedSequenceTracker:
         self.last_phase_report = ""
         self.last_phase_stats = {}
         self.last_models: List[Model] = []
+        self.last_feats_dtype = None    # the type the last run kept its pyramid in
 
     # -- frames and features --------------------------------------------------
 
@@ -171,9 +190,11 @@ class BatchedSequenceTracker:
 
     def _extract_sequence(self, chunks) -> dict:
         """Chunked batched feature extraction over all frames:
-        {layer: (T, c, h, w)}. Only enqueues; nothing waits for the card."""
-        outs = [self.backbone.extract_features(c.permute(0, 3, 1, 2),
-                                               output_layers=self._all_layers)
+        {layer: (T, c, h, w)} in the compute type, in which the pyramid
+        stays. Only enqueues; nothing waits for the card."""
+        outs = [self.backbone_c.extract_features(c.permute(0, 3, 1, 2),
+                                                 output_layers=self._all_layers,
+                                                 out_dtype=self.dtype)
                 for c in chunks]
         return {L: torch.cat([o[L] for o in outs]) for L in outs[0]}
 
@@ -212,7 +233,14 @@ class BatchedSequenceTracker:
         the images elided (it IS the real frame, which the preload holds)
         and the binary masks bit-packed (np.packbits layout). Returns
         (ims_rest (K-1, 3, H, W) uint8, lbs_packed (K, H, ceil(W / 8)) uint8)
-        on the device."""
+        on the device.
+
+        On device="cpu" `.to(device)` returns its argument, so `ims_rest`
+        shares memory with `im_aug`. That is safe because the port's
+        ImageAugmenter allocates a fresh batch in every call and reuses no
+        buffer (a test holds it); an augmenter that did would have to hand
+        out copies, since the pipelined run_dataset prepares the next
+        sequence while this one's batches are still in use."""
         ims = torch.as_tensor(im_aug).to(self.device)
         lbs = torch.as_tensor(lb_aug).to(self.device)
         return ims[1:], pack_bits(lbs[:, 0])
@@ -248,7 +276,7 @@ class BatchedSequenceTracker:
         layer = self.disc_cfg.layer
         models = []
         for im, lb in zip(images, labels):
-            ft = self.backbone.extract_features(im, output_layers=[layer])
+            ft = self.backbone_c.extract_features(im, output_layers=[layer])  # emits float32
             params, state = disc_init(self.disc_params0, ft[layer], lb, self.disc_cfg)
             state.n_resolves = torch.zeros((), dtype=torch.int64, device=self.device)
             models.append((params, state))
@@ -275,20 +303,21 @@ class BatchedSequenceTracker:
     # -- the frame loop ---------------------------------------------------------
 
     def _decode(self, scores, reduced, im_size):
-        """(B, 1, h, w) scores and per-lane TSE reductions -> (B, H, W) soft
-        foreground masks, in sub-batches of decode_chunk where that divides B."""
+        """(B, 1, h, w) scores (in the compute type) and per-lane TSE
+        reductions -> (B, H, W) float32 soft foreground masks, in sub-batches
+        of decode_chunk where that divides B."""
         layers = self.cfg.refnet_layers
         B, dc = scores.shape[0], self.decode_chunk
         if dc and B > dc and B % dc == 0:
             logits = torch.cat([
-                seg_network_apply(self.refiner, scores[i:i + dc], None, im_size, layers=layers,
+                seg_network_apply(self.refiner_c, scores[i:i + dc], None, im_size, layers=layers,
                                   reduced={L: (h[i:i + dc], hp[i:i + dc])
                                            for L, (h, hp) in reduced.items()})
                 for i in range(0, B, dc)])
         else:
-            logits = seg_network_apply(self.refiner, scores, None, im_size, layers=layers,
+            logits = seg_network_apply(self.refiner_c, scores, None, im_size, layers=layers,
                                        reduced=reduced)
-        return torch.sigmoid(logits[:, 0])
+        return torch.sigmoid(logits[:, 0].float())
 
     def _track(self, feats_all, models: List[Model], start_frames, start_masks,
                obj_ids_lut, im_size, window: int):
@@ -313,7 +342,8 @@ class BatchedSequenceTracker:
         dev = self.device
         layers = self.cfg.refnet_layers
         n_track = feats_all[cfg.layer].shape[0]
-        compressed_all = project_all(feats_all[cfg.layer], [p.project for p, _ in models])
+        compressed_all = project_all(feats_all[cfg.layer].float(),
+                                     [p.project for p, _ in models])
         t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
         starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
         active_all = t_all > starts          # (T', N) tracked this frame
@@ -332,12 +362,13 @@ class BatchedSequenceTracker:
             scores = classify_objects(cft, [p.filter for p, _ in models])
             # the object-independent TSE reductions run once per frame and
             # are repeated, at 32 channels, across the object lanes
-            red = seg_network_reduce(self.refiner, {L: feats_all[L][i0:i1] for L in layers},
+            red = seg_network_reduce(self.refiner_c, {L: feats_all[L][i0:i1] for L in layers},
                                      layers)
             if N > 1:
                 red = {L: (h.repeat_interleave(N, dim=0), hp.repeat_interleave(N, dim=0))
                        for L, (h, hp) in red.items()}
-            y = self._decode(scores.reshape(w * N, 1, *scores.shape[-2:]), red, im_size)
+            y = self._decode(scores.reshape(w * N, 1, *scores.shape[-2:]).to(self.dtype), red,
+                             im_size)
             y = y.view(w, N, *y.shape[-2:]) * active[..., None, None]
             if entering:
                 # suppress tracked masks under this window's entering objects
@@ -396,15 +427,47 @@ class BatchedSequenceTracker:
 
     # -- entry points -----------------------------------------------------------
 
-    def prepare_sequence(self, sequence) -> dict:
+    def prepare_sequence(self, sequence, stream=None) -> dict:
         """The host-side preparation of a sequence, separable from tracking:
         stack the frames, upload them, and run the first-frame augmentation.
-        The result feeds run_sequence(preloaded=)."""
+        The result feeds run_sequence(preloaded=).
+
+        stream: a CUDA stream to do the device's share on (uploads, the
+        augmenter's warps, the bit-packing) when another thread calls this
+        while the tracker's own stream is busy with the previous sequence.
+        The result then carries an event, recorded when that work was
+        enqueued, which run_sequence makes its stream wait for."""
         images_np = np.stack([sequence[t][0] for t in range(len(sequence))])
-        return {"images_np": images_np,
-                "frame0_dev": torch.from_numpy(images_np[0]).to(self.device),
-                "chunks": self._upload_chunks(images_np[1:]),
-                "aug_batches": self._augment_objects(self._collect_objects(sequence))}
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            prep = {"images_np": images_np,
+                    "frame0_dev": torch.from_numpy(images_np[0]).to(self.device),
+                    "chunks": self._upload_chunks(images_np[1:]),
+                    "aug_batches": self._augment_objects(self._collect_objects(sequence)),
+                    "ready": None}
+            if stream is not None:
+                prep["ready"] = torch.cuda.Event()
+                prep["ready"].record(stream)
+        return prep
+
+    def _adopt(self, prep):
+        """Make the tracker's stream the user of what `prep` holds on the
+        device: wait for the event of the stream that made it, and tell the
+        allocator that these tensors are now read on this stream (it would
+        otherwise hand their memory back to the other stream as soon as they
+        are freed, while work queued here may still read it)."""
+        if prep["ready"] is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(prep["ready"])
+        stack = [prep["frame0_dev"], prep["chunks"], prep["aug_batches"]]
+        while stack:
+            item = stack.pop()
+            if isinstance(item, torch.Tensor):
+                item.record_stream(current)
+            elif isinstance(item, dict):
+                stack.extend(item.values())
+            elif isinstance(item, (list, tuple)):
+                stack.extend(item)
 
     def run_sequence(self, sequence, speedrun: bool = False, soft: bool = False,
                      aug_batches=None, preloaded=None):
@@ -422,6 +485,7 @@ class BatchedSequenceTracker:
             raise ValueError("soft output is the deferred merge's pre-merge volume")
         if preloaded is not None:
             images_np = preloaded["images_np"]
+            self._adopt(preloaded)
             self._frame0_dev = preloaded["frame0_dev"]
             chunks = preloaded["chunks"]
             if aug_batches is None:
@@ -457,6 +521,69 @@ class BatchedSequenceTracker:
             outputs.extend(list(a) if a.ndim == 3 else [a])
         return outputs, fps
 
+    def run_dataset(self, dataset, out_path, speedrun=False, restart=None, pipeline=False):
+        """Track every sequence, write indexed PNGs under
+        out_path/<sequence>/, report the average fps: the surface of the
+        host-loop Tracker.run_dataset. The next sequence's frames are decoded
+        (`preload()`) on a background thread while the current one tracks;
+        sequences that are done release their decoded frames.
+
+        pipeline=True moves the whole host-side preparation of the next
+        sequence (frame stacking, uploads, first-frame augmentation:
+        prepare_sequence) onto that thread, and on the card onto a stream of
+        its own, which the tracker's stream joins through an event before it
+        reads what was prepared. The outputs are the same (the augmenter's
+        random draws are reseeded per object). Per-sequence fps then
+        excludes augmentation (printed as 'ex-augment') and is not comparable
+        to the default protocol's; the aggregate line gives frames over the
+        whole wall, PNG writes included. How much wall it saves depends on
+        the host: the preparation is mostly Python (the Telea inpaint) and
+        shares the interpreter lock with the thread that issues the
+        tracker's launches, so the two overlap only in part.
+        """
+        out_path = Path(out_path)
+        out_path.mkdir(exist_ok=True, parents=True)
+        fps_meter = AverageMeter()
+        print("Evaluating", dataset.name)
+        restarted = restart is None
+        sequences = []
+        for sequence in dataset:
+            if not restarted:
+                if sequence.name != restart:
+                    continue
+                restarted = True
+            sequences.append(sequence)
+
+        def prefetch(seq):
+            if hasattr(seq, "preload"):
+                seq.preload()
+            if not pipeline:
+                return seq, None
+            return seq, self.prepare_sequence(seq, stream=self._prep_stream)
+
+        t_all = time.perf_counter()
+        n_frames = 0
+        for i, (sequence, prep) in enumerate(prefetch_iter(map(prefetch, sequences))):
+            outputs, seq_fps = self.run_sequence(sequence, speedrun, preloaded=prep)
+            fps_meter.update(seq_fps)
+            n_frames += len(sequence)
+            tag = " (ex-augment)" if pipeline else ""
+            print(f"{sequence.name}: {seq_fps:.2f} fps{tag}")
+            dst = out_path / sequence.name
+            dst.mkdir(exist_ok=True)
+            for lb, f in zip(outputs, sequence.frame_names):
+                imwrite_indexed(dst / (f + ".png"), lb)
+            sequence.preloaded = None   # release decoded frames
+            sequences[i] = None
+        wall = time.perf_counter() - t_all
+        print("Average frame rate: %.2f fps" % fps_meter.avg)
+        if pipeline:
+            extra = ", incl. speedrun warm-up passes" if speedrun else ""
+            print("Pipelined dataset pass: %.2f fps aggregate "
+                  "(%d frames / %.1fs wall, incl. PNG writes%s)"
+                  % (n_frames / max(wall, 1e-9), n_frames, wall, extra))
+        return fps_meter.avg
+
     def _synchronize(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -480,6 +607,7 @@ class BatchedSequenceTracker:
         # is enqueued before the host augment and runs under it.
         with timer.phase("extract"):
             feats_all = self._extract_sequence(chunks)
+        self.last_feats_dtype = feats_all[self.disc_cfg.layer].dtype
         if aug_batches is None:
             aug_batches = self._augment_objects(objects, timer)
         with timer.phase("disc_init"):

@@ -1,7 +1,10 @@
 """The host-loop tracker (frtm_tpu/runtime/tracker.py): per-object target
 models initialised at their start frames, then per frame classify -> refine
 -> soft multi-object merge -> per-object online update. Single-layer target
-model, float32.
+model. With cfg.compute_dtype = "bfloat16" the backbone computes in bfloat16
+and emits float32 features, in `track` and at init alike; the decoder, the
+target model and the merge stay float32, as in the JAX Tracker, which hands
+its float32 refiner those features.
 
 Two additions over the JAX Tracker: `disc_params0` (the target model's
 starting weights; by default the port's own seeded init — the JAX tracker
@@ -13,18 +16,22 @@ With `profile=True` each phase starts and ends in a device synchronise
 """
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config import TrackerConfig
+from ..config import TrackerConfig, compute_dtype_of
+from ..data.image import imwrite_indexed
 from ..device import resolve_device
 from ..models.augmenter import ImageAugmenter
 from ..models.discriminator import (DiscParams, DiscState, disc_apply, disc_init,
                                     disc_update, init_disc_params)
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, seg_network_apply
+from ..ops.conv import compute_copy
+from ..utils.meters import AverageMeter
 from ..utils.profiling import PhaseTimer
 
 
@@ -73,14 +80,14 @@ class Tracker:
     def __init__(self, cfg: TrackerConfig, backbone: ResNet, refiner: SegNetwork,
                  device=None, disc_params0: Optional[DiscParams] = None,
                  augmenter=None, profile: bool = False):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the port's tracker computes in float32")
+        self.dtype = compute_dtype_of(cfg)
         if cfg.disc_layers:
             raise NotImplementedError("multilayer target models are not ported")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.disc_cfg = cfg.disc
         self.backbone = backbone.to(dev).eval()
+        self.backbone_c = compute_copy(self.backbone, self.dtype)   # made once
         self.refiner = refiner.to(dev).eval()
         self.augmenter = augmenter or ImageAugmenter(cfg.aug_params, dev)
         if disc_params0 is None:
@@ -111,7 +118,8 @@ class Tracker:
             with self._phase("augment"):
                 im_aug, lb_aug = self.augmenter.augment_first_frame(image, mask[..., None], rng)
             with self._phase("init_solve"):
-                ft = self.backbone.extract_features(im_aug, output_layers=[self.disc_cfg.layer])
+                ft = self.backbone_c.extract_features(im_aug,
+                                                      output_layers=[self.disc_cfg.layer])
                 params, state = disc_init(self.disc_params0, ft[self.disc_cfg.layer], lb_aug,
                                           self.disc_cfg)
             start_mask = torch.from_numpy(mask).to(self.device)
@@ -127,8 +135,8 @@ class Tracker:
         im_size = image.shape[:2]
         with self._phase("extract"):
             im = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
-            features = self.backbone.extract_features(im.permute(2, 0, 1)[None],
-                                                      output_layers=self._all_layers)
+            features = self.backbone_c.extract_features(im.permute(2, 0, 1)[None],
+                                                        output_layers=self._all_layers)
         tracked = [t for t in self.targets.values() if t.start_frame < self.current_frame]
         fresh = [t for t in self.targets.values() if t.start_frame == self.current_frame]
 
@@ -154,11 +162,20 @@ class Tracker:
                                                 self.disc_cfg)
         return self.current_masks
 
-    def run_sequence(self, sequence):
-        """Track one sequence; returns (list of (H, W) uint8 label images, fps)."""
+    def run_sequence(self, sequence, speedrun: bool = False):
+        """Track one sequence; returns (list of (H, W) uint8 label images,
+        fps). speedrun: first an untimed init and one tracked step on frame
+        0 (the convolution algorithm search, first launches)."""
         self.clear()
         ids = torch.tensor([0] + list(sequence.obj_ids), dtype=torch.int32,
                            device=self.device)
+        if speedrun:
+            image, labels, new_objects = sequence[0]
+            if new_objects:
+                self.initialize(image, labels, new_objects)
+                self.current_frame = 1
+                self.track(image)
+            self.clear()
         outputs = []
         t0 = time.perf_counter()
         for i in range(len(sequence)):
@@ -177,3 +194,29 @@ class Tracker:
         outputs = [o.cpu().numpy().astype(np.uint8) for o in outputs]
         fps = len(sequence) / max(time.perf_counter() - t0, 1e-9)
         return outputs, fps
+
+    def run_dataset(self, dataset, out_path, speedrun=False, restart=None):
+        """Track every sequence, write indexed PNGs under
+        out_path/<sequence>/, report the average fps. `restart`: skip the
+        sequences before the one of that name."""
+        out_path = Path(out_path)
+        out_path.mkdir(exist_ok=True, parents=True)
+        fps_meter = AverageMeter()
+        print("Evaluating", dataset.name)
+        restarted = restart is None
+        for sequence in dataset:
+            if not restarted:
+                if sequence.name != restart:
+                    continue
+                restarted = True
+            if hasattr(sequence, "preload"):
+                sequence.preload()
+            outputs, seq_fps = self.run_sequence(sequence, speedrun)
+            fps_meter.update(seq_fps)
+            print(f"{sequence.name}: {seq_fps:.2f} fps")
+            dst = out_path / sequence.name
+            dst.mkdir(exist_ok=True)
+            for lb, f in zip(outputs, sequence.frame_names):
+                imwrite_indexed(dst / (f + ".png"), lb)
+        print("Average frame rate: %.2f fps" % fps_meter.avg)
+        return fps_meter.avg

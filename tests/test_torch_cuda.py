@@ -7,8 +7,13 @@ This file imports nothing of JAX, so it also runs where JAX is not installed:
 Elsewhere every test skips. Tolerances: pyrup and the warp repeat the plain
 version's float operations in the same order without FMA contraction, so they
 must agree bit for bit; the head conv sums 9 * Cin products with FMA in
-another order, so it is held to 5e-5 absolute at unit-scale inputs.
+another order, so it is held to 5e-5 absolute at unit-scale inputs. The
+bfloat16 instances compute in float32 and round once, like their plain
+versions: pyrup bit for bit again; the head conv within one bfloat16 ulp at
+the output's peak (a float32 sum that differs in its last bits can round to
+the neighbouring bfloat16 value).
 """
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +26,7 @@ from frtm_tpu_torch.device import resolve_device
 from frtm_tpu_torch.ops.kernels import (LAUNCHES, VARIANTS, conv3x3_cout1,
                                         conv3x3_cout1_plain, pyr_up_bicubic,
                                         pyr_up_bicubic_plain, warp_affine)
+from frtm_tpu_torch.ops.kernels.build import DTYPES
 from frtm_tpu_torch.ops.warp import inverse_coefficients, warp_affine_plain
 
 pytestmark = pytest.mark.cuda
@@ -44,12 +50,19 @@ def gen():
                                    (40, 32, 120, 214), (40, 16, 240, 428), (2, 3, 7, 5), (1, 1, 1, 1), (1, 2, 9, 131),
                                    (1, 3, 5, 63), (1, 3, 32, 64), (1, 3, 17, 65),
                                    (2, 2, 33, 66)])
-def test_pyrup_kernel_is_bit_exact(gen, shape):
-    x = torch.randn(shape, generator=gen).cuda()
-    before = LAUNCHES["pyrup"]
+@pytest.mark.parametrize("instance", ["f32", "bf16"])
+def test_pyrup_kernel_is_bit_exact(gen, shape, instance):
+    """In bfloat16, W even takes 4-byte pair copies and 8-byte stores, W odd
+    (5, 131, 63, 65) element copies and 4-byte stores."""
+    x = torch.randn(shape, generator=gen).cuda().to(DTYPES[instance])
+    before, vbefore = LAUNCHES["pyrup"], dict(VARIANTS["pyrup"])
     got = pyr_up_bicubic(x)
     assert LAUNCHES["pyrup"] == before + 1
+    assert VARIANTS["pyrup"][instance] == vbefore[instance] + 1
+    assert got.dtype == x.dtype
     assert torch.equal(got, pyr_up_bicubic_plain(x))
+    if instance == "bf16":      # and the plain version is the float32 one, rounded once
+        assert torch.equal(got, pyr_up_bicubic_plain(x.float()).to(torch.bfloat16))
 
 
 # the head conv at N=1, 8, 16 and 40 (the batch is the grid's z extent,
@@ -61,12 +74,25 @@ def test_pyrup_kernel_is_bit_exact(gen, shape):
                                    (40, 16, 480, 854), (2, 3, 5, 129),
                                    (1, 64, 17, 33), (1, 1, 9, 130), (3, 1, 4, 7),
                                    (1, 3, 7, 127)])
-def test_conv3x3_cout1_kernel_matches_plain(gen, shape, bias):
-    x = torch.randn(shape, generator=gen).cuda()
-    w = (torch.rand(1, shape[1], 3, 3, generator=gen) * 0.2 - 0.1).cuda()
-    b = torch.randn(1, generator=gen).cuda() if bias else None
-    torch.testing.assert_close(conv3x3_cout1(x, w, b), conv3x3_cout1_plain(x, w, b),
-                               atol=5e-5, rtol=0)
+@pytest.mark.parametrize("instance", ["f32", "bf16"])
+def test_conv3x3_cout1_kernel_matches_plain(gen, shape, bias, instance):
+    dtype = DTYPES[instance]
+    x = torch.randn(shape, generator=gen).cuda().to(dtype)
+    w = (torch.rand(1, shape[1], 3, 3, generator=gen) * 0.2 - 0.1).cuda().to(dtype)
+    b = torch.randn(1, generator=gen).cuda().to(dtype) if bias else None
+    vbefore = dict(VARIANTS["conv3x3_cout1"])
+    got = conv3x3_cout1(x, w, b)
+    assert VARIANTS["conv3x3_cout1"][instance] == vbefore[instance] + 1
+    want = conv3x3_cout1_plain(x, w, b)
+    assert got.dtype == want.dtype == dtype
+    if instance == "f32":
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+        return
+    peak = float(want.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(peak)) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= ulp
+    # nearly every value is the same bfloat16 number
+    assert float((got != want).float().mean()) < 0.02
 
 
 _MATS = {
@@ -185,6 +211,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         pyr_up_bicubic(x.transpose(2, 3))
     with pytest.raises(ValueError):
         conv3x3_cout1(x, torch.zeros(1, 3, 3, 3, device="cuda"))
+    with pytest.raises(TypeError):      # one element type for input, weight and bias
+        conv3x3_cout1(x.bfloat16(), torch.zeros(1, 4, 3, 3, device="cuda"))
+    with pytest.raises(TypeError):
+        conv3x3_cout1(x.half(), torch.zeros(1, 4, 3, 3, device="cuda").half())
     with pytest.raises(RuntimeError):   # weights and halos beyond 48 KB of shared memory
         conv3x3_cout1(torch.zeros(1, 926, 4, 4, device="cuda"),
                       torch.zeros(1, 926, 3, 3, device="cuda"))
@@ -192,22 +222,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         warp_affine(x[0], np.eye(2), (8, 10))
 
 
-def test_fused_tracker_decodes_through_the_kernels(gen, monkeypatch):
-    """The fused tracker's window decode on the card launches kernels 1 and 2
-    (2 pyrups and 1 head conv per decode call), never their plain versions."""
+def _small_fused_world(compute_dtype="float32"):
     from dataclasses import replace
     from frtm_tpu_torch.config import eval_config
-    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
     from frtm_tpu_torch.models.resnet import resnet_out_channels
-    from importlib import import_module
-    from frtm_tpu_torch.ops.kernels import reset_launches
     from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
     from frtm_tpu_torch.utils.convert import init_resnet, init_seg_network
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("a plain version ran on a CUDA tensor")
-
-    cfg = eval_config("resnet18", fast=True, num_aug=3)
+    cfg = eval_config("resnet18", fast=True, num_aug=3, compute_dtype=compute_dtype)
     cfg = replace(cfg, disc=replace(cfg.disc, init_iters=(3, 5), update_iters=(3,),
                                     memory_size=8, c_channels=16, train_skipping=2))
     ch = {L: c for L, c in resnet_out_channels("resnet18").items() if L in cfg.refnet_layers}
@@ -215,6 +236,22 @@ def test_fused_tracker_decodes_through_the_kernels(gen, monkeypatch):
         cfg, init_resnet("resnet18", torch.Generator().manual_seed(1)),
         init_seg_network(ch, torch.Generator().manual_seed(2)))
     assert tracker.device.type == "cuda"
+    return tracker
+
+
+@pytest.mark.parametrize("instance", ["f32", "bf16"])
+def test_fused_tracker_decodes_through_the_kernels(gen, monkeypatch, instance):
+    """The fused tracker's window decode on the card launches kernels 1 and 2
+    (2 pyrups and 1 head conv per decode call) in the instance of its compute
+    type and in no other, never their plain versions."""
+    from importlib import import_module
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.ops.kernels import reset_launches
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    tracker = _small_fused_world({"f32": "float32", "bf16": "bfloat16"}[instance])
     seq = make_moving_square_sequence(n_frames=6, size=(96, 128), square=24, n_objects=2,
                                       seed=2)
     # the wrappers' own modules (the package re-exports the functions under
@@ -226,9 +263,48 @@ def test_fused_tracker_decodes_through_the_kernels(gen, monkeypatch):
     reset_launches()
     outputs, _ = tracker.run_sequence(seq)
     windows = 3                                  # 5 tracked frames, windows of 2
+    other = "bf16" if instance == "f32" else "f32"
     assert LAUNCHES["pyrup"] == 2 * windows and LAUNCHES["conv3x3_cout1"] == windows
+    assert VARIANTS["pyrup"] == {instance: 2 * windows, other: 0}
+    assert VARIANTS["conv3x3_cout1"] == {instance: windows, other: 0}
     assert VARIANTS["warp_affine"]["direct"] == 0 and LAUNCHES["warp_affine"] > 0
     assert len(outputs) == 6 and all(o.shape == (96, 128) for o in outputs)
+    if instance == "bf16":
+        assert tracker.last_feats_dtype == torch.bfloat16
+
+
+class _Dataset:
+    """The least of a dataset that run_dataset reads."""
+    name = "synthetic"
+
+    def __init__(self, sequences):
+        self.sequences = sequences
+
+    def __iter__(self):
+        return iter(self.sequences)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_pipelined_run_dataset_gives_the_same_labels(gen, tmp_path, compute_dtype):
+    """run_dataset(pipeline=True) prepares sequence i + 1 on a second thread
+    and a second CUDA stream while sequence i tracks; the tracker's stream
+    waits on the preparation's event before it reads. A race would show as
+    labels that differ from the unpipelined run's: the PNGs must be equal
+    byte for byte, over several passes."""
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    tracker = _small_fused_world(compute_dtype)
+    seqs = [make_moving_square_sequence(n_frames=9, size=(96, 128), square=24,
+                                        n_objects=1 + i % 2, seed=10 + i, name=f"s{i}")
+            for i in range(6)]
+    tracker.run_dataset(_Dataset(seqs), tmp_path / "plain")
+    for attempt in range(3):
+        out = tmp_path / f"piped{attempt}"
+        tracker.run_dataset(_Dataset(seqs), out, pipeline=True)
+        for seq in seqs:
+            for name in seq.frame_names:
+                assert ((out / seq.name / f"{name}.png").read_bytes()
+                        == (tmp_path / "plain" / seq.name / f"{name}.png").read_bytes()), \
+                    (attempt, seq.name, name)
 
 
 def test_count_host_syncs_sees_reads_and_blocking_uploads(gen):

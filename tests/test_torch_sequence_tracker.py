@@ -15,11 +15,23 @@ HEAD_SPREAD: every object holds part of the frame, memory inserts pass the
 Tolerances, with the measured values: labels differ on under 0.5 % of the
 pixels of a frame (the bound tests/test_sequence_tracker.py holds the two
 JAX engines to); measured at most 0.033 %, one pixel of 3072. The deferred
-soft volume within 1e-4; measured 8.5e-5 in the last frame. That difference
-starts in the init's GN-CG solve, which is ill-conditioned at this size
-(scores differ by 2.3e-5 after it; see test_torch_tracker.py), and grows
-with the head's gain: a smaller HEAD_SPREAD would shrink it, but under 0.5
-the two objects' odds tie with the background's and one object vanishes.
+soft volume within 1e-3; measured 9.63e-5 at frame 3 (3.3e-5, 2.7e-5,
+9.6e-5, 7.9e-5, 4.3e-5 over frames 1-5), the same to the last bit in every
+run on one machine. That difference starts in the init's GN-CG solve, which
+is ill-conditioned at this size (scores differ by 2.3e-5 after it; see
+test_torch_tracker.py), and grows with the head's gain: a smaller
+HEAD_SPREAD would shrink it, but under 0.5 the two objects' odds tie with
+the background's and one object vanishes. The yardstick for the bound is
+frtm_tpu's own sensitivity: when its input features move by 1e-6 (relative;
+the stem convolution scaled by 1 + 1e-6) its own volume moves by 3.1e-3 at
+frame 3. 1e-3 is a third of that and ten times the measured gap, so another
+machine's last bits cannot eat the margin, while a fault of the tracker
+(a lane's batch swapped moves the volume by 0.19) stays far above it.
+
+frtm_tpu's fused tracker runs here behind FreshBatches (test_torch_tracker.py):
+on the CPU backend its reused augment buffers may be aliased by `jnp.asarray`,
+and a two-object run then depends on the alignment `np.empty` happened to
+return. `test_jax_volume_ignores_augment_buffer_alignment` holds that.
 """
 from dataclasses import replace
 
@@ -40,7 +52,7 @@ from frtm_tpu_torch.models.seg_network import SegNetwork
 from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
 from frtm_tpu_torch.utils.convert import (disc_objects_from_jax, disc_params_from_jax,
                                           resnet_from_jax, seg_network_from_jax)
-from test_torch_tracker import SMALL, JaxAugmenterShim
+from test_torch_tracker import SMALL, FreshBatches, JaxAugmenterShim
 
 # The suite runs under xdist with about as many workers as the machine has
 # cores. PyTorch would give every worker a thread per core, and at these
@@ -95,12 +107,17 @@ class World:
                                       b=(conv2["b"] - float(np.median(logits))) * scale)
         self.jax_trackers = {}
 
-    def jax(self, merge_mode):
-        if merge_mode not in self.jax_trackers:
-            self.jax_trackers[merge_mode] = JaxFused(
-                self.jcfg, self.backbone, self.refiner, extract_chunk=4, scan_bucket=8,
-                merge_mode=merge_mode)
-        return self.jax_trackers[merge_mode]
+    def jax(self, merge_mode, compute_dtype="float32"):
+        key = (merge_mode, compute_dtype)
+        if key not in self.jax_trackers:
+            tracker = JaxFused(replace(self.jcfg, compute_dtype=compute_dtype), self.backbone,
+                               self.refiner, extract_chunk=4, scan_bucket=8,
+                               merge_mode=merge_mode)
+            # its own augmenter hands out reused buffers, which the CPU
+            # backend may alias (FreshBatches' docstring)
+            tracker.augmenter = FreshBatches(tracker.augmenter)
+            self.jax_trackers[key] = tracker
+        return self.jax_trackers[key]
 
     def port_models(self):
         tb = ResNet(ARCH)
@@ -109,8 +126,9 @@ class World:
         tr.load_state_dict(seg_network_from_jax(jax.tree.map(np.asarray, self.refiner)))
         return tb, tr
 
-    def port(self, merge_mode="online", **kw):
-        return BatchedSequenceTracker(self.tcfg, *self.port_models(), extract_chunk=4,
+    def port(self, merge_mode="online", compute_dtype="float32", **kw):
+        return BatchedSequenceTracker(replace(self.tcfg, compute_dtype=compute_dtype),
+                                      *self.port_models(), extract_chunk=4,
                                       merge_mode=merge_mode, device="cpu", disc_params0=self.p0,
                                       augmenter=JaxAugmenterShim(self.jcfg.aug_params), **kw)
 
@@ -178,19 +196,55 @@ def test_mid_sequence_entry_matches_jax(world, start):
 
 def test_deferred_soft_volume_matches_jax(world):
     """The deferred merge's pre-merge volume, ground truth at the start
-    frames; measured max abs difference 8.5e-5 at frame 5. And its labels
-    (measured equal)."""
+    frames; measured max abs difference 9.63e-5 at frame 3, held to 1e-3
+    (the module docstring says why). And its labels (measured equal)."""
     seq = _sequence(6, 2)
     want, _ = world.jax("deferred").run_sequence(seq, soft=True)
     got, _ = world.port("deferred").run_sequence(seq, soft=True)
     assert got.shape == want.shape == (6, 2) + SIZE and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
     for k in range(2):
         np.testing.assert_array_equal(got[0, k], seq.labels[0][..., 0] == k + 1)
     assert 0.05 < float((got[1:] > 0.5).mean()) < 0.95
     want_lb, _ = world.jax("deferred").run_sequence(seq)
     got_lb, _ = world.port("deferred").run_sequence(seq)
     _assert_labels_close(got_lb, want_lb, 2)
+
+
+def _buffer_at(shape, offset):
+    """An uninitialised uint8 array whose slot 1 (what the JAX tracker's
+    _pack_aug_batch uploads) starts at `offset` mod 64 bytes."""
+    size, slot = int(np.prod(shape)), int(np.prod(shape[1:]))
+    raw = np.empty(size + 128, np.uint8)
+    start = (offset - (raw.ctypes.data + slot)) % 64
+    buf = raw[start:start + size].reshape(shape)
+    assert buf[1:].ctypes.data % 64 == offset
+    return buf
+
+
+def test_jax_volume_ignores_augment_buffer_alignment(world):
+    """The protection of this module's reference: frtm_tpu's two-object
+    soft volume is equal, bit for bit, whether its augmenter's reused
+    buffers are 64-byte aligned (which `jnp.asarray` aliases on the CPU
+    backend) or not (which it copies). Without FreshBatches the aligned run
+    feeds object 1's init from object 2's augmentation and the volume moves
+    by 0.19."""
+    seq = _sequence(6, 2)
+    tracker = world.jax("deferred")
+    assert isinstance(tracker.augmenter, FreshBatches)
+    inner = tracker.augmenter.inner
+    K = world.jcfg.aug_params["num_aug"]
+    volumes = []
+    for offset in (0, 1):
+        inner._buf_key = (K,) + SIZE
+        inner._buf_im = _buffer_at((K,) + SIZE + (3,), offset)
+        inner._buf_lb = _buffer_at((K,) + SIZE + (1,), offset)
+        volumes.append(tracker.run_sequence(seq, soft=True)[0])
+        # the run did use the buffers it was given
+        np.testing.assert_array_equal(inner._buf_im[0], seq.images[0])
+    np.testing.assert_array_equal(volumes[0], volumes[1])
+    # and the two lanes are two objects, not one batch twice
+    assert np.abs(volumes[0][1:, 0] - volumes[0][1:, 1]).max() > 0.1
 
 
 def test_batched_init_matches_jax(world):

@@ -159,6 +159,25 @@ def test_prepared_sequence_and_given_batches_change_nothing(world):
         np.testing.assert_array_equal(a, c)
 
 
+def test_uploaded_augment_batch_survives_the_next_augment(world):
+    """On device="cpu" `.to(device)` returns its argument, so a packed
+    batch shares memory with what the augmenter returned: the first
+    object's batch must not change when the second object is augmented
+    (the pipelined run_dataset prepares sequence i + 1 while sequence i
+    still holds its batches)."""
+    seq = _sequence(3)
+    tracker = _fused(world)
+    objects = tracker._collect_objects(seq)
+    first = tracker._augment_objects(objects[:1])[0]
+    kept = [t.clone() for t in first]
+    both = tracker._augment_objects(objects)
+    other = tracker._augment_objects(_fused(world)._collect_objects(_sequence(3, seed=5)))
+    for t, k, again in zip(first, kept, both[0]):
+        assert torch.equal(t, k) and torch.equal(t, again)
+    assert not torch.equal(both[0][0], both[1][0]) and not torch.equal(both[0][0], other[0][0])
+    assert first[0].data_ptr() != both[0][0].data_ptr()
+
+
 def test_deferred_labels_and_one_frame_sequences(world):
     seq = _sequence(5)
     deferred = _fused(world, merge_mode="deferred")
@@ -179,10 +198,15 @@ def test_deferred_labels_and_one_frame_sequences(world):
 
 def test_what_is_not_ported_raises(world):
     cfg, backbone, refiner = world
-    for bad in (replace(cfg, compute_dtype="bfloat16"), replace(cfg, disc_layers=("layer4",)),
+    for bad in (replace(cfg, disc_layers=("layer4",)),
                 replace(cfg, disc=replace(cfg.disc, clamp_output=True))):
         with pytest.raises(NotImplementedError):
             BatchedSequenceTracker(bad, backbone, refiner, device="cpu")
+    for tracker in (BatchedSequenceTracker, Tracker):
+        with pytest.raises(ValueError):       # bfloat16 is taken, other names are not
+            tracker(replace(cfg, compute_dtype="float16"), backbone, refiner, device="cpu")
+        assert tracker(replace(cfg, compute_dtype="bfloat16"), backbone, refiner,
+                       device="cpu").dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):
         BatchedSequenceTracker(cfg, backbone, refiner, device="cpu", augment_backend="device")
     with pytest.raises(ValueError):

@@ -34,6 +34,31 @@ def _small(cfg):
     return replace(cfg, disc=replace(cfg.disc, **SMALL))
 
 
+class FreshBatches:
+    """A JAX augmenter whose `augment_first_frame` always returns arrays the
+    caller owns (copy=True), whatever the caller asks for.
+
+    frtm_tpu's fused tracker asks for copy=False and gets the augmenter's
+    reused buffers, trusting `jnp.asarray` to copy them to the device before
+    the next object's augmentation overwrites them. On the CPU backend
+    `jnp.asarray` aliases a numpy buffer that is 64-byte aligned instead of
+    copying it, so with two objects, in the processes where `np.empty`
+    happened to return an aligned buffer, object 1's init batch holds object
+    2's augmentation (the soft volume then moves by 0.19). Every test of the
+    port that runs frtm_tpu's fused tracker with more than one object gives
+    it this augmenter (`tracker.augmenter = FreshBatches(tracker.augmenter)`);
+    test_torch_sequence_tracker.py holds the protection with a test."""
+
+    def __init__(self, augmenter):
+        self.inner = augmenter
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def augment_first_frame(self, image, mask, rng, copy=True, compact=False):
+        return self.inner.augment_first_frame(image, mask, rng, copy=True, compact=compact)
+
+
 class JaxAugmenterShim:
     """The JAX augmenter's batches in the port's layout (N, C, H, W) tensors."""
 
@@ -116,12 +141,12 @@ def test_port_tracker_with_its_own_augmenter_is_deterministic():
     seq = torch_sequence(n_frames=4, size=(96, 128), square=24, seed=2)
     ch = {L: c for L, c in resnet_out_channels(ARCH).items() if L in cfg.refnet_layers}
     runs = []
-    for _ in range(2):
+    for speedrun in (False, True):      # the warm-up pass leaves nothing behind
         tracker = Tracker(cfg, t_init_resnet(ARCH, torch.Generator().manual_seed(1), "cpu"),
                           t_init_seg_network(ch, torch.Generator().manual_seed(2),
                                              device="cpu"),
                           device="cpu")
-        outputs, fps = tracker.run_sequence(seq)
+        outputs, fps = tracker.run_sequence(seq, speedrun=speedrun)
         runs.append((outputs, tracker.current_masks.clone(),
                      tracker.targets[1].params.filter.clone()))
         assert fps > 0
