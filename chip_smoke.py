@@ -8,6 +8,16 @@ Phases, each printing one JSON line:
   1. probe    — CUDA present, a real launch, card name and power limit;
   2. build    — the three CUDA kernels compiled from frtm_tpu_torch/ops/kernels/csrc
                 (kernels 1 and 2 hold a float32 and a bfloat16 instance each);
+  2b. native  — the host library (frtm_tpu_torch/utils/csrc/frtm_host.cpp) built
+                with the host compiler: its build seconds, the JPEG backend it
+                found (libjpeg or nvJPEG) and which headers were there; its
+                Telea inpaint equal on every value to the plain Python version
+                on a 120 px square hole and a 200x300 hole in a textured 480x854
+                frame, the dilation and the PNG unfilter (all five filters on a
+                480x854 RGB image, and the committed libpng file) equal to
+                theirs; the committed JPEG fixtures decoded to their digests
+                (libjpeg-turbo) or within 0.5 dB of their PSNR (another
+                decoder), one frame alone and in a batch; times of each;
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes (max abs difference within the stated
                 tolerance), with CUDA-event times of kernel, plain version and
@@ -54,7 +64,26 @@ Phases, each printing one JSON line:
                 sequence, its augment batches made once, fps and phase
                 seconds without the augment in bfloat16 and in float32, peak
                 memory of each, and the label gap between the two (it fails
-                above 5 % of a frame);
+                above 5 % of a frame). Then one more CLI run with no dataset
+                object: `--davis` names the committed DAVIS-layout tree
+                (tests/data/torch_fixtures/davis: JPEG frames, PNG
+                annotations, one sequence of 9 480x854 frames, two objects),
+                read through DAVISDataset and the host library's decoder;
+                checked as above (PNGs, frame 0, reports, launches 2 / 1 /
+                16). Per sequence of every run: fps and host_cut_inpaint_s
+                (the host's cut and Telea inpaint of every object, timed
+                again after the run);
+  7b. ytvos   — `frtm_tpu_torch.evaluate_ytvos.main` with --dev cuda --dtype
+                bfloat16 on the committed YouTube-VOS-layout tree
+                (tests/data/torch_fixtures/ytvos: 9 frames at 720x1280, object 2
+                entering at frame 4), the legacy configuration and the
+                deferred merge: one PNG per frame, each equal to what was
+                tracked; frame 0 the ground truth of object 1, object 2's
+                ground truth at its entry frame; a re-run equal byte for byte;
+                launches 16 / 8 / 16 (the per-frame loop, 8 decodes of two
+                lanes), all bf16 / staged; no host wait in the scan; a decode
+                at 720x1280 in bf16, kernels against plain within one ulp.
+                Printed: fps, phase seconds, peak memory;
   8. small    — a 6-frame 96x128 rn18 sequence through the port on the CPU
                 (plain versions) and on the card (kernels); masks must agree,
                 and each run must re-solve its filter twice.
@@ -78,6 +107,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+FIXTURES = ROOT / "tests" / "data" / "torch_fixtures"
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the f32
 # rate of the CUDA cores (no tensor cores). The bound of a kernel is the
@@ -229,6 +259,172 @@ def phase_build():
                   for n, lines in ptxas.items()}
     emit({"phase": "build", "seconds": seconds, "kernels": list(kbuild.KERNELS),
           "ptxas": ptxas, "spill_free": spill_free})
+
+
+def host_ms(fn, repeats=5):
+    """Median host milliseconds of one call."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def textured_frame(size, seed=0):
+    """(H, W, 3) uint8 with texture at several scales: smoothed noise and
+    a sinusoidal pattern."""
+    rng = np.random.RandomState(seed)
+    H, W = size
+    img = rng.rand(H, W, 3) * 255
+    for _ in range(3):
+        img = (img + np.roll(img, 1, 0) + np.roll(img, 1, 1) + np.roll(img, -1, 0)
+               + np.roll(img, -1, 1)) / 5
+    yy, xx = np.mgrid[0:H, 0:W]
+    pattern = 40 * np.sin(xx / 9.0)[..., None] * np.cos(yy / 13.0)[..., None]
+    return np.clip(img * 2 - 127 + pattern, 0, 255).astype(np.uint8)
+
+
+def png_rows(arr, ftypes):
+    """The raw (inflated) PNG image data of (h, w, c) uint8 `arr` with row y
+    filtered by ftypes[y % len(ftypes)]: the encoder's side of the unfilter,
+    vectorised over each row (the predictors read the unfiltered values)."""
+    h, w, c = arr.shape
+    cur = arr.reshape(h, w * c).astype(np.int64)
+    up = np.concatenate([np.zeros((1, w * c), np.int64), cur[:-1]])
+    left = np.concatenate([np.zeros((h, c), np.int64), cur[:, :-c]], axis=1)
+    upleft = np.concatenate([np.zeros((h, c), np.int64), up[:, :-c]], axis=1)
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = {0: 0 * cur, 1: left, 2: up, 3: (left + up) // 2, 4: paeth}
+    types = np.array([ftypes[y % len(ftypes)] for y in range(h)])
+    rows = np.stack([((cur[y] - preds[types[y]][y]) % 256) for y in range(h)]).astype(np.uint8)
+    return np.concatenate([types[:, None].astype(np.uint8), rows], axis=1).tobytes()
+
+
+def fixture_script():
+    """scripts/make_torch_jpeg_fixtures.py, which rebuilds the fixtures'
+    source frames with numpy alone."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_jpeg_fixtures", ROOT / "scripts" / "make_torch_jpeg_fixtures.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_native():
+    """The host library: build, backend, Telea / dilation / unfilter against
+    their plain versions, the JPEG fixtures against their manifest."""
+    import hashlib
+    from frtm_tpu_torch.data import image as port_image
+    from frtm_tpu_torch.models.inpaint import (dilate_ellipse2, dilate_ellipse2_plain,
+                                               inpaint_telea, inpaint_telea_plain)
+    from frtm_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    backend = native.JPEG_BACKEND
+    functions = {}
+
+    # Telea, as the augmenter calls it (radius 1), on the full frame
+    frame = textured_frame((480, 854))
+    telea = []
+    for y0, x0, h, w in ((180, 367, 120, 120), (140, 277, 200, 300)):
+        mask = np.zeros((480, 854), np.uint8)
+        mask[y0:y0 + h, x0:x0 + w] = 1
+        got = inpaint_telea(frame, mask, 1)
+        t1 = time.perf_counter()
+        want = inpaint_telea_plain(frame, mask, 1)
+        plain_s = time.perf_counter() - t1
+        equal = bool(np.array_equal(got, want))
+        telea.append({"hole": [h, w], "equal": equal, "ms": host_ms(lambda: inpaint_telea(
+            frame, mask, 1)), "plain_ms": plain_s * 1e3,
+            "values_differing": int((got != want).sum())})
+        if not equal:
+            fail(f"native: C++ Telea differs from the plain version on a {h}x{w} hole on "
+                 f"{telea[-1]['values_differing']} values")
+    functions["inpaint_telea_u8c3 (200x300 hole, 480x854)"] = {
+        "ms": telea[1]["ms"], "plain_ms": telea[1]["plain_ms"]}
+
+    hole = (frame[..., 0] > 200).astype(np.uint8)
+    if not np.array_equal(dilate_ellipse2(hole), dilate_ellipse2_plain(hole)):
+        fail("native: the dilation differs from the plain version")
+    functions["dilate_ellipse2_u8 (480x854)"] = {
+        "ms": host_ms(lambda: dilate_ellipse2(hole)),
+        "plain_ms": host_ms(lambda: dilate_ellipse2_plain(hole))}
+
+    # the PNG unfilter: Average and Paeth rows (the ones the plain version
+    # walks in Python), then all five, on a 480x854 RGB image
+    png = {}
+    for name, ftypes in (("average_paeth", (3, 4)), ("all_five", (0, 1, 2, 3, 4))):
+        raw = png_rows(frame, ftypes)
+        got = native.png_unfilter(raw, 480, 854 * 3, 3)
+        t1 = time.perf_counter()
+        want = port_image._unfilter_plain(raw, 480, 854 * 3, 3)
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        if not (np.array_equal(got, want) and np.array_equal(got.reshape(480, 854, 3), frame)):
+            fail(f"native: the PNG unfilter ({name}) differs from the plain version")
+        png[name] = {"ms": host_ms(lambda: native.png_unfilter(raw, 480, 854 * 3, 3)),
+                     "plain_ms": plain_ms}
+    functions["png_unfilter (480x854 RGB, Average / Paeth rows)"] = png["average_paeth"]
+
+    # the committed fixtures: digests of PIL's decode where the backend is
+    # libjpeg-turbo, else the PSNR against the rebuilt source within 0.5 dB
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    script = fixture_script()
+    exact = backend.startswith("libjpeg-turbo")
+    jpegs, worst_db = {"checked": 0, "digest_equal": 0}, 0.0
+    for name, entry in manifest["jpeg"].items():
+        got = port_image.imread(FIXTURES / name)
+        if list(got.shape) != entry["shape"]:
+            fail(f"native: {name} decodes to {got.shape}, expected {entry['shape']}")
+        same = hashlib.sha256(got.tobytes()).hexdigest() == entry["sha256"]
+        db = script.psnr(got, script.source_of(name))
+        worst_db = max(worst_db, abs(db - entry["psnr_db"]))
+        jpegs["checked"] += 1
+        jpegs["digest_equal"] += same
+        if exact and not same:
+            fail(f"native: {name} decoded by {backend} differs from PIL's decode")
+        if abs(db - entry["psnr_db"]) > 0.5:
+            fail(f"native: {name} decodes to {db:.3f} dB against its source, the manifest "
+                 f"says {entry['psnr_db']:.3f}")
+    jpegs["psnr_gap_db_max"] = worst_db
+    for tree, rel in (("davis", "davis/JPEGImages/480p/blobs"),
+                      ("ytvos", "ytvos/valid_all_frames/JPEGImages/0a1b2c3d4e")):
+        files = sorted((FIXTURES / rel).glob("*.jpg"))
+        h, w = native.jpeg_dims(files[0])
+        batch = native.batch_decode_jpeg_files(files, h, w)
+        if not all(np.array_equal(batch[i], port_image.imread(f)) for i, f in enumerate(files)):
+            fail(f"native: the batch decode of the {tree} frames differs from one at a time")
+        jpegs[tree] = {"size": [h, w], "frames": len(files),
+                       "ms_per_frame_alone": host_ms(lambda: native.decode_jpeg_file(files[0])),
+                       "ms_per_frame_batch": host_ms(
+                           lambda: native.batch_decode_jpeg_files(files, h, w)) / len(files)}
+    functions["decode_jpeg (480x854)"] = {"ms": jpegs["davis"]["ms_per_frame_alone"],
+                                          "plain_ms": None}
+    functions["batch_decode_jpeg_files (720x1280, per frame)"] = {
+        "ms": jpegs["ytvos"]["ms_per_frame_batch"], "plain_ms": None}
+    # the committed file libpng wrote with all five filters, through the
+    # library's unfilter and through the plain one
+    (name, entry), = manifest["png"].items()
+    got = port_image.imread(FIXTURES / name)
+    library_unfilter = native.png_unfilter
+    native.png_unfilter = port_image._unfilter_plain
+    try:
+        plain = port_image.imread(FIXTURES / name)
+    finally:
+        native.png_unfilter = library_unfilter
+    if hashlib.sha256(got.tobytes()).hexdigest() != entry["sha256"] \
+            or not np.array_equal(got, plain):
+        fail(f"native: {name} (libpng, filters {entry['filters']}) does not read to its digest "
+             "through both unfilters")
+    emit({"phase": "native", "build_seconds": build_s, "jpeg_backend": backend,
+          "probe": native.PROBE, "telea": telea, "png_unfilter": png, "jpeg": jpegs,
+          "functions": functions, "tolerance": {"telea": 0, "png": 0,
+                                                "jpeg": "digest" if exact else "0.5 dB"}})
 
 
 def bf16_ulp(peak):
@@ -771,7 +967,10 @@ def phase_eval(cfg, backbone, refiner):
         BatchedSequenceTracker.run_sequence = recording
         BatchedSequenceTracker.run_dataset = timed_dataset
         try:
-            for tag, extra in (("plain", []), ("pipelined", ["--pipeline"])):
+            # the last run reads the committed DAVIS tree from disk: no dataset
+            # object, the CLI's own DAVISDataset and JPEG decoder
+            for tag, extra, dset in (("plain", [], dataset), ("pipelined", ["--pipeline"], dataset),
+                                     ("davis", ["--davis", str(FIXTURES / "davis")], None)):
                 BatchedSequenceTracker.run_tag = tag
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -780,7 +979,7 @@ def phase_eval(cfg, backbone, refiner):
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(text):
                     result = evaluate.main(argv + ["--output", str(tmp / tag)] + extra,
-                                           dataset=dataset)
+                                           dataset=dset)
                 torch.cuda.synchronize()
                 runs[tag] = dict(result, wall_s=time.perf_counter() - t0,
                                  launches=dict(LAUNCHES),
@@ -808,6 +1007,7 @@ def phase_eval(cfg, backbone, refiner):
 
         # PNGs: all there, equal to what run_sequence returned, frame 0 the
         # ground truth, the pipelined run's equal byte for byte
+        davis = runs.pop("davis")
         for tag, run in runs.items():
             if run["out_path"] != (tmp / tag).resolve() / "synthval-rn101_smoke":
                 fail(f"eval: results went to {run['out_path']}")
@@ -858,6 +1058,18 @@ def phase_eval(cfg, backbone, refiner):
         if len(aggregate) != 1:
             fail("eval: the pipelined run printed no aggregate line")
 
+        davis_checks = check_davis_run(davis, recorded["davis"], tmp / "davis")
+
+        # per sequence: fps and the host's cut-and-inpaint of its objects
+        from frtm_tpu_torch.data.datasets import DAVISDataset
+        davis_seqs = list(DAVISDataset(FIXTURES / "davis", "2017", "val"))
+        per_sequence = {
+            tag: {seq.name: {"fps": recorded[tag][seq.name][1],
+                             "host_cut_inpaint_s": cut_inpaint_seconds(*seq[0][:2]),
+                             "augment_host_s": enqueue[tag][seq.name].get("augment")}
+                  for seq in (davis_seqs if tag == "davis" else seqs)}
+            for tag in ("plain", "pipelined", "davis")}
+
         # the first sequence again, its augment batches made once and handed
         # to every pass (the augment is the host's and the same in both
         # types): on the CLI's tracker, timed and then with a synchronise at
@@ -899,6 +1111,7 @@ def phase_eval(cfg, backbone, refiner):
           "run_dataset_wall_s": walls,
           "run_dataset_fps": {t: n_seqs * n_frames / w for t, w in walls.items()},
           "wall_s_with_load_and_scoring": {t: r["wall_s"] for t, r in runs.items()},
+          "per_sequence": per_sequence, "davis_tree": davis_checks,
           "J": runs["plain"]["J"], "F": runs["plain"]["F"],
           "launches": {t: r["launches"] for t, r in runs.items()},
           "instances": {t: r["variants"] for t, r in runs.items()},
@@ -917,7 +1130,195 @@ def phase_eval(cfg, backbone, refiner):
         fail(f"eval: a re-run of the CLI's tracker differs on {rerun_diff:.4%} of a frame")
     if not max(gap) <= 5e-2:
         fail(f"eval: bfloat16 labels differ from float32 on {max(gap):.2%} of a frame")
-    return runs["plain"]["launches"], runs["plain"]["variants"]
+    return ({k: runs["plain"]["launches"][k] + davis["launches"][k] for k in expected},
+            {k: {i: runs["plain"]["variants"][k][i] + davis["variants"][k][i]
+                 for i in runs["plain"]["variants"][k]} for k in expected})
+
+
+def phase_ytvos(backbone, refiner):
+    """The YouTube-VOS entry point on the committed 720x1280 tree, in bf16:
+    legacy configuration, deferred merge, object 2 entering at frame 4."""
+    from frtm_tpu_torch import evaluate_ytvos
+    from frtm_tpu_torch.data.datasets import YouTubeVOSDataset
+    from frtm_tpu_torch.data.image import imread
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+
+    tree = FIXTURES / "ytvos"
+    name, n_frames, entry = "0a1b2c3d4e", 9, 4
+    anno = tree / "valid" / "Annotations" / name
+    # the per-frame loop (entry at 4 is not on a window of 8): 8 decodes of 2 lanes
+    expected = {"pyrup": 16, "conv3x3_cout1": 8, "warp_affine": 16}
+    recorded = []
+    original = BatchedSequenceTracker.run_sequence
+
+    def recording(self, sequence, *args, **kwargs):
+        out = original(self, sequence, *args, **kwargs)
+        recorded.append((sequence.name, out, {k: v["total_s"]
+                                              for k, v in self.last_phase_stats.items()}))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="frtm_smoke_yt_") as tmp:
+        tmp = Path(tmp)
+        torch.save({"model": {"refiner." + k: v.detach().cpu()
+                              for k, v in refiner.state_dict().items()}, "epoch": 260},
+                   tmp / "rn101_ytvos.pth")
+        torch.save({k: v.detach().cpu() for k, v in backbone.state_dict().items()},
+                   tmp / "resnet101.pth")
+        argv = ["--model", str(tmp / "rn101_ytvos.pth"), "--backbone", str(tmp / "resnet101.pth"),
+                "--yt2018", str(tree), "--dev", "cuda", "--dtype", "bfloat16"]
+        runs = {}
+        BatchedSequenceTracker.run_sequence = recording
+        try:
+            for tag in ("first", "rerun"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    result = evaluate_ytvos.main(argv + ["--output", str(tmp / tag)])
+                torch.cuda.synchronize()
+                runs[tag] = dict(result, wall_s=time.perf_counter() - t0, launches=dict(LAUNCHES),
+                                 variants={k: dict(v) for k, v in VARIANTS.items()},
+                                 peak=torch.cuda.max_memory_allocated(), text=text.getvalue())
+                print(text.getvalue(), end="", flush=True)
+        finally:
+            BatchedSequenceTracker.run_sequence = original
+
+        run = runs["first"]
+        tracker = run["tracker"]
+        res = run["out_path"]
+        if res != (tmp / "first").resolve() / "ytvos2018valid_all_frames" / "Annotations":
+            fail(f"ytvos: results went to {res}")
+        if tracker.merge_mode != "deferred" or tracker.cfg.disc.update_method != "thresh" \
+                or tracker.last_feats_dtype != torch.bfloat16:
+            fail("ytvos: the CLI did not build the deferred-merge, thresh-update bf16 tracker")
+        (seq_name, (labels, fps), phases), _ = recorded
+        files = sorted((res / name).glob("*.png"))
+        if seq_name != name or [f.stem for f in files] != [f"{t:05d}" for t in range(n_frames)]:
+            fail(f"ytvos: {seq_name}: PNGs {[f.name for f in files]}")
+        for f, lb in zip(files, labels):
+            if lb.shape != (720, 1280) or not np.array_equal(imread(f)[..., 0], lb):
+                fail(f"ytvos: {f.name} is not what was tracked")
+            if f.read_bytes() != (runs["rerun"]["out_path"] / name / f.name).read_bytes():
+                fail(f"ytvos: {f.name} differs in a re-run")
+        gt0 = imread(anno / "00000.png")[..., 0]
+        gt_entry = imread(anno / f"{entry:05d}.png")[..., 0] == 2
+        if not np.array_equal(labels[0], gt0):
+            fail("ytvos: frame 0 is not object 1's ground truth")
+        if any((lb == 2).any() for lb in labels[:entry]):
+            fail("ytvos: object 2 is labelled before it enters")
+        covered = float(((labels[entry] == 2) & gt_entry).sum() / gt_entry.sum())
+        if covered < 0.9:
+            fail(f"ytvos: object 2 covers {covered:.2%} of its ground truth at its entry frame")
+        for tag, r in runs.items():
+            ln, vr = r["launches"], r["variants"]
+            if {k: ln[k] for k in expected} != expected or vr["pyrup"]["f32"] \
+                    or vr["conv3x3_cout1"]["f32"] or vr["warp_affine"]["direct"]:
+                fail(f"ytvos ({tag}): expected launches {expected}, all bf16 / staged, "
+                     f"got {ln}, {vr}")
+
+        # the scan's host waits, and phase seconds from a synchronised pass
+        seq = YouTubeVOSDataset(tree, "2018", "valid_all_frames")[0]
+        seq.preload()
+        tracker.profile = True
+        _, fps_profiled = tracker.run_sequence(seq)
+        tracker.profile = False
+        stats = tracker.last_phase_stats
+        host_syncs = stats["scan"]["host_syncs"]
+        if host_syncs != 0:
+            fail(f"ytvos: the scan waited for the card {host_syncs} times: "
+                 f"{stats['scan']['host_syncs_at']}")
+
+        # a decode at 720x1280 in bf16 (pyrup on (2, 32, 180, 320) and
+        # (2, 16, 360, 640), the head conv on (2, 16, 720, 1280)): kernels
+        # against plain within one bf16 ulp at the logits' peak
+        from frtm_tpu_torch.models.seg_network import seg_network_apply
+        im = torch.from_numpy(seq.preloaded[1]).cuda().permute(2, 0, 1)[None]
+        feats = tracker.backbone_c.extract_features(im, output_layers=tracker._all_layers,
+                                                    out_dtype=torch.bfloat16)
+        layers = tracker.cfg.refnet_layers
+        feats = {L: feats[L].expand(2, -1, -1, -1) for L in layers}
+        g = torch.Generator().manual_seed(3)
+        scores = (torch.randn((2, 1) + tuple(feats["layer4"].shape[-2:]), generator=g) * 2).cuda()
+
+        def decode():
+            return seg_network_apply(tracker.refiner_c, scores.to(torch.bfloat16), feats,
+                                     (720, 1280), layers=layers)
+        reset_launches()
+        with torch.no_grad():
+            got = decode()
+            instances = {k: dict(VARIANTS[k]) for k in ("pyrup", "conv3x3_cout1")}
+            with plain_decoder():
+                want = decode()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = bf16_ulp(float(want.float().abs().max()))
+        if instances != {"pyrup": {"f32": 0, "bf16": 2}, "conv3x3_cout1": {"f32": 0, "bf16": 1}} \
+                or err > tol:
+            fail(f"ytvos: the 720x1280 bf16 decode: kernels vs plain {err} (tolerance {tol}), "
+                 f"instances {instances}")
+
+    emit({"phase": "ytvos", "arch": tracker.cfg.feature_extractor, "dtype": "bfloat16",
+          "merge_mode": "deferred", "update_method": "thresh", "size": [720, 1280],
+          "frames": n_frames, "objects": 2, "entry_frame": entry, "fps": fps,
+          "fps_profiled": fps_profiled, "fps_rerun": runs["rerun"]["fps"],
+          "host_seconds_per_phase": phases,
+          "phase_seconds": {k: v["total_s"] for k, v in stats.items()},
+          "host_cut_inpaint_s": cut_inpaint_seconds(seq[0][0], gt0)
+          + cut_inpaint_seconds(seq[entry][0], gt_entry.astype(np.uint8) * 2),
+          "scan_host_syncs": host_syncs, "launches": run["launches"],
+          "instances": run["variants"], "max_memory_allocated": run["peak"],
+          "wall_s": run["wall_s"], "object2_entry_coverage": covered,
+          "object_pixels": {i: [int((lb == i).sum()) for lb in labels] for i in (1, 2)},
+          "decode_720x1280_bf16": {"max_abs_err": err, "tolerance": tol,
+                                   "instances": instances},
+          "rerun_equal": True})
+    return run["launches"], run["variants"]
+
+
+def cut_inpaint_seconds(image, labels):
+    """Host seconds of the augmenter's cut and Telea inpaint, once per object
+    of a start frame (what the augment phase spends on them)."""
+    from frtm_tpu_torch.models.augmenter import cut_and_inpaint
+    labels = np.asarray(labels).squeeze()
+    t0 = time.perf_counter()
+    for obj in np.unique(labels)[1:]:
+        cut_and_inpaint(image, labels == obj)
+    return time.perf_counter() - t0
+
+
+def check_davis_run(run, recorded, out_root):
+    """The CLI's run over the committed DAVIS tree: 9 PNGs equal to what was
+    tracked, frame 0 the ground truth, both reports, launches of one window
+    of two objects, all bf16 / staged."""
+    from frtm_tpu_torch.data.image import imread
+    anno = FIXTURES / "davis" / "Annotations" / "480p" / "blobs"
+    if run["out_path"] != out_root.resolve() / "dv2017val-rn101_smoke" or list(recorded) != ["blobs"]:
+        fail(f"eval (davis): results went to {run['out_path']}, sequences {list(recorded)}")
+    labels, fps = recorded["blobs"]
+    files = sorted((run["out_path"] / "blobs").glob("*.png"))
+    if [f.stem for f in files] != [f"{t:05d}" for t in range(9)] or len(labels) != 9:
+        fail(f"eval (davis): {len(files)} PNGs, {len(labels)} labels, expected 9")
+    for f, lb in zip(files, labels):
+        if lb.shape != (480, 854) or not np.array_equal(imread(f)[..., 0], lb):
+            fail(f"eval (davis): {f.name} is not what was tracked")
+    if not np.array_equal(labels[0], imread(anno / "00000.png")[..., 0]):
+        fail("eval (davis): frame 0 is not the ground truth")
+    for measure in ("J", "F"):
+        last = (run["out_path"] / f"evaluation-{measure}.txt").read_text().splitlines()[-1]
+        if not (np.isfinite(run[measure]) and last.startswith(f"{measure}: {run[measure]:.3f}")):
+            fail(f"eval (davis): report ends {last!r}, returned {run[measure]}")
+    want = {"pyrup": 2, "conv3x3_cout1": 1, "warp_affine": 16}
+    ln, vr = run["launches"], run["variants"]
+    if {k: ln[k] for k in want} != want or vr["pyrup"]["bf16"] != 2 \
+            or vr["conv3x3_cout1"]["bf16"] != 1 or vr["warp_affine"]["staged"] != 16:
+        fail(f"eval (davis): expected launches {want}, all bf16 / staged, got {ln}, {vr}")
+    return {"fps": fps, "frames": len(labels), "J": run["J"], "F": run["F"],
+            "launches": ln, "wall_s_with_load_and_scoring": run["wall_s"],
+            "max_memory_allocated": run["peak"],
+            "object_pixels": {i: [int((lb == i).sum()) for lb in labels] for i in (1, 2)}}
 
 
 def phase_small(arch="resnet18"):
@@ -958,14 +1359,16 @@ def phase_small(arch="resnet18"):
         fail(f"small: filter re-solves {resolves}, expected {expected} on each device")
 
 
-def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval):
+def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
+                 launches_ytvos, instances_ytvos):
     """The contract line: one entry per kernel instance at its main-path
     shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
     host loop runs them, and at N = 16 in bfloat16, the eval path's window of
     8 frames and two objects; the full-frame background warp). `launches`
     sums the paths that run the instance, each counted from 0: the host loop
     and the float32 fused tracker for the float32 instances, the unpipelined
-    CLI run for the bfloat16 ones, all three for the warp."""
+    CLI runs (synthetic and DAVIS tree) and the YouTube-VOS CLI run for the
+    bfloat16 ones, all of them for the warp."""
     entries = [("pyrup", "pyrup", 1, False), ("conv3x3_cout1", "conv3x3_cout1", 0, False),
                ("warp_affine", "warp_affine", 0, True), ("pyrup_bf16", "pyrup", 5, True),
                ("conv3x3_cout1_bf16", "conv3x3_cout1", 2, True)]
@@ -975,11 +1378,13 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval):
         r = rows[name][main_row]
         bf16 = name.endswith("_bf16")
         n_eval = (instances_eval[kernel]["bf16"] if bf16 else launches_eval[kernel]) * in_eval
+        n_ytvos = (instances_ytvos[kernel]["bf16"] if bf16 else launches_ytvos[kernel]) * in_eval
         n_host, n_fused = (0, 0) if bf16 else (launches[kernel], launches_fused[kernel])
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": n_host + n_fused + n_eval,
+                    "launches": n_host + n_fused + n_eval + n_ytvos,
                     "launches_host_loop": n_host, "launches_fused": n_fused,
-                    "launches_eval": n_eval, "max_abs_err": r["max_abs_err"],
+                    "launches_eval": n_eval, "launches_ytvos": n_ytvos,
+                    "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "shape": r["shape"], "tolerance": r["tolerance"],
@@ -1002,6 +1407,7 @@ def main():
     t0 = time.perf_counter()
     phase_probe()
     phase_build()
+    phase_native()
     rows = phase_kernels()
     cfg = eval_config("resnet101")
     seq = make_moving_square_sequence(n_frames=17, size=(480, 854), square=120, seed=0)
@@ -1010,10 +1416,12 @@ def main():
     launches = phase_main(tracker, seq)
     launches_fused = phase_fused(cfg, tracker.backbone, tracker.refiner)
     launches_eval, instances_eval = phase_eval(cfg, tracker.backbone, tracker.refiner)
+    launches_ytvos, instances_ytvos = phase_ytvos(tracker.backbone, tracker.refiner)
     del tracker
     phase_small()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
-    emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval))
+    emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
+                      launches_ytvos, instances_ytvos))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -67,7 +67,8 @@ class FileSequence:
         return "%s: %s, %d frames" % (self.dset_name, self.name, len(self))
 
     def preload(self):
-        """Read every frame up front, to host memory; the tracker uploads
+        """Read every frame up front, to host memory (imread_batch: same-size
+        JPEG frames on the host library's threads); the tracker uploads
         them."""
         from .image import imread_batch
         frames = imread_batch(self.images)

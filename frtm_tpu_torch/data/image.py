@@ -2,24 +2,28 @@
 writing label images as indexed-colour PNGs with the DAVIS palette, which is
 what the DAVIS tooling reads. (H, W, C) numpy arrays throughout.
 
-PNG goes through this module's own codec, on `zlib` and `struct` from the
-standard library, because the port must run where neither PIL nor cv2 nor
-libpng's headers are installed. It writes 8-bit indexed PNG with a PLTE
-chunk; it reads non-interlaced 8-bit PNG of every colour type (greyscale,
-RGB, indexed, and both with alpha) with all five scanline filters (None, Sub,
-Up, Average, Paeth: other writers choose a filter per row), and raises on
-what it does not read (16-bit samples, bit depths under 8, interlacing). An
-indexed PNG is read as its indices, (H, W, 1), like a label image.
+Nothing here needs PIL, cv2 or libpng's headers, none of which the port may
+assume. PNG goes through this module's own codec: chunks and inflation with
+`zlib` and `struct` from the standard library, the row unfilter in the port's
+host library (utils/native.py; `_unfilter_plain` is its plain version). It
+writes 8-bit indexed PNG with a PLTE chunk; it reads non-interlaced 8-bit PNG
+of every colour type (greyscale, RGB, indexed, and both with alpha) with all
+five scanline filters (None, Sub, Up, Average, Paeth: other writers choose a
+filter per row), and raises on what it does not read (16-bit samples, bit
+depths under 8, interlacing). An indexed PNG is read as its indices,
+(H, W, 1), like a label image.
 
-JPEG cannot be decoded with the standard library. `imread` of a .jpg imports
-PIL inside the function and raises an error that says so where PIL is absent;
-nothing else in the port names PIL.
+JPEG is decoded by the host library too (libjpeg or nvJPEG, whichever its
+build found; `native.JPEG_BACKEND`), always to (H, W, 3) RGB; `imread_batch`
+decodes same-size JPEG frames on its pool of threads.
 """
 import struct
 import zlib
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import native
 
 # 256-entry palette; the first 22 are the DAVIS colours, the rest a grey ramp.
 davis_palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
@@ -82,8 +86,9 @@ def _average_row(line, prev, bpp):
     return out
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline filters: (height, stride) uint8."""
+def _unfilter_plain(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters: (height, stride) uint8. The plain
+    version of native.png_unfilter."""
     if len(raw) != height * (stride + 1):
         raise ValueError(f"PNG: {len(raw)} bytes of image data, expected "
                          f"{height * (stride + 1)}")
@@ -139,28 +144,32 @@ def decode_png(data: bytes) -> np.ndarray:
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG: unknown colour type {ctype}")
     c = _CHANNELS[ctype]
-    return _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c).reshape(h, w, c)
+    return native.png_unfilter(zlib.decompress(b"".join(idat)), h, w * c, c).reshape(h, w, c)
+
+
+def _is_jpeg(filename) -> bool:
+    return Path(filename).suffix.lower() in (".jpg", ".jpeg")
 
 
 def imread(filename) -> np.ndarray:
-    """Read an image to (H, W, C) uint8 (C = 1 for indexed and grey label PNGs)."""
+    """Read an image to (H, W, C) uint8: C = 1 for indexed and grey label
+    PNGs, 3 for every JPEG."""
     suffix = Path(filename).suffix.lower()
     if suffix == ".png":
         return decode_png(Path(filename).read_bytes())
-    if suffix in (".jpg", ".jpeg"):
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise RuntimeError(
-                f"imread({str(filename)!r}): decoding a JPEG needs PIL, which is not "
-                "installed here; the port's own codec reads PNG only") from e
-        with Image.open(filename) as im:
-            return np.atleast_3d(np.array(im))
+    if _is_jpeg(filename):
+        return native.decode_jpeg_file(filename)
     raise ValueError(f"imread: unsupported file type {suffix!r} ({filename})")
 
 
 def imread_batch(filenames):
-    """Read many same-size frames into one (N, H, W, C) array."""
+    """Read many same-size frames into one (N, H, W, C) array; JPEG frames of
+    the first one's size are decoded together on the host library's threads."""
+    filenames = list(filenames)
+    if filenames and all(_is_jpeg(f) for f in filenames):
+        size = native.jpeg_dims(filenames[0])
+        if all(native.jpeg_dims(f) == size for f in filenames[1:]):
+            return native.batch_decode_jpeg_files(filenames, *size)
     return np.stack([imread(f) for f in filenames])
 
 

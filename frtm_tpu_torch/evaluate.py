@@ -78,6 +78,33 @@ def open_dataset(args):
     return YouTubeVOSDataset(path=args.yt2018, year="2018", split=split)
 
 
+def load_models(args):
+    """What both CLIs load: (model path, arch, refiner, backbone) on
+    args.dev, the backbone seeded at random where --backbone is not given.
+    Exits with an error where --dev cuda finds no card, or the model file is
+    missing or not a reference-format .pth."""
+    if args.dev == "cuda" and not torch.cuda.is_available():
+        sys.exit("--dev cuda: no CUDA device is available (torch.cuda.is_available() is "
+                 "false); nothing runs on the CPU unless --dev cpu asks for it")
+    from .utils import checkpoints as ckpt
+    from .utils.convert import init_resnet
+
+    model_path = Path(args.model)
+    if not model_path.exists():
+        sys.exit(f"Model file '{model_path}' not found.")
+    if model_path.suffix != ".pth":
+        sys.exit(f"{model_path.name}: only reference-format .pth checkpoints are read; the "
+                 "JAX package's .npz format is not ported (ROADMAP.md queue item 8)")
+    arch, refiner = ckpt.load_reference_model(model_path, device=args.dev)
+    if args.backbone:
+        backbone = ckpt.load_backbone(args.backbone, arch, device=args.dev)
+    else:
+        print("WARNING: no --backbone weights given; using random backbone "
+              "(benchmark-only; J&F will be meaningless).")
+        backbone = init_resnet(arch, torch.Generator().manual_seed(0), device=args.dev)
+    return model_path, arch, refiner, backbone
+
+
 def main(argv=None, dataset=None):
     """Run the evaluation. `dataset`: a dataset object to track and score in
     place of the one `--dset` names on disk (the flag still names the
@@ -88,30 +115,14 @@ def main(argv=None, dataset=None):
                        (args.spatial, "--spatial"), (args.multihost, "--multihost")):
         if flag:
             sys.exit(NOT_PORTED.format(what=what))
-    if args.dev == "cuda" and not torch.cuda.is_available():
-        sys.exit("--dev cuda: no CUDA device is available (torch.cuda.is_available() is "
-                 "false); nothing runs on the CPU unless --dev cpu asks for it")
+    model_path, arch, refiner, backbone = load_models(args)
 
     from .config import eval_config
     from .eval.evaluation import evaluate_dataset
     from .runtime.sequence_tracker import BatchedSequenceTracker
     from .runtime.tracker import Tracker
-    from .utils import checkpoints as ckpt
-    from .utils.convert import init_resnet
 
-    model_path = Path(args.model)
-    if not model_path.exists():
-        sys.exit(f"Model file '{model_path}' not found.")
-    arch, refiner = ckpt.load_reference_model(model_path, device=args.dev)
     cfg = eval_config(arch, fast=args.fast, compute_dtype=args.dtype)
-
-    if args.backbone:
-        backbone = ckpt.load_backbone(args.backbone, arch, device=args.dev)
-    else:
-        print("WARNING: no --backbone weights given; using random backbone "
-              "(benchmark-only; J&F will be meaningless).")
-        backbone = init_resnet(arch, torch.Generator().manual_seed(0), device=args.dev)
-
     dset = open_dataset(args) if dataset is None else dataset
     ex_name = dset.name + "-" + model_path.stem + ("_fast" if args.fast else "")
     out_path = Path(args.output).expanduser().resolve() / ex_name

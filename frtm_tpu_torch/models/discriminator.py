@@ -1,9 +1,15 @@
 """The online target model D(x) = filter_3x3(project_1x1(x)), learned per
-object by weighted least squares (frtm_tpu/models/discriminator.py): hinge
-pixel weights, a two-phase init (a joint solve over {project, filter} on the
-augmented raw features, then re-projection into a large memory and a
-filter-only solve whose CG state persists), classification, and the online
-update that inserts every frame and re-solves every `train_skipping` frames.
+object by weighted least squares (frtm_tpu/models/discriminator.py): pixel
+weights ('hinge', the eval setting, and the legacy 'none', 'fixed' and
+'first-frame', per frame or global, with a distractor multiplier), a
+two-phase init (a joint solve over {project, filter} on the augmented raw
+features, then re-projection into a large memory and a filter-only solve
+whose CG state persists), classification (optionally clamped to
+(-0.1, 1.2)), and the online update that inserts every frame (labels and
+weights per update method: 'frtm', or the legacy 'thresh', 'conf', 'raw',
+'raw-conf') and re-solves every `train_skipping` frames. The solves run in
+the stencil form (the eval path) or the direct residual form
+(`cfg.solver`), and can report their loss trajectories (`collect_losses`).
 
 The JAX update's `lax.cond` becomes a host branch in the host loop:
 `disc_update` reads the foreground count once per frame (one device sync)
@@ -26,7 +32,13 @@ from ..device import resolve_device
 from ..ops.conv import conv2d
 from .lsq_stencil import precompute_stencil, project_targets
 from .memory import MemoryState, memory_init, memory_update
-from .solver import CGState, gauss_newton_cg_quadform, init_cg_state, scalar_preconditioner
+from ..ops.resize import interpolate
+from .solver import (CGState, gauss_newton_cg, gauss_newton_cg_quadform, init_cg_state,
+                     scalar_preconditioner)
+
+
+# the bounds of clamped scores (cfg.clamp_output)
+CLAMP = (-0.1, 1.2)
 
 
 class DiscParams(NamedTuple):
@@ -56,44 +68,82 @@ def init_disc_params(cfg: DiscConfig, generator: torch.Generator, device=None) -
 
 
 def compute_pixel_weights(y, cfg: DiscConfig):
-    """sqrt of the 'hinge' per-pixel weights (the eval setting) for labels
-    y (N, 1, H, W) in [0, 1], per frame: foreground weighted to the target
-    influence tf until its area fraction af exceeds tf; objects under 10 px
-    count as af = tf."""
-    if (cfg.pixel_weighting_method != "hinge" or not cfg.pixel_weighting_per_frame
-            or cfg.distractor_mult != 1.0):
-        raise NotImplementedError("only per-frame 'hinge' pixel weighting is ported")
+    """sqrt of the per-pixel weights for labels y (N, 1, H, W), values in
+    [0, 1] or > 1 for distractors:
+      * 'none': weights 1;
+      * 'fixed': foreground weighted to the target influence tf;
+      * 'hinge': as fixed, but no reweighting once the area fraction af
+        exceeds tf (the eval setting);
+      * 'first-frame': every sample takes the first sample's af;
+      * pixel_weighting_per_frame=False: af over all samples at once;
+      * distractor_mult: a factor on the weight where labels > 1.
+    Objects under 10 px count as af = tf. Kept on purpose, as in the JAX
+    package: the weight interpolates with the raw label values, so a
+    distractor label (> 1) on a large object gives a negative weight and
+    sqrt makes it NaN."""
+    method = cfg.pixel_weighting_method
+    if method == "none":
+        return torch.ones_like(y, dtype=torch.float32)
+    if method not in ("fixed", "hinge", "first-frame"):
+        raise ValueError(f"unknown pixel_weighting_method {method!r}")
     tf = cfg.pixel_weighting_tf
     y = y.float()
     N, _, H, W = y.shape
-    px = y.sum(dim=(1, 2, 3)).reshape(N, 1, 1, 1)
-    af = torch.where(px < 10, torch.full_like(px, tf), px / (H * W))
-    tf_eff = torch.where(af > tf, af, torch.full_like(af, tf))
+    if cfg.pixel_weighting_per_frame:
+        px = y.sum(dim=(1, 2, 3)).reshape(N, 1, 1, 1)
+        af = px / (H * W)
+    else:
+        px = y.sum() * torch.ones((N, 1, 1, 1), device=y.device)
+        af = px / y.numel()
+    af = torch.where(px < 10, torch.full_like(af, tf), af)
+    if method == "first-frame":
+        af = af[0:1].expand_as(af)
+    if method == "fixed":
+        tf_eff = torch.full_like(af, tf)
+    else:
+        tf_eff = torch.where(af > tf, af, torch.full_like(af, tf))
     wf = tf_eff / af
     wf = torch.where(torch.isfinite(wf), wf, torch.ones_like(wf))
     wb = (1.0 - tf_eff) / (1.0 - af)
     wb = torch.where(torch.isfinite(wb), wb, torch.ones_like(wb))
-    return torch.sqrt(wf * y + wb * (1.0 - y))
+    w = wf * y + wb * (1.0 - y)
+    if cfg.distractor_mult != 1.0:
+        w = torch.where(y > 1, w * cfg.distractor_mult, w)
+    return torch.sqrt(w)
 
 
 def _solve(memory: MemoryState, regs, precond, net_fn, theta, state, schedule,
-           cfg: DiscConfig, score_hw):
-    """One GN-CG schedule on the memory's weighted LSQ problem (stencil
-    form). net_fn(*theta, x) -> (S, 1, h, w)."""
-    if cfg.solver != "stencil":
-        raise NotImplementedError(f"solver {cfg.solver!r} is not ported (only 'stencil')")
+           cfg: DiscConfig, score_hw, collect_losses: bool = False):
+    """One GN-CG schedule on the memory's weighted LSQ problem, in the form
+    cfg.solver names. net_fn(*theta, x) -> (S, 1, h, w). With collect_losses
+    the result also holds the loss before each GN iteration and after the
+    last, the same quantity in both forms."""
     M1 = scalar_preconditioner(tuple(float(p) for p in precond))
-    sw = torch.sqrt(memory.weights).reshape(-1, 1, 1, 1)
-    w2 = torch.square(memory.pixel_weights * sw)[:, 0]          # (S, H, W)
+    dff = cfg.direction_forget_factor
+    w = memory.pixel_weights * torch.sqrt(memory.weights).reshape(-1, 1, 1, 1)
+    x = memory.samples
+    if cfg.solver == "residual":
+        y = memory.labels
+
+        def residuals(*th):
+            s = interpolate(net_fn(*th, x), y.shape[-2:])
+            return (w * (s - y),) + tuple(r * t for r, t in zip(regs, th))
+
+        return gauss_newton_cg(residuals, theta, state, schedule, M1, dff,
+                               collect_losses=collect_losses)
+    if cfg.solver != "stencil":
+        raise ValueError(f"unknown solver {cfg.solver!r}: 'stencil' or 'residual'")
+    w2 = torch.square(w)[:, 0]                                   # (S, H, W)
     M9 = precompute_stencil(w2, score_hw)
     v = project_targets(w2, memory.labels[:, 0], score_hw)
-    x = memory.samples
 
     def scores(*th):
         return net_fn(*th, x)[:, 0]
 
-    return gauss_newton_cg_quadform(scores, theta, state, schedule, M1,
-                                    cfg.direction_forget_factor, M9, v, regs)
+    loss_const = torch.dot(w2.reshape(-1), torch.square(memory.labels[:, 0]).reshape(-1)) \
+        if collect_losses else 0.0
+    return gauss_newton_cg_quadform(scores, theta, state, schedule, M1, dff, M9, v, regs,
+                                    collect_losses=collect_losses, loss_const=loss_const)
 
 
 def _joint_net(project, filt, x):
@@ -104,12 +154,15 @@ def _filter_net(filt, x):
     return conv2d(x, filt)
 
 
-def disc_init(params: DiscParams, features, labels, cfg: DiscConfig):
+def disc_init(params: DiscParams, features, labels, cfg: DiscConfig,
+              collect_losses: bool = False):
     """Two-phase target-model initialisation.
 
     :param features: (K, Cin, h, w) augmented first-frame features
     :param labels:   (K, 1, H, W) augmented masks
-    :return: (DiscParams, DiscState)
+    :param collect_losses: also return {'init': (len(init_iters) + 1,),
+        'update': (len(update_iters) + 1,)} loss trajectories of the two solves
+    :return: (DiscParams, DiscState[, losses])
     """
     pw = compute_pixel_weights(labels, cfg)
     K = features.shape[0]
@@ -117,40 +170,61 @@ def disc_init(params: DiscParams, features, labels, cfg: DiscConfig):
 
     mem1 = memory_init(K, features, labels, pw)
     theta = (params.project, params.filter)
-    theta, _ = _solve(mem1, cfg.filter_reg, cfg.precond, _joint_net, theta,
-                      init_cg_state(theta), cfg.init_iters, cfg, score_hw)
-    params = DiscParams(*theta)
+    out1 = _solve(mem1, cfg.filter_reg, cfg.precond, _joint_net, theta,
+                  init_cg_state(theta), cfg.init_iters, cfg, score_hw, collect_losses)
+    params = DiscParams(*out1[0])
 
     compressed = conv2d(features, params.project)
     mem2 = memory_init(cfg.memory_size, compressed, labels, pw)
     theta_f = (params.filter,)
-    theta_f, cg = _solve(mem2, cfg.filter_reg[1:], cfg.precond[1:], _filter_net, theta_f,
-                         init_cg_state(theta_f), cfg.update_iters, cfg, score_hw)
-    return params._replace(filter=theta_f[0]), DiscState(memory=mem2, cg=cg, frame_num=0)
+    out2 = _solve(mem2, cfg.filter_reg[1:], cfg.precond[1:], _filter_net, theta_f,
+                  init_cg_state(theta_f), cfg.update_iters, cfg, score_hw, collect_losses)
+    params = params._replace(filter=out2[0][0])
+    state = DiscState(memory=mem2, cg=out2[1], frame_num=0)
+    if collect_losses:
+        return params, state, {"init": out1[2], "update": out2[2]}
+    return params, state
 
 
-def disc_apply(params: DiscParams, ft):
-    """Classify features: (coarse scores (N, 1, h, w), compressed sample)."""
+def disc_apply(params: DiscParams, ft, clamp_output: bool = False):
+    """Classify features: (coarse scores (N, 1, h, w), compressed sample);
+    clamp_output bounds the scores to (-0.1, 1.2)."""
     cft = conv2d(ft, params.project)
-    return conv2d(cft, params.filter), cft
+    scores = conv2d(cft, params.filter)
+    return (scores.clamp(*CLAMP) if clamp_output else scores), cft
 
 
 def online_update_weights(train_y, cfg: DiscConfig):
-    """'frtm' update: store the soft mask, weights from the thresholded mask.
+    """Label and pixel weights of an online memory insert, per update method:
+    'frtm' stores the soft mask with weights from the thresholded mask;
+    'thresh' stores the thresholded mask; 'conf' too, its weights scaled by
+    the square root of the confidence 2 |0.5 - y|; 'raw' stores the soft
+    mask with weights 1; 'raw-conf' with the confidence as weights.
     :param train_y: (1, H, W) soft mask -> (label, pixel weights), (1, H, W)"""
-    if cfg.update_method != "frtm":
-        raise NotImplementedError(f"update_method {cfg.update_method!r} is not ported")
-    ys = (train_y > 0.5).float()
-    return train_y, compute_pixel_weights(ys[None], cfg)[0]
+    m = cfg.update_method
+    if m in ("frtm", "thresh", "conf"):
+        ys = (train_y > 0.5).float()
+        pw = compute_pixel_weights(ys[None], cfg)[0]
+        if m == "frtm":
+            return train_y, pw
+        if m == "thresh":
+            return ys, pw
+        return ys, torch.sqrt(2.0 * torch.abs(0.5 - train_y)) * pw
+    if m == "raw":
+        return train_y, torch.ones_like(train_y)
+    if m == "raw-conf":
+        return train_y, 2.0 * torch.abs(train_y - 0.5)
+    raise ValueError(f"unknown update_method: {m}")
 
 
-def filter_resolve(params: DiscParams, state: DiscState, cfg: DiscConfig):
+def filter_resolve(params: DiscParams, state: DiscState, cfg: DiscConfig,
+                   collect_losses: bool = False):
     """Filter-only re-solve on the current memory, warm-started from the
-    carried CG state."""
+    carried CG state. Returns (params, cg[, losses])."""
     score_hw = tuple(state.memory.samples.shape[-2:])
-    theta_f, cg = _solve(state.memory, cfg.filter_reg[1:], cfg.precond[1:], _filter_net,
-                         (params.filter,), state.cg, cfg.update_iters, cfg, score_hw)
-    return params._replace(filter=theta_f[0]), cg
+    out = _solve(state.memory, cfg.filter_reg[1:], cfg.precond[1:], _filter_net,
+                 (params.filter,), state.cg, cfg.update_iters, cfg, score_hw, collect_losses)
+    return (params._replace(filter=out[0][0]),) + tuple(out[1:])
 
 
 def disc_update(params: DiscParams, state: DiscState, compressed_sample, train_y,
@@ -162,10 +236,9 @@ def disc_update(params: DiscParams, state: DiscState, compressed_sample, train_y
     :param compressed_sample: (c, h, w) from disc_apply
     :param train_y: (1, H, W) merged soft mask of this object
     """
-    if not cfg.update_filters:
-        state.frame_num += 1
-        return params, state
     state.frame_num += 1
+    if not cfg.update_filters:
+        return params, state
     enough_fg = int((train_y > 0.5).sum()) >= 10      # the frame's one sync
     label, pw = online_update_weights(train_y, cfg)
     state.memory = memory_update(state.memory, compressed_sample, label, pw,
@@ -190,8 +263,9 @@ def project_all(features, projects):
     return out.view(features.shape[0], len(projects), -1, *features.shape[-2:])
 
 
-def classify_objects(compressed, filters):
-    """N filters on N projected maps as one grouped convolution.
+def classify_objects(compressed, filters, clamp_output: bool = False):
+    """N filters on N projected maps as one grouped convolution; clamp_output
+    bounds the scores to (-0.1, 1.2).
 
     :param compressed: (B, N, c, h, w)
     :param filters: N weights (1, c, 3, 3)
@@ -202,7 +276,8 @@ def classify_objects(compressed, filters):
     if tuple(weight.shape) != (N, c, 3, 3):
         raise ValueError(f"classify_objects: filters {tuple(weight.shape)} for "
                          f"{N} objects of {c} channels")
-    return F.conv2d(compressed.reshape(B, N * c, h, w), weight, padding=1, groups=N)
+    scores = F.conv2d(compressed.reshape(B, N * c, h, w), weight, padding=1, groups=N)
+    return scores.clamp(*CLAMP) if clamp_output else scores
 
 
 def insert_sample(state: DiscState, compressed_sample, train_y, enabled, cfg: DiscConfig):

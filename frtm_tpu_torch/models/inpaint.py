@@ -3,6 +3,12 @@ the 2x2-ellipse dilation and Telea's fast-marching inpainting, both as
 OpenCV computes them (photo/src/inpaint.cpp, `cv::inpaint(..., INPAINT_TELEA)`
 on 8-bit 3-channel images).
 
+`inpaint_telea` and `dilate_ellipse2` run in the port's host library
+(utils/csrc/frtm_host.cpp, through utils/native.py), which repeats the
+algorithm below step by step, bit for bit. The Python versions below,
+`inpaint_telea_plain` and `dilate_ellipse2_plain`, are the plain versions the
+tests hold the library against.
+
 Telea follows OpenCV step by step: a one-pixel KNOWN border around the
 image; the narrow band = cross-dilated hole minus the hole; an outward
 fast-marching pass over the ring of width `radius` that gives the known
@@ -21,11 +27,13 @@ import heapq
 
 import numpy as np
 
+from ..utils.native import dilate_ellipse2, inpaint_telea  # noqa: F401 (the module's API)
+
 KNOWN, BAND, INSIDE, CHANGE = 0, 1, 2, 3
 f32 = np.float32
 
 
-def dilate_ellipse2(mask: np.ndarray) -> np.ndarray:
+def dilate_ellipse2_plain(mask: np.ndarray) -> np.ndarray:
     """cv2.dilate(mask, getStructuringElement(MORPH_ELLIPSE, (2, 2))): the
     element is [[0, 1], [1, 1]] anchored at (1, 1), so a pixel takes the
     max of itself, its left and its upper neighbour."""
@@ -171,7 +179,7 @@ def _fill(f, t, out, i, j, radius, gx, gy):
         out[i - 1][j - 1][color] = min(max(int(np.rint(sat)), 0), 255)
 
 
-def inpaint_telea(image: np.ndarray, mask: np.ndarray, radius: int) -> np.ndarray:
+def inpaint_telea_plain(image: np.ndarray, mask: np.ndarray, radius: int) -> np.ndarray:
     """cv2.inpaint(image, mask, radius, cv2.INPAINT_TELEA) for (H, W, 3)
     uint8 images; `mask` nonzero marks the hole."""
     image = np.asarray(image)
@@ -227,3 +235,4 @@ def inpaint_telea(image: np.ndarray, mask: np.ndarray, radius: int) -> np.ndarra
             heapq.heappush(heap, (dist, count, i, j))
             count += 1
     return np.asarray(out, np.uint8)
+

@@ -4,9 +4,15 @@
 Per refinement layer, deep to shallow: a target-specific encoder (TSE),
 residual refinement blocks (RRB) around a channel-attention block (CAB);
 then the "pyrup" upsampling head (the reference's
-BackwardCompatibleUpsampler): kernel 1 (2x bicubic pyramid upsampler), a
-3x3 conv, kernel 1 again, a bilinear resize to the image size, and kernel 2
-(the 3x3 conv to one channel). Module names follow the reference checkpoint's
+BackwardCompatibleUpsampler, the default): kernel 1 (2x bicubic pyramid
+upsampler), a 3x3 conv, kernel 1 again, a bilinear resize to the image size,
+and kernel 2 (the 3x3 conv to one channel). The legacy "bicubic" head (the
+JAX package's `upsampler="bicubic"`) resizes by plain bicubic interpolation
+instead, to twice the size and then to the image size, around the same two
+convs. The scores may be one map or a list of maps, one per target-model
+layer (multilayer models), resized to each refinement layer and
+concatenated on the channel axis; the TSE then takes that many score
+channels (`in_channels`). Module names follow the reference checkpoint's
 `refiner.*` keys (TSE.{L}.reduce.{0,2}, TSE.{L}.transform.{0,2,4},
 RRB{1,2}.{L}.conv1x1 / .bblock.{0,1,3}, CAB.{L}.convreluconv.{0,2},
 project.conv{1,2}), so its state dict loads with `load_state_dict`.
@@ -23,7 +29,7 @@ import torch.nn as nn
 
 from ..ops.conv import FrozenBatchNorm2d, relu
 from ..ops.kernels import conv3x3_cout1, pyr_up_bicubic
-from ..ops.resize import adaptive_cat, interpolate
+from ..ops.resize import adaptive_cat, interpolate, resize
 
 LAYERS = ("layer5", "layer4", "layer3", "layer2")
 
@@ -75,11 +81,18 @@ class Upsampler(nn.Module):
         self.conv1 = _conv(oc, oc // 2, 3)
         self.conv2 = _conv(oc // 2, 1, 3)
 
-    def forward(self, x, image_size):
-        x = pyr_up_bicubic(x)
-        x = relu(self.conv1(x))
-        x = pyr_up_bicubic(x)
-        x = interpolate(x, image_size)
+    def forward(self, x, image_size, style="pyrup"):
+        if style == "pyrup":
+            x = pyr_up_bicubic(x)
+            x = relu(self.conv1(x))
+            x = pyr_up_bicubic(x)
+            x = interpolate(x, image_size)
+        elif style == "bicubic":
+            x = resize(x, (2 * x.shape[-2], 2 * x.shape[-1]), "bicubic")
+            x = relu(self.conv1(x))
+            x = resize(x, image_size, "bicubic")
+        else:
+            raise ValueError(f"upsampler {style!r}: 'pyrup' or 'bicubic'")
         return conv3x3_cout1(x, self.conv2.weight, self.conv2.bias)
 
 
@@ -112,24 +125,28 @@ def seg_network_reduce(net: SegNetwork, features, layers=LAYERS):
 
 @torch.no_grad()
 def seg_network_apply(net: SegNetwork, scores, features, image_size, layers=LAYERS,
-                      reduced=None):
+                      reduced=None, upsampler="pyrup"):
     """Refine coarse scores into full-resolution mask logits.
 
-    :param scores:     (N, 1, h, w) coarse target-model scores
+    :param scores:     (N, 1, h, w) coarse target-model scores, or a list of
+                       them (one per target-model layer)
     :param features:   {layer: (N, c, h, w)} backbone pyramid (may be None
                        when `reduced` is given)
     :param image_size: (H, W) output size
+    :param upsampler:  the head, 'pyrup' or 'bicubic'
     :return: (N, 1, H, W) logits
     """
+    score_list = scores if isinstance(scores, (list, tuple)) else [scores]
     x = None
     for i, L in enumerate(layers):
         h0, hpool = (_tse_reduce(net.TSE[L], features[L]) if reduced is None
                      else reduced[L])
-        s = interpolate(scores, h0.shape[-2:])
+        s = torch.cat([interpolate(ss, h0.shape[-2:]) for ss in score_list], dim=1) \
+            if len(score_list) > 1 else interpolate(score_list[0], h0.shape[-2:])
         h = net.TSE[L].transform(adaptive_cat((h0, s), ref_index=0))
         if x is not None:
             hpool = x
         h = net.RRB1[L](h)
         h = net.CAB[L](hpool, h, deepest=(i == 0))
         x = net.RRB2[L](h)
-    return net.project(x, image_size)
+    return net.project(x, image_size, upsampler)

@@ -2,12 +2,18 @@
 (frtm_tpu/models/solver.py), on tuples of tensors.
 
 One Gauss-Newton linearisation per entry of the CG schedule; preconditioned
-CG with Polak-Ribiere beta clamped at 0, warm-started direction state with a
-forgetting factor, the step_alpha ramp, and global-scalar inner products
-summed over all parameter blocks. JAX's `linearize` / `linear_transpose`
-become `torch.func.jvp` / `torch.func.vjp`, re-linearised at every GN
-iteration (phase 1's conv(conv(x, project), filter) is bilinear, so the
-linearisation point matters).
+CG with Polak-Ribiere (or Fletcher-Reeves) beta clamped at 0, warm-started
+direction state with a forgetting factor, the step_alpha ramp, and
+global-scalar inner products summed over all parameter blocks. JAX's
+`linearize` / `linear_transpose` become `torch.func.jvp` / `torch.func.vjp`,
+re-linearised at every GN iteration (phase 1's conv(conv(x, project),
+filter) is bilinear, so the linearisation point matters).
+
+Two forms of the same problem: `gauss_newton_cg` on a residual function
+(the direct form) and `gauss_newton_cg_quadform` on the quadratic form with
+the label-space curvature as a score-space stencil (the eval path). Both can
+report the squared residual norm before every GN iteration and after the
+last (`collect_losses`), the stencil form through the quadratic identity.
 """
 from dataclasses import dataclass, replace
 from typing import Tuple
@@ -48,9 +54,11 @@ def init_cg_state(theta_like, step_alpha: float = 1.0) -> CGState:
     )
 
 
-def _run_cg(A, b, state: CGState, n_iter: int, M1, direction_forget_factor):
-    """One preconditioned CG solve of A x = b (Polak-Ribiere), warm-started
-    from `state`; the last iteration skips the residual update."""
+def _run_cg(A, b, state: CGState, n_iter: int, M1, direction_forget_factor,
+            fletcher_reeves: bool = False):
+    """One preconditioned CG solve of A x = b (Polak-Ribiere, or
+    Fletcher-Reeves), warm-started from `state`; the last iteration skips
+    the residual update."""
     if direction_forget_factor == 0:
         state = replace(state, p=tuple(torch.zeros_like(t) for t in b),
                         r_prev=tuple(torch.zeros_like(t) for t in b),
@@ -66,7 +74,7 @@ def _run_cg(A, b, state: CGState, n_iter: int, M1, direction_forget_factor):
         z = M1(r)
         rho1 = rho
         rho = tree_vdot(r, z)
-        num = rho - tree_vdot(r_prev, z)
+        num = rho if fletcher_reeves else rho - tree_vdot(r_prev, z)
         nonzero = rho1 != 0.0
         beta = torch.where(nonzero, num / torch.where(nonzero, rho1, torch.ones_like(rho1)),
                            torch.zeros_like(rho1))
@@ -76,7 +84,8 @@ def _run_cg(A, b, state: CGState, n_iter: int, M1, direction_forget_factor):
         q = A(p)
         pq = tree_vdot(p, q)
         alpha = torch.where(pq != 0.0, rho / pq, torch.zeros_like(pq))
-        r_prev = r
+        if not fletcher_reeves:
+            r_prev = r
         x = _axpy(alpha, p, x)
         if ii < n_iter - 1:
             r = _axpy(-alpha, q, r)
@@ -84,18 +93,70 @@ def _run_cg(A, b, state: CGState, n_iter: int, M1, direction_forget_factor):
     return x, replace(state, p=p, r_prev=r_prev, rho=rho, have_p=have_p)
 
 
+def _sum_squares(blocks) -> torch.Tensor:
+    return tree_vdot(blocks, blocks)
+
+
+def gauss_newton_cg(residual_fn, theta, state: CGState, num_cg_iter, M1,
+                    direction_forget_factor: float, fletcher_reeves: bool = False,
+                    collect_losses: bool = False):
+    """len(num_cg_iter) Gauss-Newton iterations on a residual function, each
+    with the given number of CG steps; the CG operator is J'(J p).
+
+    :param residual_fn: (*theta) -> tuple of residual tensors
+    :return: (theta, CGState[, losses (len(num_cg_iter) + 1,)])
+    """
+    theta = tuple(theta)
+    losses = []
+    for n_cg in num_cg_iter:
+        f0, vjp_fn = vjp(residual_fn, *theta)
+        if collect_losses:
+            losses.append(_sum_squares(f0))
+
+        def A(p, theta=theta, vjp_fn=vjp_fn):
+            _, jp = jvp(residual_fn, theta, tuple(p))
+            return vjp_fn(jp)
+
+        b = tuple(-g for g in vjp_fn(f0))
+        dx, state = _run_cg(A, b, state, n_cg, M1, direction_forget_factor, fletcher_reeves)
+        theta = _axpy(state.step_alpha, dx, theta)
+        state = replace(state, step_alpha=torch.clamp_max(state.step_alpha * 1.2, 1.0))
+    if collect_losses:
+        losses.append(_sum_squares(residual_fn(*theta)))
+        return theta, state, torch.stack(losses)
+    return theta, state
+
+
 def gauss_newton_cg_quadform(net_fn, theta, state: CGState, num_cg_iter, M1,
-                             direction_forget_factor: float, M9, v, regs):
+                             direction_forget_factor: float, M9, v, regs,
+                             fletcher_reeves: bool = False, collect_losses: bool = False,
+                             loss_const=0.0):
     """GN-CG on ||W(U net(theta) - y)||^2 + sum ||reg_i theta_i||^2 with the
     label-space curvature as the precomputed score-space stencil M9 and the
     projected targets v (models/lsq_stencil.py).
 
     :param net_fn: (*theta) -> (S, h, w) score maps
+    :param collect_losses: also return the squared residual norms the
+        residual form reports, as s'Ms - 2 s'v + loss_const + sum reg_i^2
+        ||theta_i||^2
+    :param loss_const: the data term's constant y'diag(w^2)y (used only with
+        collect_losses)
     """
     reg2 = [r * r for r in regs]
     theta = tuple(theta)
+    losses = []
+
+    def loss(s, th):
+        data = torch.dot(s.reshape(-1), apply_stencil(M9, s).reshape(-1)) \
+            - 2.0 * torch.dot(s.reshape(-1), v.reshape(-1))
+        reg = torch.stack([r2 * torch.dot(t.reshape(-1), t.reshape(-1))
+                           for r2, t in zip(reg2, th)]).sum()
+        return data + loss_const + reg
+
     for n_cg in num_cg_iter:
         s0, vjp_fn = vjp(net_fn, *theta)
+        if collect_losses:
+            losses.append(loss(s0, theta))
 
         def A(p, theta=theta, vjp_fn=vjp_fn):
             _, jp = jvp(net_fn, theta, tuple(p))
@@ -104,9 +165,12 @@ def gauss_newton_cg_quadform(net_fn, theta, state: CGState, num_cg_iter, M1,
 
         back0 = vjp_fn(apply_stencil(M9, s0) - v)
         b = tuple(-(bb + r2 * th) for bb, th, r2 in zip(back0, theta, reg2))
-        dx, state = _run_cg(A, b, state, n_cg, M1, direction_forget_factor)
+        dx, state = _run_cg(A, b, state, n_cg, M1, direction_forget_factor, fletcher_reeves)
         theta = _axpy(state.step_alpha, dx, theta)
         state = replace(state, step_alpha=torch.clamp_max(state.step_alpha * 1.2, 1.0))
+    if collect_losses:
+        losses.append(loss(net_fn(*theta), theta))
+        return theta, state, torch.stack(losses)
     return theta, state
 
 

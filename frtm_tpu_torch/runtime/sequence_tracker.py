@@ -32,8 +32,12 @@ the old and the re-solved filter are tensors (models/discriminator.py).
 Nothing is compiled per shape, so there is no `scan_bucket`: the JAX package
 pads the tracked frames to a multiple of it (and skips the pad windows) so
 that sequence lengths share a program; the port tracks the real number of
-frames and its last window is short. Not ported yet: `mesh` and the sharded
-paths, multilayer target models, the device augment backend.
+frames and its last window is short. Multilayer target models
+(cfg.disc_layers) ride the same loop: per layer a projection of every frame,
+a grouped classification and the memory inserts, the per-layer score maps
+concatenated for the decoder, and one re-solve decision per object (its
+first layer's counter) for all its layers. Not ported yet: `mesh` and the
+sharded paths, the device augment backend.
 
 With cfg.compute_dtype = "bfloat16", as in the JAX class: the whole-sequence
 pyramid is extracted in bfloat16 and kept in it (half the memory), the
@@ -60,6 +64,7 @@ from ..models.augmenter import ImageAugmenter
 from ..models.discriminator import (DiscParams, DiscState, classify_objects, disc_init,
                                     init_disc_params, insert_sample, project_all,
                                     resolve_due)
+from ..models.multilayer import layer_configs, ml_disc_init, starting_params
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, seg_network_apply, seg_network_reduce
 from ..ops.conv import compute_copy
@@ -120,6 +125,8 @@ def merge_rows_and_label(rows: torch.Tensor, obj_ids_lut: torch.Tensor):
     return merged, label.to(torch.uint8)
 
 
+# one object's target model: (DiscParams, DiscState), or with multilayer
+# models ({layer: DiscParams}, {layer: DiscState})
 Model = Tuple[DiscParams, DiscState]
 
 
@@ -146,12 +153,9 @@ class BatchedSequenceTracker:
         if merge_mode not in ("online", "deferred"):
             raise ValueError(f"merge_mode {merge_mode!r}: 'online' or 'deferred'")
         self.dtype = compute_dtype_of(cfg)
-        if cfg.disc_layers:
-            raise NotImplementedError("multilayer target models are not ported")
         if augment_backend != "host":
-            raise NotImplementedError(f"augment backend {augment_backend!r} is not ported")
-        if cfg.disc.clamp_output:
-            raise NotImplementedError("clamp_output is not ported")
+            raise NotImplementedError(f"augment backend {augment_backend!r} is not ported: "
+                                      "ROADMAP.md queue item 5")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.disc_cfg = cfg.disc
@@ -161,9 +165,10 @@ class BatchedSequenceTracker:
         self.backbone_c = compute_copy(self.backbone, self.dtype)
         self.refiner_c = compute_copy(self.refiner, self.dtype)
         self.augmenter = augmenter or ImageAugmenter(cfg.aug_params, dev)
-        if disc_params0 is None:
-            disc_params0 = init_disc_params(cfg.disc, torch.Generator().manual_seed(0), dev)
-        self.disc_params0 = DiscParams(*(t.to(dev) for t in disc_params0))
+        self.multilayer = bool(cfg.disc_layers)
+        self.disc_cfgs = layer_configs(cfg)         # {layer: DiscConfig}, sorted
+        self.disc_params0 = starting_params(cfg, self.disc_cfgs, disc_params0, dev,
+                                            init_disc_params)
         # the pipelined run_dataset prepares the next sequence on this stream
         self._prep_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self.extract_chunk = extract_chunk
@@ -171,7 +176,7 @@ class BatchedSequenceTracker:
         self.decode_chunk = decode_chunk
         self.aug_compact = aug_compact
         self.profile = profile
-        self._all_layers = tuple(sorted(set(cfg.refnet_layers) | {cfg.disc.layer},
+        self._all_layers = tuple(sorted(set(cfg.refnet_layers) | set(self.disc_cfgs),
                                         reverse=True))
         self.last_phase_report = ""
         self.last_phase_stats = {}
@@ -276,9 +281,16 @@ class BatchedSequenceTracker:
         layer = self.disc_cfg.layer
         models = []
         for im, lb in zip(images, labels):
-            ft = self.backbone_c.extract_features(im, output_layers=[layer])  # emits float32
-            params, state = disc_init(self.disc_params0, ft[layer], lb, self.disc_cfg)
-            state.n_resolves = torch.zeros((), dtype=torch.int64, device=self.device)
+            # emits float32
+            ft = self.backbone_c.extract_features(im, output_layers=list(self.disc_cfgs))
+            if self.multilayer:
+                params, state = ml_disc_init(self.disc_params0, ft, lb, self.disc_cfgs)
+                states = list(state.values())
+            else:
+                params, state = disc_init(self.disc_params0, ft[layer], lb, self.disc_cfg)
+                states = [state]
+            for st in states:
+                st.n_resolves = torch.zeros((), dtype=torch.int64, device=self.device)
             models.append((params, state))
         return models
 
@@ -303,14 +315,18 @@ class BatchedSequenceTracker:
     # -- the frame loop ---------------------------------------------------------
 
     def _decode(self, scores, reduced, im_size):
-        """(B, 1, h, w) scores (in the compute type) and per-lane TSE
-        reductions -> (B, H, W) float32 soft foreground masks, in sub-batches
-        of decode_chunk where that divides B."""
+        """(B, 1, h, w) scores (in the compute type; a list of them, one per
+        layer, with multilayer models) and per-lane TSE reductions -> (B, H, W)
+        float32 soft foreground masks, in sub-batches of decode_chunk where
+        that divides B."""
         layers = self.cfg.refnet_layers
-        B, dc = scores.shape[0], self.decode_chunk
+        multi = isinstance(scores, list)
+        B, dc = (scores[0] if multi else scores).shape[0], self.decode_chunk
         if dc and B > dc and B % dc == 0:
             logits = torch.cat([
-                seg_network_apply(self.refiner_c, scores[i:i + dc], None, im_size, layers=layers,
+                seg_network_apply(self.refiner_c,
+                                  [sc[i:i + dc] for sc in scores] if multi else scores[i:i + dc],
+                                  None, im_size, layers=layers,
                                   reduced={L: (h[i:i + dc], hp[i:i + dc])
                                            for L, (h, hp) in reduced.items()})
                 for i in range(0, B, dc)])
@@ -336,14 +352,18 @@ class BatchedSequenceTracker:
                  suppressed soft rows (deferred)
         """
         cfg = self.disc_cfg
+        cfgs = self.disc_cfgs
         online = self.merge_mode == "online"
         N = len(models)
         W = window
         dev = self.device
         layers = self.cfg.refnet_layers
-        n_track = feats_all[cfg.layer].shape[0]
-        compressed_all = project_all(feats_all[cfg.layer].float(),
-                                     [p.project for p, _ in models])
+        # per object {layer: [params, state]}; the filters are replaced here
+        by_layer = [{L: [m[0][L], m[1][L]] for L in cfgs} if self.multilayer
+                    else {cfg.layer: list(m)} for m in models]
+        n_track = feats_all[next(iter(cfgs))].shape[0]
+        compressed_all = {L: project_all(feats_all[L].float(), [o[L][0].project for o in by_layer])
+                          for L in cfgs}
         t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
         starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
         active_all = t_all > starts          # (T', N) tracked this frame
@@ -358,8 +378,12 @@ class BatchedSequenceTracker:
             active_h = [[t > s for s in start_frames] for t in range(i0 + 1, i1 + 1)]
             entering = any(s in range(i0 + 1, i1 + 1) for s in start_frames)
 
-            cft = compressed_all[i0:i1]                          # (w, N, c, h, w)
-            scores = classify_objects(cft, [p.filter for p, _ in models])
+            cft = {L: c[i0:i1] for L, c in compressed_all.items()}     # (w, N, c, h, w)
+            scores = []
+            for L, c in cft.items():
+                s = classify_objects(c, [o[L][0].filter for o in by_layer],
+                                     clamp_output=cfgs[L].clamp_output)
+                scores.append(s.reshape(w * N, 1, *s.shape[-2:]).to(self.dtype))
             # the object-independent TSE reductions run once per frame and
             # are repeated, at 32 channels, across the object lanes
             red = seg_network_reduce(self.refiner_c, {L: feats_all[L][i0:i1] for L in layers},
@@ -367,8 +391,7 @@ class BatchedSequenceTracker:
             if N > 1:
                 red = {L: (h.repeat_interleave(N, dim=0), hp.repeat_interleave(N, dim=0))
                        for L, (h, hp) in red.items()}
-            y = self._decode(scores.reshape(w * N, 1, *scores.shape[-2:]).to(self.dtype), red,
-                             im_size)
+            y = self._decode(scores if self.multilayer else scores[0], red, im_size)
             y = y.view(w, N, *y.shape[-2:]) * active[..., None, None]
             if entering:
                 # suppress tracked masks under this window's entering objects
@@ -381,17 +404,26 @@ class BatchedSequenceTracker:
             outs.append(labels if online else rows)
 
             if not cfg.update_filters:
-                for k, (_, state) in enumerate(models):
-                    state.frame_num += sum(a[k] for a in active_h)
+                for k, o in enumerate(by_layer):
+                    for _, state in o.values():
+                        state.frame_num += sum(a[k] for a in active_h)
                 continue
             enough = ((merged > 0.5).sum(dim=(-2, -1)) >= 10) & active      # (w, N)
             for f in range(w):
-                for k, (_, state) in enumerate(models):
+                for k, o in enumerate(by_layer):
                     if active_h[f][k]:
-                        insert_sample(state, cft[f, k], merged[f, k][None], enough[f, k], cfg)
-            for k, (params, state) in enumerate(models):
-                if active_h[-1][k] and state.frame_num % cfg.train_skipping == 0:
-                    models[k] = (resolve_due(params, state, enough[-1, k], cfg), state)
+                        for L, (_, state) in o.items():
+                            insert_sample(state, cft[L][f, k], merged[f, k][None], enough[f, k],
+                                          cfgs[L])
+            for k, o in enumerate(by_layer):
+                # every layer follows the first layer's counter, as in the JAX scan
+                first_state = next(iter(o.values()))[1]
+                if active_h[-1][k] and first_state.frame_num % cfg.train_skipping == 0:
+                    for L, pair in o.items():
+                        pair[0] = resolve_due(pair[0], pair[1], enough[-1, k], cfgs[L])
+        for k, o in enumerate(by_layer):
+            models[k] = (({L: p for L, (p, _) in o.items()}, models[k][1]) if self.multilayer
+                         else tuple(o[cfg.layer]))
         return torch.cat(outs)
 
     def _window_track(self, *args):
@@ -607,7 +639,7 @@ class BatchedSequenceTracker:
         # is enqueued before the host augment and runs under it.
         with timer.phase("extract"):
             feats_all = self._extract_sequence(chunks)
-        self.last_feats_dtype = feats_all[self.disc_cfg.layer].dtype
+        self.last_feats_dtype = feats_all[next(iter(self.disc_cfgs))].dtype
         if aug_batches is None:
             aug_batches = self._augment_objects(objects, timer)
         with timer.phase("disc_init"):

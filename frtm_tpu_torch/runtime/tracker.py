@@ -1,14 +1,17 @@
 """The host-loop tracker (frtm_tpu/runtime/tracker.py): per-object target
 models initialised at their start frames, then per frame classify -> refine
--> soft multi-object merge -> per-object online update. Single-layer target
-model. With cfg.compute_dtype = "bfloat16" the backbone computes in bfloat16
+-> soft multi-object merge -> per-object online update. The target model is
+single-layer, or with cfg.disc_layers one model per named layer
+(models/multilayer.py), whose score maps the decoder concatenates. With
+cfg.compute_dtype = "bfloat16" the backbone computes in bfloat16
 and emits float32 features, in `track` and at init alike; the decoder, the
 target model and the merge stay float32, as in the JAX Tracker, which hands
 its float32 refiner those features.
 
 Two additions over the JAX Tracker: `disc_params0` (the target model's
-starting weights; by default the port's own seeded init — the JAX tracker
-draws them from jax.random.PRNGKey(0), which torch cannot reproduce) and
+starting weights, {layer: DiscParams} for multilayer models; by default the
+port's own seeded init — the JAX tracker draws them from
+jax.random.PRNGKey(0), which torch cannot reproduce) and
 `augmenter` (any object with `augment_first_frame(image, mask, rng)`
 returning (K, 3, H, W) / (K, 1, H, W) uint8 tensors on the tracker's device).
 With `profile=True` each phase starts and ends in a device synchronise
@@ -28,6 +31,8 @@ from ..device import resolve_device
 from ..models.augmenter import ImageAugmenter
 from ..models.discriminator import (DiscParams, DiscState, disc_apply, disc_init,
                                     disc_update, init_disc_params)
+from ..models.multilayer import (layer_configs, ml_disc_apply, ml_disc_init, ml_disc_update,
+                                 starting_params)
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, seg_network_apply
 from ..ops.conv import compute_copy
@@ -41,8 +46,8 @@ class TargetObject:
     index: int              # row in the mask stack (background = 0)
     start_frame: int
     start_mask: torch.Tensor  # (H, W) float 0/1
-    params: DiscParams
-    state: DiscState
+    params: DiscParams      # {layer: DiscParams} with multilayer models
+    state: DiscState        # {layer: DiscState} with multilayer models
     current_sample: Optional[torch.Tensor] = None
 
 
@@ -81,8 +86,6 @@ class Tracker:
                  device=None, disc_params0: Optional[DiscParams] = None,
                  augmenter=None, profile: bool = False):
         self.dtype = compute_dtype_of(cfg)
-        if cfg.disc_layers:
-            raise NotImplementedError("multilayer target models are not ported")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.disc_cfg = cfg.disc
@@ -90,10 +93,11 @@ class Tracker:
         self.backbone_c = compute_copy(self.backbone, self.dtype)   # made once
         self.refiner = refiner.to(dev).eval()
         self.augmenter = augmenter or ImageAugmenter(cfg.aug_params, dev)
-        if disc_params0 is None:
-            disc_params0 = init_disc_params(cfg.disc, torch.Generator().manual_seed(0), dev)
-        self.disc_params0 = DiscParams(*(t.to(dev) for t in disc_params0))
-        self._all_layers = tuple(sorted(set(cfg.refnet_layers) | {cfg.disc.layer},
+        self.multilayer = bool(cfg.disc_layers)
+        self.disc_cfgs = layer_configs(cfg)
+        self.disc_params0 = starting_params(cfg, self.disc_cfgs, disc_params0, dev,
+                                            init_disc_params)
+        self._all_layers = tuple(sorted(set(cfg.refnet_layers) | set(self.disc_cfgs),
                                         reverse=True))
         self.profile = profile
         self.timer = PhaseTimer(sync=profile, device=dev)
@@ -118,10 +122,12 @@ class Tracker:
             with self._phase("augment"):
                 im_aug, lb_aug = self.augmenter.augment_first_frame(image, mask[..., None], rng)
             with self._phase("init_solve"):
-                ft = self.backbone_c.extract_features(im_aug,
-                                                      output_layers=[self.disc_cfg.layer])
-                params, state = disc_init(self.disc_params0, ft[self.disc_cfg.layer], lb_aug,
-                                          self.disc_cfg)
+                ft = self.backbone_c.extract_features(im_aug, output_layers=list(self.disc_cfgs))
+                if self.multilayer:
+                    params, state = ml_disc_init(self.disc_params0, ft, lb_aug, self.disc_cfgs)
+                else:
+                    params, state = disc_init(self.disc_params0, ft[self.disc_cfg.layer], lb_aug,
+                                              self.disc_cfg)
             start_mask = torch.from_numpy(mask).to(self.device)
             t = TargetObject(object_id=obj_id, index=len(self.targets) + 1,
                              start_frame=self.current_frame, start_mask=start_mask,
@@ -142,11 +148,16 @@ class Tracker:
 
         with self._phase("classify_decode"):
             for t in tracked:
-                scores, cft = disc_apply(t.params, features[self.disc_cfg.layer])
+                if self.multilayer:
+                    scores, cfts = ml_disc_apply(t.params, features, self.disc_cfgs)
+                    t.current_sample = {L: c[0] for L, c in cfts.items()}
+                else:
+                    scores, cft = disc_apply(t.params, features[self.disc_cfg.layer],
+                                             clamp_output=self.disc_cfg.clamp_output)
+                    t.current_sample = cft[0]
                 logits = seg_network_apply(self.refiner, scores,
                                            {L: features[L] for L in self.cfg.refnet_layers},
                                            im_size, layers=self.cfg.refnet_layers)
-                t.current_sample = cft[0]
                 self.current_masks[t.index] = torch.sigmoid(logits[0, 0])
 
         with self._phase("merge"):
@@ -156,10 +167,11 @@ class Tracker:
             self.current_masks = merge_soft_masks(self.current_masks)
 
         with self._phase("update"):
+            update = ml_disc_update if self.multilayer else disc_update
+            cfg = self.disc_cfgs if self.multilayer else self.disc_cfg
             for t in tracked:
-                t.params, t.state = disc_update(t.params, t.state, t.current_sample,
-                                                self.current_masks[t.index][None],
-                                                self.disc_cfg)
+                t.params, t.state = update(t.params, t.state, t.current_sample,
+                                           self.current_masks[t.index][None], cfg)
         return self.current_masks
 
     def run_sequence(self, sequence, speedrun: bool = False):

@@ -1,8 +1,7 @@
 """The port's import rule, read from the sources with `ast`: no module of
-frtm_tpu_torch and not chip_smoke.py imports jax, cv2 or anything of frtm_tpu;
-PIL is imported in exactly one place, inside data/image.py::imread (a JPEG
-cannot be decoded with the standard library). The machine with the card has
-none of these packages."""
+frtm_tpu_torch and not chip_smoke.py imports jax, cv2, PIL or anything of
+frtm_tpu, with no exception: JPEG and PNG go through the port's own host
+library and codec. The machine with the card has none of these packages."""
 import ast
 from pathlib import Path
 
@@ -10,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "frtm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "cv2", "frtm_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "cv2", "PIL", "frtm_tpu"}
 
 
 def _imports(tree):
@@ -57,22 +56,20 @@ def test_module_imports_nothing_it_must_not(path):
     rel = path.relative_to(ROOT).as_posix()
     for package, scope, line in _imports(tree):
         assert package not in FORBIDDEN, f"{rel}:{line} imports {package}"
-        if package == "PIL":
-            assert (rel, scope) == ("frtm_tpu_torch/data/image.py", ("imread",)), \
-                f"{rel}:{line} imports PIL outside data/image.py::imread"
     for package in _dynamic_imports(tree):
-        assert package not in FORBIDDEN | {"PIL"}, f"{rel} imports {package} by name"
+        assert package not in FORBIDDEN, f"{rel} imports {package} by name"
 
 
 def test_pil_is_named_once():
+    """PIL was once imported inside data/image.py::imread; now nowhere."""
     hits = [(p.relative_to(ROOT).as_posix(), line) for p in SOURCES
             for package, _, line in _imports(ast.parse(p.read_text())) if package == "PIL"]
-    assert len(hits) == 1 and hits[0][0] == "frtm_tpu_torch/data/image.py", hits
+    assert hits == [], hits
 
 
 def test_the_check_sees_a_forbidden_import():
     bad = ast.parse("import torch\ndef f():\n    from jax import numpy\n    import cv2.dnn\n"
-                    "x = __import__('frtm_tpu.config')\n")
+                    "    from PIL import Image\nx = __import__('frtm_tpu.config')\n")
     assert [(p, s) for p, s, _ in _imports(bad)] == [("torch", ()), ("jax", ("f",)),
-                                                    ("cv2", ("f",))]
+                                                    ("cv2", ("f",)), ("PIL", ("f",))]
     assert _dynamic_imports(bad) == ["frtm_tpu"]

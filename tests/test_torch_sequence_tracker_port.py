@@ -18,6 +18,7 @@ import torch
 
 from frtm_tpu_torch.config import eval_config
 from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+from frtm_tpu_torch.models.discriminator import DiscParams, disc_init
 from frtm_tpu_torch.models.resnet import resnet_out_channels
 from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
 from frtm_tpu_torch.runtime.tracker import Tracker
@@ -197,11 +198,15 @@ def test_deferred_labels_and_one_frame_sequences(world):
 
 
 def test_what_is_not_ported_raises(world):
+    """Multilayer models and clamp_output are ported now (they construct);
+    the device augmenter still raises, as do names nobody knows."""
     cfg, backbone, refiner = world
-    for bad in (replace(cfg, disc_layers=("layer4",)),
-                replace(cfg, disc=replace(cfg.disc, clamp_output=True))):
-        with pytest.raises(NotImplementedError):
-            BatchedSequenceTracker(bad, backbone, refiner, device="cpu")
+    for tracker in (BatchedSequenceTracker, Tracker):
+        ml = tracker(replace(cfg, disc_layers=("layer4", "layer3")), backbone, refiner,
+                     device="cpu")
+        assert list(ml.disc_cfgs) == ["layer3", "layer4"] and ml.multilayer
+        assert not tracker(replace(cfg, disc=replace(cfg.disc, clamp_output=True)), backbone,
+                           refiner, device="cpu").multilayer
     for tracker in (BatchedSequenceTracker, Tracker):
         with pytest.raises(ValueError):       # bfloat16 is taken, other names are not
             tracker(replace(cfg, compute_dtype="float16"), backbone, refiner, device="cpu")
@@ -211,8 +216,10 @@ def test_what_is_not_ported_raises(world):
         BatchedSequenceTracker(cfg, backbone, refiner, device="cpu", augment_backend="device")
     with pytest.raises(ValueError):
         BatchedSequenceTracker(cfg, backbone, refiner, device="cpu", merge_mode="late")
-    with pytest.raises(NotImplementedError):
-        Tracker(replace(cfg, disc_layers=("layer4",)), backbone, refiner, device="cpu")
+    with pytest.raises(ValueError):
+        disc_init(DiscParams(torch.zeros(2, 3, 1, 1), torch.zeros(1, 2, 3, 3)),
+                  torch.zeros(2, 3, 4, 4), torch.zeros(2, 1, 8, 8),
+                  replace(cfg.disc, in_channels=3, c_channels=2, solver="direct"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):     # the card is the default, and there is none
             BatchedSequenceTracker(cfg, backbone, refiner)
