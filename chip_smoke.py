@@ -6,8 +6,10 @@ is right on one NVIDIA GPU (built for Hopper, sm_90a).
 
 Phases, each printing one JSON line:
   1. probe    — CUDA present, a real launch, card name and power limit;
-  2. build    — the three CUDA kernels compiled from frtm_tpu_torch/ops/kernels/csrc
-                (kernels 1 and 2 hold a float32 and a bfloat16 instance each);
+  2. build    — the CUDA kernels compiled from frtm_tpu_torch/ops/kernels/csrc: the
+                three forward kernels (kernels 1 and 2 hold a float32 and a
+                bfloat16 instance each) and the float32 backward kernels of
+                kernels 1 and 2 (pyrup_bwd, conv3x3_cout1_dx, conv3x3_cout1_dw);
   2b. native  — the host library (frtm_tpu_torch/utils/csrc/frtm_host.cpp) built
                 with the host compiler: its build seconds, the JPEG backend it
                 found (libjpeg or nvJPEG) and which headers were there; its
@@ -25,7 +27,12 @@ Phases, each printing one JSON line:
                 and 2 in float32 and in bfloat16 (half the bytes, so half the
                 bound); the warp rows name the variant they took (staged or
                 direct), and the phase gives the launch floor (a one-element
-                zero_());
+                zero_()); then each backward kernel at the training shapes
+                (N = 16: both pyrup stages, the head conv's dx and its dw and
+                db) against its plain backward (autograd of the plain
+                forward), within 1e-5 (pyrup, dx) or 1e-4 (dw, db) of the plain
+                result's peak, with its time, byte bound and the one PyTorch
+                call that computes the same gradient;
   4. decode   — one full seg_network_apply at 480x854, kernels against plain
                 (its logits also set the scale of the random refiner's head,
                 so that the masks hold both classes); then the same decode in
@@ -87,7 +94,30 @@ Phases, each printing one JSON line:
   8. small    — a 6-frame 96x128 rn18 sequence through the port on the CPU
                 (plain versions) and on the card (kernels); masks must agree,
                 and each run must re-solve its filter twice.
-Then a {"kernels": [...]} line (one entry per kernel instance) and, last, the
+  9. train    — the training entry point at full width:
+                `frtm_tpu_torch.train.main` with --dset all --dev cuda
+                --batch-size 16 (rn101, 480x854, 15 augmentations, c = 32) on a
+                DAVIS-train tree made from the committed DAVIS frames (one
+                sequence, two objects: 16 samples per epoch) and a
+                YouTube-VOS-train tree made from the committed 720x1280 frames
+                under the first jjtrain name (2 samples: the loader's area
+                resize), with a fabricated rn101 .pth: 2 epochs of 2 steps
+                (the second padded and masked), then --max-epochs 3 to resume.
+                Checked: two, then three, stats.jsonl lines with finite loss
+                and accuracy; one cache file per distinct miss, hits in epoch
+                2; checkpoints ep0001 and ep0002; the resumed run starts at
+                epoch 3 from the saved tensors; every refiner parameter moved,
+                BN weight and bias included; launches of every forward and
+                backward kernel and of the warp. Then one train step of rn18
+                at 96x128, batch 4, on fixed target models on the CPU (plain
+                versions) and on the card (kernels): loss within rtol 1e-4,
+                every gradient within 1e-3 of its peak, a second card run
+                bit-equal. Printed: seconds per step and samples per second,
+                the cold start's augment, extract and disc_init seconds,
+                forward and backward seconds of a synchronised step, peak
+                memory.
+Then a {"kernels": [...]} line (one entry per kernel instance, the backward
+kernels included) and, last, the
 {"ok": true, "device": ...} line. Any failure exits non-zero before it.
 Without CUDA, or without the frtm_tpu_torch package beside this file, the
 script exits non-zero and prints no result.
@@ -126,7 +156,18 @@ KERNEL_INFO = {
                       "frtm_tpu_torch/ops/kernels/csrc/conv3x3_cout1.cu"),
     "warp_affine": ("frtm_tpu/ops/pallas/warp.py:167",
                     "frtm_tpu_torch/ops/kernels/csrc/warp_affine.cu"),
+    # the gradients of kernels 1 and 2, which the JAX package takes by
+    # autodiff of its XLA decoder
+    "pyrup_bwd": ("frtm_tpu/ops/pallas/pyrup.py:74",
+                  "frtm_tpu_torch/ops/kernels/csrc/pyrup_bwd.cu"),
+    "conv3x3_cout1_dx": ("frtm_tpu/ops/pallas/conv_small.py:53",
+                         "frtm_tpu_torch/ops/kernels/csrc/conv3x3_cout1_dx.cu"),
+    "conv3x3_cout1_dw": ("frtm_tpu/ops/pallas/conv_small.py:53",
+                         "frtm_tpu_torch/ops/kernels/csrc/conv3x3_cout1_dw.cu"),
 }
+FORWARD_KERNELS = ("pyrup", "conv3x3_cout1", "warp_affine")
+BACKWARD_KERNELS = ("pyrup_bwd", "conv3x3_cout1_dx", "conv3x3_cout1_dw")
+TRAIN_KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS
 
 
 def emit(obj):
@@ -433,8 +474,9 @@ def bf16_ulp(peak):
 
 
 def _compare(name, shape, kernel_fn, plain_fn, library_fn, nbytes, flops, tol):
-    """tol: the largest max abs difference allowed, or "bf16_ulp" for one
-    bfloat16 ulp at the plain version's peak."""
+    """tol: the largest max abs difference allowed, "bf16_ulp" for one
+    bfloat16 ulp at the plain version's peak, or ("peak", r) for r times the
+    plain version's peak."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -443,6 +485,8 @@ def _compare(name, shape, kernel_fn, plain_fn, library_fn, nbytes, flops, tol):
              f"plain {tuple(want.shape)} {want.dtype}")
     if tol == "bf16_ulp":
         tol = bf16_ulp(float(want.float().abs().max()))
+    elif isinstance(tol, tuple):
+        tol = tol[1] * float(want.float().abs().max())
     err = float((got.float() - want.float()).abs().max())
     if not np.isfinite(err) or err > tol:
         fail(f"{name} {shape}: max abs difference {err} over tolerance {tol}")
@@ -573,7 +617,48 @@ def phase_kernels():
         row["launch_floor_ms"] = launch_floor_ms
         warps.append(row)
     rows["warp_affine"] = warps
+    rows.update(backward_rows(g))
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms, "rows": rows})
+    return rows
+
+
+def backward_rows(g):
+    """The backward kernels at the training shapes (N = 16), each against its
+    plain backward (autograd of the plain forward on the card)."""
+    import torch.nn.functional as F
+    from frtm_tpu_torch.ops.kernels import (
+        conv3x3_cout1_input_grad, conv3x3_cout1_input_grad_plain, conv3x3_cout1_weight_grad,
+        conv3x3_cout1_weight_grad_plain, pyr_up_bicubic_backward, pyr_up_bicubic_backward_plain)
+    rows = {"pyrup_bwd": [], "conv3x3_cout1_dx": [], "conv3x3_cout1_dw": []}
+    for shape in [(16, 32, 120, 214), (16, 16, 240, 428)]:
+        n, c, h, w = shape
+        gy = torch.randn(n, c, 2 * h, 2 * w, generator=g).cuda()
+        rows["pyrup_bwd"].append(_compare(
+            "pyrup_bwd", list(shape), lambda gy=gy, s=shape: pyr_up_bicubic_backward(gy, s),
+            lambda gy=gy, s=shape: pyr_up_bicubic_backward_plain(gy, s),
+            lambda gy=gy, s=shape: torch.ops.aten.upsample_bicubic2d_backward(
+                gy, [2 * s[2], 2 * s[3]], list(s), False),
+            nbytes=4 * (gy.numel() + gy.numel() // 4), flops=35 * gy.numel(),
+            tol=("peak", 1e-5)))
+        del gy
+    shape = (16, 16, 480, 854)
+    x = torch.relu(torch.randn(shape, generator=g)).cuda()
+    wt = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
+    gy = (torch.randn(16, 1, 480, 854, generator=g) * 1e-3).cuda()
+    rows["conv3x3_cout1_dx"].append(_compare(
+        "conv3x3_cout1_dx", list(shape), lambda: conv3x3_cout1_input_grad(gy, wt, shape),
+        lambda: conv3x3_cout1_input_grad_plain(gy, wt, shape),
+        lambda: torch.nn.grad.conv2d_input(shape, wt, gy, padding=1),
+        nbytes=4 * (gy.numel() + x.numel() + wt.numel()), flops=18 * x.numel(),
+        tol=("peak", 1e-5)))
+    rows["conv3x3_cout1_dw"].append(_compare(
+        "conv3x3_cout1_dw", list(shape),
+        lambda: torch.cat([t.flatten() for t in conv3x3_cout1_weight_grad(x, gy)]),
+        lambda: torch.cat([t.flatten() for t in conv3x3_cout1_weight_grad_plain(x, gy, wt.shape)]),
+        lambda: torch.cat([torch.nn.grad.conv2d_weight(x, wt.shape, gy, padding=1).flatten(),
+                           gy.sum().reshape(1)]),
+        nbytes=4 * (x.numel() + gy.numel() + wt.numel() + 1),
+        flops=18 * x.numel() + gy.numel(), tol=("peak", 1e-4)))
     return rows
 
 
@@ -750,9 +835,11 @@ def phase_main(tracker, seq):
         fail("main: outputs are not finite uint8 label images of the frame size")
     if one_class:
         fail(f"main: tracked frames {one_class} are labelled all one class")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
     if missing:
         fail(f"main: kernels never launched on the main path: {missing}")
+    if any(launches[k] for k in BACKWARD_KERNELS):
+        fail(f"main: tracking launched a backward kernel: {launches}")
     if warp_variants["direct"] or warp_variants["staged"] != launches["warp_affine"]:
         fail(f"main: every warp must take the staged kernel, got {warp_variants}")
     if launches["pyrup"] != 2 * tracked or launches["conv3x3_cout1"] != tracked:
@@ -1359,31 +1446,250 @@ def phase_small(arch="resnet18"):
         fail(f"small: filter re-solves {resolves}, expected {expected} on each device")
 
 
+def write_training_trees(root):
+    """A DAVIS-train tree of the committed DAVIS frames (ImageSets/2017/
+    train.txt names `blobs`) and a YouTube-VOS-train tree of the committed
+    720x1280 frames under the first jjtrain name, its 9 annotations written
+    with the port's PNG writer: frames 0-3 from 00000.png (object 1), 4-8
+    from 00004.png (objects 1 and 2)."""
+    import shutil
+    from frtm_tpu_torch.data.image import imread, imwrite_indexed
+    davis, ytvos = root / "DAVIS", root / "ytvos2018"
+    src = FIXTURES / "davis"
+    for sub in ("JPEGImages", "Annotations"):
+        shutil.copytree(src / sub / "480p" / "blobs", davis / sub / "480p" / "blobs")
+    (davis / "ImageSets" / "2017").mkdir(parents=True)
+    (davis / "ImageSets" / "2017" / "train.txt").write_text("blobs\n")
+    name = (ROOT / "frtm_tpu_torch" / "data" / "ytvos_jjtrain.txt").read_text().split()[0]
+    yt = FIXTURES / "ytvos"
+    shutil.copytree(yt / "valid_all_frames" / "JPEGImages" / "0a1b2c3d4e",
+                    ytvos / "train" / "JPEGImages" / name)
+    anno = ytvos / "train" / "Annotations" / name
+    anno.mkdir(parents=True)
+    for t in range(9):
+        src_png = yt / "valid" / "Annotations" / "0a1b2c3d4e" / ("00000.png" if t < 4 else "00004.png")
+        imwrite_indexed(anno / f"{t:05d}.png", imread(src_png))
+    return davis, ytvos
+
+
+def train_step_grads(model, disc, images, labels, mask):
+    """Loss and every refiner gradient of one train step (no update)."""
+    model.refiner.zero_grad(set_to_none=True)
+    total, acc = model.loss(disc, images, labels, mask)
+    total.backward()
+    return float(total.detach()), {n: p.grad.detach().cpu().clone()
+                                   for n, p in model.refiner.named_parameters()}
+
+
+def phase_train_small(arch="resnet18"):
+    """One train step of a small batch (rn18, 96x128, batch 4, the same
+    target models) on the CPU (plain versions) and twice on the card."""
+    from dataclasses import replace
+    from frtm_tpu_torch.config import eval_config
+    from frtm_tpu_torch.data.training_datasets import SampleSpec, SyntheticTrainingDataset
+    from frtm_tpu_torch.models.discriminator import DiscParams
+    from frtm_tpu_torch.runtime.trainer import TModelCache, TrainerModel
+    cfg = eval_config(arch, fast=True, num_aug=3)
+    cfg = replace(cfg, disc=replace(cfg.disc, c_channels=16, init_iters=(3, 5), update_iters=(3,),
+                                    memory_size=8, filter_reg=(1e-5, 1e-4),
+                                    precond=(1e-5, 1e-4), cg_forgetting_rate=75,
+                                    pixel_weighting_method="none"))
+    dset = SyntheticTrainingDataset(n_samples=4, size=(96, 128), sample_size=3, seed=0)
+    items = [dset[i] for i in range(4)]
+    images = np.stack([np.stack([it[0][t] for it in items]) for t in range(3)])
+    labels = np.stack([np.stack([it[1][t] for it in items]) for t in range(3)])
+    mask = np.asarray([1, 1, 1, 0], np.float32)
+    models = {dev: TrainerModel(cfg, *build_models(arch, cfg, dev), TModelCache(None, False),
+                                device=dev) for dev in ("cpu", "cuda")}
+    disc, _ = models["cpu"].build_disc_batch(images[0], labels[0],
+                                             SampleSpec.from_encoded([it[2] for it in items]))
+    loss_cpu, g_cpu = train_step_grads(models["cpu"], disc, images, labels, mask)
+    disc_card = DiscParams(disc.project.cuda(), disc.filter.cuda())
+    sd = {k: v.clone() for k, v in models["cuda"].refiner.state_dict().items()}
+    loss_card, g_card = train_step_grads(models["cuda"], disc_card, images, labels, mask)
+    models["cuda"].refiner.load_state_dict(sd)
+    loss_again, g_again = train_step_grads(models["cuda"], disc_card, images, labels, mask)
+    errs = {}
+    for n, want in g_cpu.items():
+        if n.endswith("bblock.0.bias"):
+            # exact gradient 0 (the batch-statistics BN removes the mean):
+            # rounding noise on both sides, against the conv's weight gradient
+            scale = float(g_cpu[n.replace("bias", "weight")].abs().max())
+            errs[n] = max(float(want.abs().max()), float(g_card[n].abs().max())) / scale
+        else:
+            errs[n] = float((g_card[n] - want).abs().max() / want.abs().max())
+    worst = max(errs, key=errs.get)
+    rerun_equal = loss_again == loss_card and all(torch.equal(g_again[n], g_card[n]) for n in g_card)
+    out = {"arch": arch, "size": [96, 128], "batch": 4, "loss_cpu": loss_cpu,
+           "loss_card": loss_card, "loss_rel_gap": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "grad_gap_max_of_peak": errs[worst], "grad_gap_worst": worst,
+           "rerun_bit_equal": rerun_equal, "tolerance": {"loss_rtol": 1e-4, "grad_of_peak": 1e-3}}
+    if out["loss_rel_gap"] > 1e-4 or errs[worst] > 1e-3 or not rerun_equal:
+        emit({"phase": "train_small", **out})
+        fail("train: the card's train step disagrees with the CPU's, or a re-run differs")
+    return out
+
+
+def phase_train(backbone, card):
+    """The training entry point: 2 epochs on the DAVIS and YouTube-VOS trees
+    (batch 16, rn101, 480x854), then a resumed third."""
+    import json as _json
+    from frtm_tpu_torch import train
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.runtime.trainer import Trainer, TrainerModel
+    from frtm_tpu_torch.utils.convert import init_seg_network
+    from frtm_tpu_torch.models.resnet import resnet_out_channels
+
+    init_model, load_ckpt, build_batch, train_step = (
+        TrainerModel.__init__, Trainer.load_checkpoint, TrainerModel.build_disc_batch,
+        TrainerModel.train_step)
+    keys, loaded, step_seconds = [], {}, []
+
+    def profiled_init(self, *args, **kwargs):
+        init_model(self, *args, **dict(kwargs, profile=True))
+
+    def recording_load(self, file):
+        load_ckpt(self, file)
+        loaded.update(epoch=self.epoch, file=Path(file).name, refiner={
+            k: v.detach().cpu().clone() for k, v in self.model.refiner.state_dict().items()})
+
+    def recording_batch(self, first_images, first_labels, specs):
+        keys.extend((s.seq_name, s.frame0_id, s.obj_id) for s in specs)
+        step_seconds.append(time.perf_counter())
+        return build_batch(self, first_images, first_labels, specs)
+
+    def timed_step(self, *args):
+        out = train_step(self, *args)      # ends in a host read of the loss
+        step_seconds[-1] = time.perf_counter() - step_seconds[-1]
+        return out
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="frtm_train_") as tmp:
+        tmp = Path(tmp)
+        davis, ytvos = write_training_trees(tmp)
+        torch.save({k: v.detach().cpu() for k, v in backbone.state_dict().items()},
+                   tmp / "resnet101.pth")
+        argv = ["smoke", "--ftext", "resnet101", "--dset", "all", "--dv2017", str(davis),
+                "--yt2018", str(ytvos), "--workspace", str(tmp / "ws"), "--backbone",
+                str(tmp / "resnet101.pth"), "--dev", "cuda", "--batch-size", "16"]
+        TrainerModel.__init__, Trainer.load_checkpoint = profiled_init, recording_load
+        TrainerModel.build_disc_batch, TrainerModel.train_step = recording_batch, timed_step
+        try:
+            for tag, epochs in (("epochs_1_2", 2), ("resumed", 3)):
+                keys.clear()
+                step_seconds.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    trainer = train.main(argv + ["--max-epochs", str(epochs)])
+                torch.cuda.synchronize()
+                runs[tag] = dict(trainer=trainer, wall_s=time.perf_counter() - t0,
+                                 step_seconds=list(step_seconds),
+                                 launches=dict(LAUNCHES),
+                                 variants={k: dict(v) for k, v in VARIANTS.items()},
+                                 peak=torch.cuda.max_memory_allocated(), keys=list(set(keys)),
+                                 timer=trainer.model.timer.stats(), text=text.getvalue(),
+                                 stats=[_json.loads(x) for x in (
+                                     tmp / "ws" / "logs" / "smoke" / "stats.jsonl").open()])
+                print(text.getvalue(), end="", flush=True)
+                if tag == "epochs_1_2":
+                    ckpts = sorted(p.name for p in (tmp / "ws" / "checkpoints" / "smoke").glob("*.pth"))
+                    n_cache = len(list((tmp / "ws" / "tmodels_cache").rglob("*.npz")))
+                    saved = torch.load(tmp / "ws" / "checkpoints" / "smoke" / "smoke_ep0002.pth",
+                                       map_location="cpu", weights_only=True)["refiner"]
+        finally:
+            TrainerModel.__init__, Trainer.load_checkpoint = init_model, load_ckpt
+            TrainerModel.build_disc_batch, TrainerModel.train_step = build_batch, train_step
+
+    first, resumed = runs["epochs_1_2"], runs["resumed"]
+    stats = first["stats"]
+    ok_stats = len(stats) == 2 and all(np.isfinite(st["stats/loss"]) and np.isfinite(
+        st["stats/accuracy"]) for st in stats) and [st["epoch"] for st in stats] == [1, 2]
+    if not ok_stats or stats[1]["stats/fcache_hits"] <= 0:
+        fail(f"train: stats.jsonl reads {stats}")
+    if n_cache != len(first["keys"]):
+        fail(f"train: {n_cache} cache files for {len(first['keys'])} distinct target models")
+    if ckpts != ["smoke_ep0001.pth", "smoke_ep0002.pth"]:
+        fail(f"train: checkpoints {ckpts}")
+    if loaded.get("epoch") != 2 or loaded.get("file") != "smoke_ep0002.pth" or not all(
+            torch.equal(loaded["refiner"][k], v) for k, v in saved.items()) \
+            or [st["epoch"] for st in resumed["stats"]] != [1, 2, 3] \
+            or "Starting epoch 3" not in resumed["text"]:
+        fail(f"train: the resumed run did not start at epoch 3 from the saved tensors "
+             f"({loaded.get('file')}, {[st['epoch'] for st in resumed['stats']]})")
+    ch = {L: c for L, c in resnet_out_channels("resnet101").items()
+          if L in first["trainer"].model.cfg.refnet_layers}
+    start = init_seg_network(ch, torch.Generator().manual_seed(1)).state_dict()
+    trained = first["trainer"].model.refiner.state_dict()
+    still = [n for n, _ in first["trainer"].model.refiner.named_parameters()
+             if torch.equal(trained[n].cpu(), start[n].cpu())]
+    if still:
+        fail(f"train: parameters that never moved: {still}")
+    for tag, run in runs.items():
+        if any(run["launches"][k] == 0 for k in TRAIN_KERNELS) or run["variants"]["pyrup"]["bf16"] \
+                or run["variants"]["conv3x3_cout1"]["bf16"]:
+            fail(f"train ({tag}): launches {run['launches']}, instances {run['variants']}")
+    small = phase_train_small()
+
+    def per_step(run):
+        # each step's target models (cache or cold start) and its train step
+        secs = run["step_seconds"]
+        return {"steps": len(secs), "seconds": secs,
+                "samples_per_s": [16 / s for s in secs]}
+
+    emit({"phase": "train", "arch": "resnet101", "size": [480, 854], "batch": 16,
+          "num_aug": 15, "frames_per_sample": 3, "card": card,
+          "samples_per_epoch": {"davis": 16, "ytvos": 2},
+          "epochs": {tag: [st["epoch"] for st in run["stats"]] for tag, run in runs.items()},
+          "stats": {tag: run["stats"] for tag, run in runs.items()},
+          "steps": {tag: per_step(run) for tag, run in runs.items()},
+          "distinct_target_models": {tag: len(run["keys"]) for tag, run in runs.items()},
+          "cache_files_after_epoch_2": n_cache,
+          "phase_seconds_synchronised": {tag: run["timer"] for tag, run in runs.items()},
+          "launches": {tag: run["launches"] for tag, run in runs.items()},
+          "instances": {tag: run["variants"] for tag, run in runs.items()},
+          "wall_s": {tag: run["wall_s"] for tag, run in runs.items()},
+          "max_memory_allocated": {tag: run["peak"] for tag, run in runs.items()},
+          "checkpoints": ckpts, "resumed_from": loaded["file"], "params_moved": True,
+          "small_step_cpu_vs_card": small})
+    return {k: first["launches"][k] + resumed["launches"][k] for k in TRAIN_KERNELS}
+
+
 def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                 launches_ytvos, instances_ytvos):
+                 launches_ytvos, instances_ytvos, launches_train):
     """The contract line: one entry per kernel instance at its main-path
     shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
     host loop runs them, and at N = 16 in bfloat16, the eval path's window of
-    8 frames and two objects; the full-frame background warp). `launches`
-    sums the paths that run the instance, each counted from 0: the host loop
-    and the float32 fused tracker for the float32 instances, the unpipelined
-    CLI runs (synthetic and DAVIS tree) and the YouTube-VOS CLI run for the
-    bfloat16 ones, all of them for the warp."""
+    8 frames and two objects; the full-frame background warp; the backward
+    kernels at the training batch, N = 16, pyrup's at stage 2). `launches`
+    sums the paths that run the instance, each counted from 0: the host loop,
+    the float32 fused tracker and the two training runs for the float32
+    instances, the unpipelined CLI runs (synthetic and DAVIS tree) and the
+    YouTube-VOS CLI run for the bfloat16 ones, all of them for the warp."""
     entries = [("pyrup", "pyrup", 1, False), ("conv3x3_cout1", "conv3x3_cout1", 0, False),
                ("warp_affine", "warp_affine", 0, True), ("pyrup_bf16", "pyrup", 5, True),
-               ("conv3x3_cout1_bf16", "conv3x3_cout1", 2, True)]
+               ("conv3x3_cout1_bf16", "conv3x3_cout1", 2, True),
+               ("pyrup_bwd", "pyrup_bwd", 1, False), ("conv3x3_cout1_dx", "conv3x3_cout1_dx", 0, False),
+               ("conv3x3_cout1_dw", "conv3x3_cout1_dw", 0, False)]
     out = []
     for name, kernel, main_row, in_eval in entries:
         replaces, source = KERNEL_INFO[kernel]
         r = rows[name][main_row]
         bf16 = name.endswith("_bf16")
-        n_eval = (instances_eval[kernel]["bf16"] if bf16 else launches_eval[kernel]) * in_eval
-        n_ytvos = (instances_ytvos[kernel]["bf16"] if bf16 else launches_ytvos[kernel]) * in_eval
+        n_eval = (instances_eval[kernel]["bf16"] if bf16 else launches_eval[kernel]) \
+            if in_eval else 0
+        n_ytvos = (instances_ytvos[kernel]["bf16"] if bf16 else launches_ytvos[kernel]) \
+            if in_eval else 0
         n_host, n_fused = (0, 0) if bf16 else (launches[kernel], launches_fused[kernel])
+        n_train = 0 if bf16 else launches_train[kernel]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": n_host + n_fused + n_eval + n_ytvos,
+                    "launches": n_host + n_fused + n_eval + n_ytvos + n_train,
                     "launches_host_loop": n_host, "launches_fused": n_fused,
                     "launches_eval": n_eval, "launches_ytvos": n_ytvos,
+                    "launches_train": n_train,
                     "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1405,7 +1711,7 @@ def main():
     resolve_device("cuda")     # TF32 off for the whole run
 
     t0 = time.perf_counter()
-    phase_probe()
+    card = phase_probe()
     phase_build()
     phase_native()
     rows = phase_kernels()
@@ -1417,11 +1723,13 @@ def main():
     launches_fused = phase_fused(cfg, tracker.backbone, tracker.refiner)
     launches_eval, instances_eval = phase_eval(cfg, tracker.backbone, tracker.refiner)
     launches_ytvos, instances_ytvos = phase_ytvos(tracker.backbone, tracker.refiner)
+    backbone = tracker.backbone
     del tracker
     phase_small()
+    launches_train = phase_train(backbone, card)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                      launches_ytvos, instances_ytvos))
+                      launches_ytvos, instances_ytvos, launches_train))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -1,6 +1,6 @@
 """Typed configuration: the port's own copies of frtm_tpu's DiscConfig,
-TrackerConfig, eval_aug_params, autodetect_arch and eval_config (the
-reference evaluate.py settings). Values are identical; only the import graph
+TrackerConfig, eval_aug_params, train_aug_params, autodetect_arch and
+eval_config (the reference evaluate.py settings). Values are identical; only the import graph
 differs."""
 from dataclasses import dataclass, field
 from typing import Tuple
@@ -59,6 +59,11 @@ def eval_aug_params(num_aug: int = 5) -> dict:
             blur_angle=[0, 45, 90, 135],
         ),
     )
+
+
+def train_aug_params(num_aug: int = 15) -> dict:
+    """Training-time augmentation selections: the eval lists, num_aug of them."""
+    return eval_aug_params(num_aug)
 
 
 @dataclass(frozen=True)

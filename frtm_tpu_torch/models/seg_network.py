@@ -1,5 +1,5 @@
 """SegNetwork — the multi-scale refinement decoder
-(frtm_tpu/models/seg_network.py), inference mode.
+(frtm_tpu/models/seg_network.py), for inference and for training.
 
 Per refinement layer, deep to shallow: a target-specific encoder (TSE),
 residual refinement blocks (RRB) around a channel-attention block (CAB);
@@ -58,9 +58,15 @@ class RRB(nn.Module):
             self.bblock = nn.Sequential(_conv(oc, oc, 3), nn.ReLU(),
                                         _conv(oc, oc, 3, bias=False))
 
-    def forward(self, x):
+    def forward(self, x, bn_updates=None, key=None):
+        """With a bn_updates dict (training), the BatchNorm uses batch
+        statistics and its new running statistics go to bn_updates[key]."""
         h = self.conv1x1(x)
-        return relu(h + self.bblock(h))
+        if bn_updates is None or len(self.bblock) == 3:
+            return relu(h + self.bblock(h))
+        conv, bn, act, conv2 = self.bblock
+        b, bn_updates[key] = bn(conv(h), train_bn=True)
+        return relu(h + conv2(act(b)))
 
 
 class CAB(nn.Module):
@@ -123,9 +129,8 @@ def seg_network_reduce(net: SegNetwork, features, layers=LAYERS):
     return {L: _tse_reduce(net.TSE[L], features[L]) for L in layers}
 
 
-@torch.no_grad()
 def seg_network_apply(net: SegNetwork, scores, features, image_size, layers=LAYERS,
-                      reduced=None, upsampler="pyrup"):
+                      reduced=None, upsampler="pyrup", train_bn: bool = False):
     """Refine coarse scores into full-resolution mask logits.
 
     :param scores:     (N, 1, h, w) coarse target-model scores, or a list of
@@ -134,8 +139,20 @@ def seg_network_apply(net: SegNetwork, scores, features, image_size, layers=LAYE
                        when `reduced` is given)
     :param image_size: (H, W) output size
     :param upsampler:  the head, 'pyrup' or 'bicubic'
-    :return: (N, 1, H, W) logits
+    :param train_bn:   training: record gradients and normalise the RRB
+                       BatchNorms with batch statistics
+    :return: (N, 1, H, W) logits; with train_bn, (logits, bn_updates), where
+             bn_updates maps (rrb name, layer) -> (running mean, running var)
     """
+    if train_bn:
+        bn_updates = {}
+        return _apply(net, scores, features, image_size, layers, reduced, upsampler,
+                      bn_updates), bn_updates
+    with torch.no_grad():
+        return _apply(net, scores, features, image_size, layers, reduced, upsampler, None)
+
+
+def _apply(net, scores, features, image_size, layers, reduced, upsampler, bn_updates):
     score_list = scores if isinstance(scores, (list, tuple)) else [scores]
     x = None
     for i, L in enumerate(layers):
@@ -146,7 +163,17 @@ def seg_network_apply(net: SegNetwork, scores, features, image_size, layers=LAYE
         h = net.TSE[L].transform(adaptive_cat((h0, s), ref_index=0))
         if x is not None:
             hpool = x
-        h = net.RRB1[L](h)
+        h = net.RRB1[L](h, bn_updates, ("RRB1", L))
         h = net.CAB[L](hpool, h, deepest=(i == 0))
-        x = net.RRB2[L](h)
+        x = net.RRB2[L](h, bn_updates, ("RRB2", L))
     return net.project(x, image_size, upsampler)
+
+
+@torch.no_grad()
+def apply_bn_updates(net: SegNetwork, bn_updates):
+    """Write train-mode running statistics into the RRB BatchNorms. Only the
+    running mean and var: BN weight and bias are trained parameters."""
+    for (rrb, L), (mean, var) in bn_updates.items():
+        bn = getattr(net, rrb)[L].bblock[1]
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(var)

@@ -46,10 +46,35 @@ def relu(x):
     return torch.clamp_min(x, 0)
 
 
+def batch_norm_train(x, weight, bias, running_mean, running_var, momentum: float = 0.1,
+                     eps: float = 1e-5):
+    """Training batch norm (frtm_tpu/models/seg_network.py::_batch_norm_train):
+    normalise with the batch statistics over (N, H, W), the biased variance,
+    folded as in `batch_norm`; returns (y, (mean, var)), the momentum-updated
+    running statistics, whose variance takes the unbiased batch variance.
+    The new statistics carry no gradient."""
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.square(x - mean[:, None, None]).mean(dim=(0, 2, 3))
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    inv = weight * torch.rsqrt(var + eps)
+    y = x * inv[:, None, None] + (bias - mean * inv)[:, None, None]
+    with torch.no_grad():
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * (var * n / max(n - 1, 1))
+    return y, (new_mean, new_var)
+
+
 class FrozenBatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d's parameters and state-dict keys (so reference
-    checkpoints load unchanged), always applied from running statistics."""
+    checkpoints load unchanged), applied from running statistics. Only with
+    train_bn=True (the trainer's decoder) does it normalise with batch
+    statistics; it then returns (y, new running statistics) and leaves its
+    buffers as they are (seg_network.apply_bn_updates writes them). The
+    module's own `training` flag is never read."""
 
-    def forward(self, x):
+    def forward(self, x, train_bn: bool = False):
+        if train_bn:
+            return batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                    self.running_var, eps=self.eps)
         return batch_norm(x, self.weight, self.bias, self.running_mean,
                           self.running_var, self.eps)

@@ -11,6 +11,15 @@ the type. In bfloat16 both the kernel and the plain version upcast planes and
 (bfloat16-rounded) weights to float32, accumulate in float32 and round the
 sum once, as the TPU kernel does; the JAX decoder's own bfloat16 convolution
 rounds differently.
+
+Gradient: `conv3x3_cout1` is differentiable (a torch.autograd.Function)
+where an input requires a gradient and autograd records, in float32 only.
+On the card its backward launches csrc/conv3x3_cout1_dx.cu for the input
+gradient and csrc/conv3x3_cout1_dw.cu for the weight and bias gradients, each
+only where it is needed; on the CPU it runs the plain backward (autograd of
+the plain forward). The bfloat16 instance serves inference only; a backward
+through it raises. Under `torch.no_grad`, or where nothing needs a gradient,
+the forward runs as a plain call and records nothing.
 """
 import ctypes
 
@@ -41,7 +50,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
-def conv3x3_cout1(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+def _forward(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     instance = build.instance_of(x, "conv3x3_cout1 input")
     if w.dtype != x.dtype or (b is not None and b.dtype != x.dtype):
         raise TypeError(f"conv3x3_cout1: input {x.dtype}, weight {w.dtype} and bias "
@@ -62,3 +71,106 @@ def conv3x3_cout1(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
                  x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
                  y.data_ptr(), n, c, h, wd, device=x.device, variant=instance)
     return y
+
+
+def conv3x3_cout1_input_grad_plain(gy: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
+    """dx of conv3x3_cout1_plain for output gradient gy (N, 1, H, W), taken
+    by autograd; the conv is linear in x, so x's values do not enter."""
+    with torch.enable_grad():
+        x = torch.zeros(tuple(x_shape), dtype=gy.dtype, device=gy.device, requires_grad=True)
+        (dx,) = torch.autograd.grad(conv3x3_cout1_plain(x, w.detach()), x, gy)
+    return dx
+
+
+def conv3x3_cout1_weight_grad_plain(x: torch.Tensor, gy: torch.Tensor, w_shape):
+    """(dw (1, C, 3, 3), db (1,)) of conv3x3_cout1_plain, taken by autograd;
+    the conv is affine in (w, b), so their values do not enter."""
+    with torch.enable_grad():
+        w = torch.zeros(tuple(w_shape), dtype=gy.dtype, device=gy.device, requires_grad=True)
+        b = torch.zeros(1, dtype=gy.dtype, device=gy.device, requires_grad=True)
+        dw, db = torch.autograd.grad(conv3x3_cout1_plain(x.detach(), w, b), (w, b), gy)
+    return dw, db
+
+
+def _check_grad(gy, what):
+    if gy.dtype != torch.float32:
+        raise TypeError(f"conv3x3_cout1 {what}: float32 only (the bfloat16 instance serves "
+                        f"inference), got a {gy.dtype} gradient")
+
+
+_DX_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+_DW_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+
+
+def conv3x3_cout1_input_grad(gy: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
+    """Output gradient (N, 1, H, W) and weight (1, C, 3, 3), float32 ->
+    input gradient (N, C, H, W): the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    _check_grad(gy, "input gradient")
+    n, c, h, wd = x_shape
+    if tuple(gy.shape) != (n, 1, h, wd) or tuple(w.shape) != (1, c, 3, 3):
+        raise ValueError(f"conv3x3_cout1 input gradient: gradient {tuple(gy.shape)}, weight "
+                         f"{tuple(w.shape)} for input {tuple(x_shape)}")
+    if gy.device.type == "cpu":
+        return conv3x3_cout1_input_grad_plain(gy, w, x_shape)
+    gy, w = gy.contiguous(), w.detach().contiguous()
+    build.check_cuda_tensor(gy, "conv3x3_cout1 output gradient", 4)
+    build.check_cuda_tensor(w, "conv3x3_cout1 weight", 4)
+    dx = torch.empty((n, c, h, wd), dtype=gy.dtype, device=gy.device)
+    build.launch("conv3x3_cout1_dx", "frtm_conv3x3_cout1_dx_f32", _DX_ARGTYPES,
+                 gy.data_ptr(), w.data_ptr(), dx.data_ptr(), n, c, h, wd,
+                 device=gy.device, variant="f32")
+    return dx
+
+
+def conv3x3_cout1_weight_grad(x: torch.Tensor, gy: torch.Tensor):
+    """Input (N, C, H, W) and output gradient (N, 1, H, W), float32 ->
+    (dw (1, C, 3, 3), db (1,)): the kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    _check_grad(gy, "weight gradient")
+    n, c, h, wd = x.shape
+    if tuple(gy.shape) != (n, 1, h, wd):
+        raise ValueError(f"conv3x3_cout1 weight gradient: gradient {tuple(gy.shape)} for "
+                         f"input {tuple(x.shape)}")
+    if gy.device.type == "cpu":
+        return conv3x3_cout1_weight_grad_plain(x, gy, (1, c, 3, 3))
+    x, gy = x.detach().contiguous(), gy.contiguous()
+    build.check_cuda_tensor(x, "conv3x3_cout1 input", 4)
+    build.check_cuda_tensor(gy, "conv3x3_cout1 output gradient", 4)
+    fn = build.library("conv3x3_cout1_dw").frtm_conv3x3_cout1_dw_blocks
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    blocks = fn(n, h, wd)
+    partials = torch.empty((blocks, 9 * c + 1), dtype=gy.dtype, device=gy.device)
+    out = torch.empty(9 * c + 1, dtype=gy.dtype, device=gy.device)
+    build.launch("conv3x3_cout1_dw", "frtm_conv3x3_cout1_dw_f32", _DW_ARGTYPES,
+                 x.data_ptr(), gy.data_ptr(), partials.data_ptr(), out.data_ptr(), blocks,
+                 n, c, h, wd, device=gy.device, variant="f32")
+    return out[:9 * c].view(1, c, 3, 3), out[9 * c:]
+
+
+class _Conv3x3Cout1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return _forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_cout1_input_grad(gy, w, x.shape)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = conv3x3_cout1_weight_grad(x, gy)
+        return dx, dw, db if ctx.has_bias else None
+
+
+def conv3x3_cout1(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """x (N, C, H, W), w (1, C, 3, 3), b (1,) or None -> (N, 1, H, W);
+    differentiable where an input requires a gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
+        return _Conv3x3Cout1.apply(x, w, b)
+    return _forward(x, w, b)

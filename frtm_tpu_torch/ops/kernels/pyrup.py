@@ -13,6 +13,14 @@ at the end, as the TPU kernel does (its output takes the input's type). The
 JAX decoder's own bfloat16 path (pyr_up_bicubic on a bfloat16 array) rounds
 after every product and sum instead, so the port lies closer to the float32
 result than that does.
+
+Gradient: `pyr_up_bicubic` is differentiable (a torch.autograd.Function)
+where its input requires a gradient and autograd records. Its backward is
+the adjoint of the upsampler, in float32 only: csrc/pyrup_bwd.cu on the card,
+`pyr_up_bicubic_backward_plain` (autograd of the plain forward) on the CPU.
+The bfloat16 instance serves inference only; a backward through it raises.
+Under `torch.no_grad`, or on an input that needs no gradient, the forward
+runs as a plain call and records nothing.
 """
 import ctypes
 
@@ -63,8 +71,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctype
              ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)]
 
 
-def pyr_up_bicubic(x: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) float32 or bfloat16 -> (N, C, 2H, 2W) of the same type."""
+def _forward(x: torch.Tensor) -> torch.Tensor:
     instance = build.instance_of(x, "pyr_up_bicubic input")
     if x.device.type == "cpu":
         return pyr_up_bicubic_plain(x)
@@ -74,3 +81,52 @@ def pyr_up_bicubic(x: torch.Tensor) -> torch.Tensor:
     build.launch("pyrup", f"frtm_pyrup_{instance}", _ARGTYPES, x.data_ptr(), y.data_ptr(),
                  n * c, h, w, *_TAPS_C, device=x.device, variant=instance)
     return y
+
+
+def pyr_up_bicubic_backward_plain(gy: torch.Tensor, in_shape) -> torch.Tensor:
+    """The input gradient of pyr_up_bicubic_plain for output gradient gy
+    (N, C, 2H, 2W), taken by autograd; the map is linear, so the input's
+    values do not enter."""
+    with torch.enable_grad():
+        x = torch.zeros(tuple(in_shape), dtype=gy.dtype, device=gy.device, requires_grad=True)
+        (gx,) = torch.autograd.grad(pyr_up_bicubic_plain(x), x, gy)
+    return gx
+
+
+def pyr_up_bicubic_backward(gy: torch.Tensor, in_shape) -> torch.Tensor:
+    """(N, C, 2H, 2W) float32 output gradient -> (N, C, H, W) input gradient:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if gy.dtype != torch.float32:
+        raise TypeError("pyr_up_bicubic backward: float32 only (the bfloat16 instance "
+                        f"serves inference), got a {gy.dtype} gradient")
+    n, c, h, w = in_shape
+    if tuple(gy.shape) != (n, c, 2 * h, 2 * w):
+        raise ValueError(f"pyr_up_bicubic backward: gradient {tuple(gy.shape)} for input "
+                         f"{tuple(in_shape)}")
+    if gy.device.type == "cpu":
+        return pyr_up_bicubic_backward_plain(gy, in_shape)
+    gy = gy.contiguous()
+    build.check_cuda_tensor(gy, "pyr_up_bicubic output gradient", 4)
+    gx = torch.empty((n, c, h, w), dtype=gy.dtype, device=gy.device)
+    build.launch("pyrup_bwd", "frtm_pyrup_bwd_f32", _ARGTYPES, gy.data_ptr(), gx.data_ptr(),
+                 n * c, h, w, *_TAPS_C, device=gy.device, variant="f32")
+    return gx
+
+
+class _PyrUpBicubic(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.in_shape = tuple(x.shape)
+        return _forward(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return pyr_up_bicubic_backward(gy, ctx.in_shape)
+
+
+def pyr_up_bicubic(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) float32 or bfloat16 -> (N, C, 2H, 2W) of the same type;
+    differentiable where x requires a gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PyrUpBicubic.apply(x)
+    return _forward(x)

@@ -6,6 +6,8 @@
   first; this module imports no JAX) and return the port's state dicts:
   HWIO -> OIHW, BN scale / bias / mean / var -> weight / bias /
   running_mean / running_var.
+* `disc_params_to_jax` is the way back, for the target-model cache that
+  both packages read (runtime/trainer.py::TModelCache).
 * `disc_objects_from_jax` takes the fused tracker's target models (params
   and states with a leading object axis) and returns the port's per-object
   list, so that a test can compare both sides after the init or hand one
@@ -96,6 +98,12 @@ def seg_network_from_jax(tree) -> dict:
 def disc_params_from_jax(project, filter) -> DiscParams:
     """JAX DiscParams leaves (1, 1, Cin, c) / (3, 3, c, out) -> OIHW."""
     return DiscParams(_oihw(project), _oihw(filter))
+
+
+def disc_params_to_jax(params: DiscParams):
+    """DiscParams (OIHW) -> numpy (project (1, 1, Cin, c), filter (3, 3, c, out))."""
+    return tuple(np.ascontiguousarray(np.transpose(t.detach().cpu().numpy(), (2, 3, 1, 0)))
+                 for t in params)
 
 
 def _nchw(a) -> torch.Tensor:

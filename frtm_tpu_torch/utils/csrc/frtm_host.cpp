@@ -27,6 +27,11 @@
 //     colour tables), so that both backends give the same pixels where their
 //     IDCTs agree. The batch call decodes same-size files on a pool of
 //     threads.
+//   * resize_u8: cv2.resize of uint8 images for the training loaders,
+//     nearest, area (both axes shrinking) and cubic, the arithmetic of
+//     frtm_tpu_torch/data/resize_host.py's plain versions step by step and
+//     equal to them on every value (float where they are float32, double
+//     where they are double, no contraction).
 //
 // Every entry point has a plain C interface and returns 0 on success.
 
@@ -670,6 +675,131 @@ struct Decoder {
 
 #endif
 
+// ---------------------------------------------------------------------------
+// Resizing (cv2.resize on uint8, (H, W, C) interleaved)
+
+struct AreaEntry {
+    int d, s;
+    float w;
+};
+
+// OpenCV's computeResizeAreaTab, in its order.
+std::vector<AreaEntry> area_table(int ssize, int dsize, double scale) {
+    std::vector<AreaEntry> tab;
+    for (int dx = 0; dx < dsize; ++dx) {
+        const double fsx1 = dx * scale;
+        const double fsx2 = fsx1 + scale;
+        const double cell = std::min(scale, ssize - fsx1);
+        int sx1 = static_cast<int>(std::ceil(fsx1)), sx2 = static_cast<int>(std::floor(fsx2));
+        sx2 = std::min(sx2, ssize - 1);
+        sx1 = std::min(sx1, sx2);
+        if (sx1 - fsx1 > 1e-3) tab.push_back({dx, sx1 - 1, static_cast<float>((sx1 - fsx1) / cell)});
+        for (int sx = sx1; sx < sx2; ++sx) tab.push_back({dx, sx, static_cast<float>(1.0 / cell)});
+        if (fsx2 - sx2 > 1e-3)
+            tab.push_back({dx, sx2, static_cast<float>(std::min(std::min(fsx2 - sx2, 1.), cell) / cell)});
+    }
+    return tab;
+}
+
+inline uint8_t round_u8(float v) {
+    const float r = std::nearbyint(v);   // half to even
+    return static_cast<uint8_t>(r < 0.f ? 0.f : (r > 255.f ? 255.f : r));
+}
+
+void resize_area(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8_t* dst) {
+    const std::vector<AreaEntry> xt = area_table(W, dw, 1.0 / (static_cast<double>(dw) / W));
+    const std::vector<AreaEntry> yt = area_table(H, dh, 1.0 / (static_cast<double>(dh) / H));
+    std::vector<float> buf(static_cast<size_t>(dw) * C), acc(static_cast<size_t>(dw) * C);
+    size_t j = 0;
+    for (int dy = 0; dy < dh; ++dy) {
+        std::fill(acc.begin(), acc.end(), 0.f);
+        for (; j < yt.size() && yt[j].d == dy; ++j) {
+            const uint8_t* row = src + static_cast<size_t>(yt[j].s) * W * C;
+            std::fill(buf.begin(), buf.end(), 0.f);
+            for (const AreaEntry& e : xt)
+                for (int c = 0; c < C; ++c)
+                    buf[e.d * C + c] = buf[e.d * C + c] + static_cast<float>(row[e.s * C + c]) * e.w;
+            const float beta = yt[j].w;
+            for (size_t i = 0; i < acc.size(); ++i) acc[i] = acc[i] + beta * buf[i];
+        }
+        uint8_t* out = dst + static_cast<size_t>(dy) * dw * C;
+        for (size_t i = 0; i < acc.size(); ++i) out[i] = round_u8(acc[i]);
+    }
+}
+
+void resize_nearest(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8_t* dst) {
+    const double ifx = 1.0 / (static_cast<double>(dw) / W);
+    const double ify = 1.0 / (static_cast<double>(dh) / H);
+    std::vector<int> xs(dw);
+    for (int x = 0; x < dw; ++x) xs[x] = std::min(static_cast<int>(std::floor(x * ifx)), W - 1);
+    for (int y = 0; y < dh; ++y) {
+        const int sy = std::min(static_cast<int>(std::floor(y * ify)), H - 1);
+        const uint8_t* row = src + static_cast<size_t>(sy) * W * C;
+        uint8_t* out = dst + static_cast<size_t>(y) * dw * C;
+        for (int x = 0; x < dw; ++x)
+            for (int c = 0; c < C; ++c) out[x * C + c] = row[xs[x] * C + c];
+    }
+}
+
+// OpenCV's interpolateCubic (A = -0.75), in float.
+void cubic_coeffs(float x, float* c) {
+    const float A = -0.75f;
+    c[0] = ((A * (x + 1.f) - 5.f * A) * (x + 1.f) + 8.f * A) * (x + 1.f) - 4.f * A;
+    c[1] = ((A + 2.f) * x - (A + 3.f)) * x * x + 1.f;
+    const float y = 1.f - x;
+    c[2] = ((A + 2.f) * y - (A + 3.f)) * y * y + 1.f;
+    c[3] = 1.f - c[0] - c[1] - c[2];
+}
+
+// First source index and 4 weights per destination index.
+void cubic_table(int ssize, int dsize, std::vector<int>* first, std::vector<float>* w) {
+    const double scale = 1.0 / (static_cast<double>(dsize) / ssize);
+    first->resize(dsize);
+    w->resize(4 * static_cast<size_t>(dsize));
+    for (int d = 0; d < dsize; ++d) {
+        const float f = static_cast<float>((d + 0.5) * scale - 0.5);
+        const int s = static_cast<int>(std::floor(f));
+        (*first)[d] = s;
+        cubic_coeffs(f - static_cast<float>(s), w->data() + 4 * d);
+    }
+}
+
+void resize_cubic(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8_t* dst) {
+    std::vector<int> sx, sy;
+    std::vector<float> wx, wy;
+    cubic_table(W, dw, &sx, &wx);
+    cubic_table(H, dh, &sy, &wy);
+    // horizontal pass over every source row, edge replicated
+    std::vector<float> hbuf(static_cast<size_t>(H) * dw * C);
+    for (int y = 0; y < H; ++y) {
+        const uint8_t* row = src + static_cast<size_t>(y) * W * C;
+        float* h = hbuf.data() + static_cast<size_t>(y) * dw * C;
+        for (int x = 0; x < dw; ++x) {
+            int cols[4];
+            for (int k = 0; k < 4; ++k) cols[k] = std::min(std::max(sx[x] - 1 + k, 0), W - 1);
+            const float* w = wx.data() + 4 * x;
+            for (int c = 0; c < C; ++c) {
+                float v = static_cast<float>(row[cols[0] * C + c]) * w[0];
+                for (int k = 1; k < 4; ++k) v = v + static_cast<float>(row[cols[k] * C + c]) * w[k];
+                h[x * C + c] = v;
+            }
+        }
+    }
+    const size_t n = static_cast<size_t>(dw) * C;
+    for (int y = 0; y < dh; ++y) {
+        const float* r[4];
+        for (int k = 0; k < 4; ++k)
+            r[k] = hbuf.data() + static_cast<size_t>(std::min(std::max(sy[y] - 1 + k, 0), H - 1)) * n;
+        const float* w = wy.data() + 4 * y;
+        uint8_t* out = dst + static_cast<size_t>(y) * n;
+        for (size_t i = 0; i < n; ++i) {
+            float v = r[0][i] * w[0];
+            for (int k = 1; k < 4; ++k) v = v + r[k][i] * w[k];
+            out[i] = round_u8(v);
+        }
+    }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -770,6 +900,24 @@ FRTM_EXPORT int inpaint_telea_u8c3(const uint8_t* img, const uint8_t* mask, int 
 // rows of (1 filter byte + stride bytes); out gets (height, stride).
 // Returns 0, -1 for a size mismatch, or -(2 + y) for an unknown filter type
 // in row y.
+// src (H, W, C) -> dst (dh, dw, C), uint8; mode 0 nearest, 1 area (both
+// axes shrinking: the caller checks), 2 cubic. Returns 0, or -1 for bad sizes.
+FRTM_EXPORT int resize_u8(const uint8_t* src, int H, int W, int C, int dh, int dw, int mode,
+                          uint8_t* dst) {
+    if (H <= 0 || W <= 0 || C <= 0 || dh <= 0 || dw <= 0) return -1;
+    if (mode == 0) {
+        resize_nearest(src, H, W, C, dh, dw, dst);
+    } else if (mode == 1) {
+        if (dh > H || dw > W) return -1;
+        resize_area(src, H, W, C, dh, dw, dst);
+    } else if (mode == 2) {
+        resize_cubic(src, H, W, C, dh, dw, dst);
+    } else {
+        return -1;
+    }
+    return 0;
+}
+
 FRTM_EXPORT int png_unfilter(const uint8_t* raw, long raw_len, int height, int stride, int bpp,
                              uint8_t* out) {
     if (height < 0 || stride < 0 || bpp <= 0 ||

@@ -1,6 +1,7 @@
 """The port's host library (utils/csrc/frtm_host.cpp): Telea inpainting and
-the 2x2-ellipse dilation, the PNG row unfilter, and JPEG decoding, one frame
-or a batch of same-size files on a pool of threads. The counterpart of the
+the 2x2-ellipse dilation, the PNG row unfilter, JPEG decoding (one frame or
+a batch of same-size files on a pool of threads), and cv2.resize's nearest,
+area and cubic modes on uint8 images (data/resize_host.py). The counterpart of the
 JAX package's host library, without its quiet fallback: a library that does
 not build raises, with the compiler's output.
 
@@ -146,6 +147,7 @@ def _bind(path):
             "dilate_ellipse2_u8": [u8p, c_int, c_int, u8p],
             "inpaint_telea_u8c3": [u8p, u8p, c_int, c_int, c_int, u8p],
             "png_unfilter": [u8p, c_long, c_int, c_int, c_int, u8p],
+            "resize_u8": [u8p, c_int, c_int, c_int, c_int, c_int, c_int, u8p],
             "jpeg_dims": [u8p, c_long, i32p, i32p, c_char_p, c_int],
             "decode_jpeg": [u8p, c_long, u8p, c_int, c_int, c_char_p, c_int],
             "batch_decode_jpeg_files": [ctypes.POINTER(c_char_p), c_int, u8p, c_int, c_int,
@@ -197,6 +199,24 @@ def inpaint_telea(image: np.ndarray, mask: np.ndarray, radius) -> np.ndarray:
         return out
     if library().inpaint_telea_u8c3(_u8(image), _u8(hole), H, W, radius, _u8(out)) != 0:
         raise RuntimeError("inpaint_telea_u8c3 failed")
+    return out
+
+
+_RESIZE_MODES = {"nearest": 0, "area": 1, "cubic": 2}
+
+
+def resize_u8(mode: str, image: np.ndarray, size) -> np.ndarray:
+    """(H, W, C) uint8 -> (dh, dw, C) uint8 by cv2's `mode` ('nearest',
+    'area' with both axes shrinking, or 'cubic'); data/resize_host.py checks
+    the shapes and holds the plain versions."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3:
+        raise ValueError(f"resize_u8 takes (H, W, C) uint8 images, got {image.dtype} "
+                         f"{image.shape}")
+    dh, dw = (int(v) for v in size)
+    out = np.empty((dh, dw, image.shape[2]), np.uint8)
+    if library().resize_u8(_u8(image), *image.shape, dh, dw, _RESIZE_MODES[mode], _u8(out)) != 0:
+        raise ValueError(f"resize_u8 ({mode}): cannot resize {image.shape} to {(dh, dw)}")
     return out
 
 

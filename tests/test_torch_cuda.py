@@ -24,7 +24,11 @@ import torch
 
 from frtm_tpu_torch.device import resolve_device
 from frtm_tpu_torch.ops.kernels import (LAUNCHES, VARIANTS, conv3x3_cout1,
-                                        conv3x3_cout1_plain, pyr_up_bicubic,
+                                        conv3x3_cout1_input_grad,
+                                        conv3x3_cout1_input_grad_plain, conv3x3_cout1_plain,
+                                        conv3x3_cout1_weight_grad,
+                                        conv3x3_cout1_weight_grad_plain, pyr_up_bicubic,
+                                        pyr_up_bicubic_backward, pyr_up_bicubic_backward_plain,
                                         pyr_up_bicubic_plain, warp_affine)
 from frtm_tpu_torch.ops.kernels.build import DTYPES
 from frtm_tpu_torch.ops.warp import inverse_coefficients, warp_affine_plain
@@ -220,6 +224,77 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                       torch.zeros(1, 926, 3, 3, device="cuda"))
     with pytest.raises(ValueError):
         warp_affine(x[0], np.eye(2), (8, 10))
+
+
+def _launched_once(name, fn):
+    before, vbefore = LAUNCHES[name], VARIANTS[name]["f32"]
+    out = fn()
+    assert LAUNCHES[name] == before + 1 and VARIANTS[name]["f32"] == vbefore + 1
+    return out
+
+
+def _peak_err(got, want):
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+# the backward kernels at the training shapes (N = 16, both pyrup stages and
+# the head) and at small and odd ones: H and W below, at and above the tile
+# (32 x 32 for pyrup's backward, 16 x 128 for the head's), one pixel, C = 1
+# and C = 32. Tolerances: 1e-5 of the plain result's peak for pyrup's
+# backward and dx (sums of at most 64 and 9 products in another order), 1e-4
+# for dw and db (sums over every pixel of the batch, reduced in another order)
+@pytest.mark.parametrize("shape", [(16, 32, 120, 214), (16, 16, 240, 428), (1, 1, 1, 1),
+                                   (2, 3, 7, 5), (1, 32, 33, 65), (1, 1, 31, 97),
+                                   (3, 2, 2, 130), (1, 4, 32, 32)])
+def test_pyrup_backward_kernel_matches_plain(gen, shape):
+    n, c, h, w = shape
+    gy = torch.randn(n, c, 2 * h, 2 * w, generator=gen).cuda()
+    got = _launched_once("pyrup_bwd", lambda: pyr_up_bicubic_backward(gy, shape))
+    err, peak = _peak_err(got, pyr_up_bicubic_backward_plain(gy, shape))
+    assert err <= 1e-5 * peak
+    assert torch.equal(got, pyr_up_bicubic_backward(gy, shape))    # no atomics
+    x = torch.randn(shape, generator=gen).cuda().requires_grad_()
+    pyr_up_bicubic(x).backward(gy)
+    assert torch.equal(x.grad, got)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 480, 854), (1, 1, 5, 7), (2, 32, 17, 129),
+                                   (1, 3, 16, 128), (3, 1, 33, 257), (1, 1, 1, 1)])
+def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape):
+    n, c, h, wd = shape
+    x = torch.randn(shape, generator=gen).cuda()
+    w = (torch.rand(1, c, 3, 3, generator=gen) * 0.2 - 0.1).cuda()
+    b = torch.randn(1, generator=gen).cuda()
+    gy = torch.randn(n, 1, h, wd, generator=gen).cuda()
+    dx = _launched_once("conv3x3_cout1_dx", lambda: conv3x3_cout1_input_grad(gy, w, shape))
+    err, peak = _peak_err(dx, conv3x3_cout1_input_grad_plain(gy, w, shape))
+    assert err <= 1e-5 * peak
+    dw, db = _launched_once("conv3x3_cout1_dw", lambda: conv3x3_cout1_weight_grad(x, gy))
+    pw, pb = conv3x3_cout1_weight_grad_plain(x, gy, w.shape)
+    assert dw.shape == pw.shape and db.shape == pb.shape == (1,)
+    err, peak = _peak_err(torch.cat([dw.flatten(), db]), torch.cat([pw.flatten(), pb]))
+    assert err <= 1e-4 * peak
+    dw2, db2 = conv3x3_cout1_weight_grad(x, gy)                    # no atomics
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert torch.equal(dx, conv3x3_cout1_input_grad(gy, w, shape))
+    # through autograd: the same kernels, each launched once
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    before = dict(LAUNCHES)
+    conv3x3_cout1(xr, wr, br).backward(gy)
+    assert LAUNCHES["conv3x3_cout1_dx"] == before["conv3x3_cout1_dx"] + 1
+    assert LAUNCHES["conv3x3_cout1_dw"] == before["conv3x3_cout1_dw"] + 1
+    assert torch.equal(xr.grad, dx) and torch.equal(wr.grad, dw) and torch.equal(br.grad, db)
+
+
+def test_bf16_instances_refuse_a_backward(gen):
+    x = torch.randn(1, 4, 8, 10, generator=gen).cuda().bfloat16().requires_grad_()
+    with pytest.raises(TypeError):
+        pyr_up_bicubic(x).sum().backward()
+    w = torch.zeros(1, 4, 3, 3, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(TypeError):
+        conv3x3_cout1(x, w).sum().backward()
+    with torch.no_grad():       # inference through the bf16 instances records nothing
+        assert pyr_up_bicubic(x).grad_fn is None and conv3x3_cout1(x, w).grad_fn is None
 
 
 def _small_fused_world(compute_dtype="float32"):
@@ -454,3 +529,51 @@ def test_fused_tracker_legacy_modes_match_the_cpu_path(gen, mode):
                 ([2, 2] if k == 0 else [0, 0])
         else:
             assert int(state.n_resolves) == (2 if k == 0 else 0)
+
+
+def test_train_step_launches_the_backward_kernels_and_reruns_bit_equal(gen):
+    """One train step of the port's trainer (rn18, 96x128, batch 4, two train
+    frames) on the card: per frame 2 pyrup, 1 head-conv, 2 pyrup-backward,
+    1 dx and 1 dw launches; the loss and every gradient equal bit for bit
+    when the step runs again from the same state (no atomics anywhere)."""
+    from dataclasses import replace
+    from frtm_tpu_torch.config import eval_config
+    from frtm_tpu_torch.data.training_datasets import SampleSpec, SyntheticTrainingDataset
+    from frtm_tpu_torch.models.resnet import resnet_out_channels
+    from frtm_tpu_torch.runtime.trainer import TModelCache, TrainerModel
+    from frtm_tpu_torch.utils.convert import init_resnet, init_seg_network
+    cfg = eval_config("resnet18", fast=True, num_aug=3)
+    cfg = replace(cfg, disc=replace(cfg.disc, c_channels=16, init_iters=(3, 5),
+                                    update_iters=(3,), memory_size=8,
+                                    pixel_weighting_method="none"))
+    ch = {L: c for L, c in resnet_out_channels("resnet18").items() if L in cfg.refnet_layers}
+    model = TrainerModel(cfg, init_resnet("resnet18", torch.Generator().manual_seed(1)),
+                         init_seg_network(ch, torch.Generator().manual_seed(2)),
+                         TModelCache(None, enable=False))
+    assert model.device.type == "cuda"
+    dset = SyntheticTrainingDataset(n_samples=4, size=(96, 128), sample_size=3, seed=0)
+    items = [dset[i] for i in range(4)]
+    images = np.stack([np.stack([it[0][t] for it in items]) for t in range(3)])
+    labels = np.stack([np.stack([it[1][t] for it in items]) for t in range(3)])
+    mask = np.asarray([1, 1, 1, 0], np.float32)
+    disc, _ = model.build_disc_batch(images[0], labels[0],
+                                     SampleSpec.from_encoded([it[2] for it in items]))
+    state = {k: v.clone() for k, v in model.refiner.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.refiner.load_state_dict(state)
+        model.refiner.zero_grad(set_to_none=True)
+        before = dict(LAUNCHES)
+        total, acc = model.loss(disc, images, labels, mask)
+        total.backward()
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        assert launched == {"pyrup": 4, "conv3x3_cout1": 2, "warp_affine": 0, "pyrup_bwd": 4,
+                            "conv3x3_cout1_dx": 2, "conv3x3_cout1_dw": 2}, launched
+        runs.append((total.detach().clone(), acc.clone(),
+                     {n: p.grad.clone() for n, p in model.refiner.named_parameters()},
+                     {k: v.clone() for k, v in model.refiner.state_dict().items()}))
+    (l0, a0, g0, s0), (l1, a1, g1, s1) = runs
+    assert torch.equal(l0, l1) and torch.equal(a0, a1)
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
