@@ -8,8 +8,11 @@ Phases, each printing one JSON line:
   1. probe    — CUDA present, a real launch, card name and power limit;
   2. build    — the CUDA kernels compiled from frtm_tpu_torch/ops/kernels/csrc: the
                 three forward kernels (kernels 1 and 2 hold a float32 and a
-                bfloat16 instance each) and the float32 backward kernels of
-                kernels 1 and 2 (pyrup_bwd, conv3x3_cout1_dx, conv3x3_cout1_dw);
+                bfloat16 instance each, the bfloat16 ones in sources of their
+                own: pyrup_bf16.cu, conv3x3_cout1_bf16.cu) and the float32
+                backward kernels of kernels 1 and 2 (pyrup_bwd,
+                conv3x3_cout1_dx, conv3x3_cout1_dw); ptxas's registers, shared
+                memory and spills of every kernel function;
   2b. native  — the host library (frtm_tpu_torch/utils/csrc/frtm_host.cpp) built
                 with the host compiler: its build seconds, the JPEG backend it
                 found (libjpeg or nvJPEG) and which headers were there; its
@@ -25,8 +28,11 @@ Phases, each printing one JSON line:
                 tolerance), with CUDA-event times of kernel, plain version and
                 the one PyTorch call computing the same function; kernels 1
                 and 2 in float32 and in bfloat16 (half the bytes, so half the
-                bound); the warp rows name the variant they took (staged or
-                direct), and the phase gives the launch floor (a one-element
+                bound; each bfloat16 row gives its time over the float32 one's
+                on the same values, bf16_over_f32), also at YouTube-VOS's
+                720x1280 decoder shapes with two lanes; the warp rows name the
+                variant they took (staged or direct), and the phase gives the
+                launch floor (a one-element
                 zero_()); then each backward kernel at the training shapes
                 (N = 16: both pyrup stages, the head conv's dx and its dw and
                 db) against its plain backward (autograd of the plain
@@ -126,6 +132,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -152,8 +159,12 @@ HEAD_SPREAD = 2.0
 KERNEL_INFO = {
     "pyrup": ("frtm_tpu/ops/pallas/pyrup.py:74",
               "frtm_tpu_torch/ops/kernels/csrc/pyrup.cu"),
+    "pyrup_bf16": ("frtm_tpu/ops/pallas/pyrup.py:74",
+                   "frtm_tpu_torch/ops/kernels/csrc/pyrup_bf16.cu"),
     "conv3x3_cout1": ("frtm_tpu/ops/pallas/conv_small.py:53",
                       "frtm_tpu_torch/ops/kernels/csrc/conv3x3_cout1.cu"),
+    "conv3x3_cout1_bf16": ("frtm_tpu/ops/pallas/conv_small.py:53",
+                           "frtm_tpu_torch/ops/kernels/csrc/conv3x3_cout1_bf16.cu"),
     "warp_affine": ("frtm_tpu/ops/pallas/warp.py:167",
                     "frtm_tpu_torch/ops/kernels/csrc/warp_affine.cu"),
     # the gradients of kernels 1 and 2, which the JAX package takes by
@@ -290,16 +301,48 @@ def phase_probe():
     return card
 
 
+def demangle(names):
+    """C++ names demangled by c++filt where it is there, else as given."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        return list(names)
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_functions(log):
+    """[{function, registers, smem_bytes, spill_store_bytes,
+    spill_load_bytes}] of every kernel function in one `nvcc -Xptxas=-v`
+    output, names demangled."""
+    funcs = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            funcs.append({"function": m.group(1)})
+        elif funcs and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            funcs[-1]["spill_store_bytes"], funcs[-1]["spill_load_bytes"] = map(int, m.groups())
+        elif funcs and "Used" in ln and "registers" in ln:
+            funcs[-1]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            funcs[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    for f, name in zip(funcs, demangle([f["function"] for f in funcs])):
+        f["function"] = name
+    return funcs
+
+
 def phase_build():
+    """Builds every kernel source; returns ptxas's readings by source."""
     from frtm_tpu_torch.ops.kernels import build as kbuild
     seconds = kbuild.build()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for n, log in kbuild.BUILD_LOG.items()}
-    spill_free = {n: all(" 0 bytes spill stores, 0 bytes spill loads" in ln
-                         for ln in lines if "spill" in ln)
-                  for n, lines in ptxas.items()}
+    ptxas = {n: ptxas_functions(log) for n, log in kbuild.BUILD_LOG.items()}
+    spill_free = {n: all(f.get("spill_store_bytes", 1) == 0 and f.get("spill_load_bytes", 1) == 0
+                         for f in funcs)
+                  for n, funcs in ptxas.items()}
     emit({"phase": "build", "seconds": seconds, "kernels": list(kbuild.KERNELS),
-          "ptxas": ptxas, "spill_free": spill_free})
+          "sources": list(kbuild.SOURCES), "ptxas": ptxas, "spill_free": spill_free})
+    return ptxas
 
 
 def host_ms(fn, repeats=5):
@@ -516,10 +559,12 @@ def phase_kernels():
 
     # kernel 1: the decoder's two pyrup stages (exact: same op order), at
     # N=1, at N=8 (the fused tracker's decode window with one object) and at
-    # N=16 (with two, the fused and eval phases' batch)
+    # N=16 (with two, the fused and eval phases' batch); then YouTube-VOS's
+    # two stages at 720x1280 with two lanes (the ytvos phase's decodes)
     stages, stages16 = [], []
     for shape in [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214), (8, 16, 240, 428),
-                  (16, 32, 120, 214), (16, 16, 240, 428)]:
+                  (16, 32, 120, 214), (16, 16, 240, 428), (2, 32, 180, 320),
+                  (2, 16, 360, 640)]:
         x = torch.randn(shape, generator=g).cuda()
         n_out = 4 * x.numel()
         stages.append(_compare(
@@ -540,35 +585,45 @@ def phase_kernels():
     rows["pyrup"] = stages
     rows["pyrup_bf16"] = stages16
 
-    # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1, 8, 16;
-    # in bfloat16 within one ulp at the output's peak (a float32 sum that
-    # differs in its last bits can round to the neighbouring value)
+    # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1, 8,
+    # 16, and YouTube-VOS's (2, 16, 720, 1280); in bfloat16 within one ulp at
+    # the output's peak (a float32 sum that differs in its last bits can round
+    # to the neighbouring value), with 99.99 % of values equal
     w = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
     b = (torch.rand(1, generator=g) * 0.2 - 0.1).cuda()
     wh, bh = w.to(torch.bfloat16), b.to(torch.bfloat16)
     convs, convs16 = [], []
-    for n in (1, 8, 16):
-        x = torch.relu(torch.randn(n, 16, 480, 854, generator=g)).cuda()
+    for shape in [(1, 16, 480, 854), (8, 16, 480, 854), (16, 16, 480, 854),
+                  (2, 16, 720, 1280)]:
+        n, _, h, wd = shape
+        x = torch.relu(torch.randn(shape, generator=g)).cuda()
         convs.append(_compare(
-            "conv3x3_cout1", [n, 16, 480, 854], lambda x=x: conv3x3_cout1(x, w, b),
+            "conv3x3_cout1", list(shape), lambda x=x: conv3x3_cout1(x, w, b),
             lambda x=x: conv3x3_cout1_plain(x, w, b),
             lambda x=x: F.conv2d(x, w, b, padding=1),
-            nbytes=4 * (x.numel() + n * 480 * 854 + w.numel() + 1),
+            nbytes=4 * (x.numel() + n * h * wd + w.numel() + 1),
             flops=2 * 9 * x.numel(), tol=5e-5))
         xh = x.to(torch.bfloat16)
         del x
         row = _compare(
-            "conv3x3_cout1_bf16", [n, 16, 480, 854], lambda x=xh: conv3x3_cout1(x, wh, bh),
+            "conv3x3_cout1_bf16", list(shape), lambda x=xh: conv3x3_cout1(x, wh, bh),
             lambda x=xh: conv3x3_cout1_plain(x, wh, bh),
             lambda x=xh: F.conv2d(x, wh, bh, padding=1),
-            nbytes=2 * (xh.numel() + n * 480 * 854 + w.numel() + 1),
+            nbytes=2 * (xh.numel() + n * h * wd + w.numel() + 1),
             flops=2 * 9 * xh.numel(), tol="bf16_ulp")
         row["values_equal_share"] = float(
             (conv3x3_cout1(xh, wh, bh) == conv3x3_cout1_plain(xh, wh, bh)).float().mean())
+        if row["values_equal_share"] < 0.9999:
+            fail(f"conv3x3_cout1_bf16 {list(shape)}: {row['values_equal_share']} of values "
+                 "equal to the plain version's, under 99.99 %")
         convs16.append(row)
         del xh
     rows["conv3x3_cout1"] = convs
     rows["conv3x3_cout1_bf16"] = convs16
+    # each bfloat16 row beside the float32 row of the same shape and values
+    for name in ("pyrup", "conv3x3_cout1"):
+        for r16, r32 in zip(rows[f"{name}_bf16"], rows[name]):
+            r16["bf16_over_f32"] = r16["ms"] / r32["ms"]
 
     # kernel 3: a full-frame background warp (bicubic, 3 planes, rotated),
     # the eval augmenter's own background (scale 1.2 about the frame centre,
@@ -1543,7 +1598,7 @@ def phase_train(backbone, card):
     init_model, load_ckpt, build_batch, train_step = (
         TrainerModel.__init__, Trainer.load_checkpoint, TrainerModel.build_disc_batch,
         TrainerModel.train_step)
-    keys, loaded, step_seconds = [], {}, []
+    keys, loaded, step_seconds, solved = [], {}, [], []
 
     def profiled_init(self, *args, **kwargs):
         init_model(self, *args, **dict(kwargs, profile=True))
@@ -1556,7 +1611,9 @@ def phase_train(backbone, card):
     def recording_batch(self, first_images, first_labels, specs):
         keys.extend((s.seq_name, s.frame0_id, s.obj_id) for s in specs)
         step_seconds.append(time.perf_counter())
-        return build_batch(self, first_images, first_labels, specs)
+        out = build_batch(self, first_images, first_labels, specs)
+        solved.append(len(specs) - out[1])    # target models solved here, not read
+        return out
 
     def timed_step(self, *args):
         out = train_step(self, *args)      # ends in a host read of the loss
@@ -1578,6 +1635,7 @@ def phase_train(backbone, card):
             for tag, epochs in (("epochs_1_2", 2), ("resumed", 3)):
                 keys.clear()
                 step_seconds.clear()
+                solved.clear()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 reset_launches()
@@ -1587,7 +1645,7 @@ def phase_train(backbone, card):
                     trainer = train.main(argv + ["--max-epochs", str(epochs)])
                 torch.cuda.synchronize()
                 runs[tag] = dict(trainer=trainer, wall_s=time.perf_counter() - t0,
-                                 step_seconds=list(step_seconds),
+                                 step_seconds=list(step_seconds), solved=sum(solved),
                                  launches=dict(LAUNCHES),
                                  variants={k: dict(v) for k, v in VARIANTS.items()},
                                  peak=torch.cuda.max_memory_allocated(), keys=list(set(keys)),
@@ -1628,10 +1686,18 @@ def phase_train(backbone, card):
              if torch.equal(trained[n].cpu(), start[n].cpu())]
     if still:
         fail(f"train: parameters that never moved: {still}")
+    # The warp runs only where a target model is solved, in the augmenter of a
+    # cache miss. The first run starts with an empty cache; whether the resumed
+    # run draws a sample that epochs 1-2 left out depends on the trainer's
+    # unseeded generator, so there the warp is required exactly when it solved one.
+    if first["solved"] == 0:
+        fail("train (epochs_1_2): no target model was solved on an empty cache")
     for tag, run in runs.items():
-        if any(run["launches"][k] == 0 for k in TRAIN_KERNELS) or run["variants"]["pyrup"]["bf16"] \
-                or run["variants"]["conv3x3_cout1"]["bf16"]:
-            fail(f"train ({tag}): launches {run['launches']}, instances {run['variants']}")
+        if any(run["launches"][k] == 0 for k in TRAIN_KERNELS if k != "warp_affine") \
+                or (run["launches"]["warp_affine"] > 0) != (run["solved"] > 0) \
+                or run["variants"]["pyrup"]["bf16"] or run["variants"]["conv3x3_cout1"]["bf16"]:
+            fail(f"train ({tag}): launches {run['launches']}, instances {run['variants']}, "
+                 f"target models solved {run['solved']}")
     small = phase_train_small()
 
     def per_step(run):
@@ -1647,6 +1713,7 @@ def phase_train(backbone, card):
           "stats": {tag: run["stats"] for tag, run in runs.items()},
           "steps": {tag: per_step(run) for tag, run in runs.items()},
           "distinct_target_models": {tag: len(run["keys"]) for tag, run in runs.items()},
+          "target_models_solved": {tag: run["solved"] for tag, run in runs.items()},
           "cache_files_after_epoch_2": n_cache,
           "phase_seconds_synchronised": {tag: run["timer"] for tag, run in runs.items()},
           "launches": {tag: run["launches"] for tag, run in runs.items()},
@@ -1659,7 +1726,7 @@ def phase_train(backbone, card):
 
 
 def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                 launches_ytvos, instances_ytvos, launches_train):
+                 launches_ytvos, instances_ytvos, launches_train, ptxas):
     """The contract line: one entry per kernel instance at its main-path
     shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
     host loop runs them, and at N = 16 in bfloat16, the eval path's window of
@@ -1668,7 +1735,9 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
     sums the paths that run the instance, each counted from 0: the host loop,
     the float32 fused tracker and the two training runs for the float32
     instances, the unpipelined CLI runs (synthetic and DAVIS tree) and the
-    YouTube-VOS CLI run for the bfloat16 ones, all of them for the warp."""
+    YouTube-VOS CLI run for the bfloat16 ones, all of them for the warp.
+    Each entry carries ptxas's readings of its source's kernel functions, and
+    each bfloat16 entry its time over the float32 instance's (bf16_over_f32)."""
     entries = [("pyrup", "pyrup", 1, False), ("conv3x3_cout1", "conv3x3_cout1", 0, False),
                ("warp_affine", "warp_affine", 0, True), ("pyrup_bf16", "pyrup", 5, True),
                ("conv3x3_cout1_bf16", "conv3x3_cout1", 2, True),
@@ -1676,7 +1745,7 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                ("conv3x3_cout1_dw", "conv3x3_cout1_dw", 0, False)]
     out = []
     for name, kernel, main_row, in_eval in entries:
-        replaces, source = KERNEL_INFO[kernel]
+        replaces, source = KERNEL_INFO[name]
         r = rows[name][main_row]
         bf16 = name.endswith("_bf16")
         n_eval = (instances_eval[kernel]["bf16"] if bf16 else launches_eval[kernel]) \
@@ -1694,6 +1763,8 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "shape": r["shape"], "tolerance": r["tolerance"],
+                    **({"bf16_over_f32": r["bf16_over_f32"]} if bf16 else {}),
+                    "ptxas": ptxas.get(Path(source).stem),
                     "other_shapes": [o for i, o in enumerate(rows[name]) if i != main_row]})
     return {"kernels": out}
 
@@ -1712,7 +1783,7 @@ def main():
 
     t0 = time.perf_counter()
     card = phase_probe()
-    phase_build()
+    ptxas = phase_build()
     phase_native()
     rows = phase_kernels()
     cfg = eval_config("resnet101")
@@ -1729,7 +1800,7 @@ def main():
     launches_train = phase_train(backbone, card)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                      launches_ytvos, instances_ytvos, launches_train))
+                      launches_ytvos, instances_ytvos, launches_train, ptxas))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -13,6 +13,11 @@ count by the instance a launch took: the element type of kernels 1 and 2, the
 staged or direct variant of the warp. The backward kernels of 1 and 2
 (`pyrup_bwd`, `conv3x3_cout1_dx`, `conv3x3_cout1_dw`) have a float32
 instance only.
+
+SOURCES names the libraries, one per source. A kernel's bfloat16 instance
+may have a source of its own (kernels 1 and 2: `pyrup_bf16`,
+`conv3x3_cout1_bf16`, each its own design for 2-byte elements); its
+launches count under the kernel's name all the same.
 """
 import ctypes
 import hashlib
@@ -28,6 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("pyrup", "conv3x3_cout1", "warp_affine", "pyrup_bwd", "conv3x3_cout1_dx",
            "conv3x3_cout1_dw")
+SOURCES = KERNELS + ("pyrup_bf16", "conv3x3_cout1_bf16")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -39,7 +45,8 @@ VARIANTS = {"pyrup": {"f32": 0, "bf16": 0},
             "conv3x3_cout1_dw": {"f32": 0}}
 # the element types kernels 1 and 2 are instantiated for, by instance name
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-BUILD_LOG = {}      # kernel name -> nvcc output (ptxas register/smem report)
+BUILD_LOG = {}      # source name -> nvcc output (ptxas register/smem report),
+                    # kept beside each library and read back where it was built before
 
 _libs = {}
 _lock = threading.Lock()
@@ -77,7 +84,7 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=KERNELS) -> float:
+def build(names=SOURCES) -> float:
     """Compile (in parallel) and load every named kernel not loaded yet;
     returns the seconds spent."""
     t0 = time.perf_counter()
@@ -92,6 +99,9 @@ def build(names=KERNELS) -> float:
             for n in todo:
                 lib = _lib_path(n)
                 if lib.exists():
+                    log = lib.with_suffix(".log")
+                    if log.exists():
+                        BUILD_LOG[n] = log.read_text()
                     continue
                 tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
                 cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
@@ -103,6 +113,7 @@ def build(names=KERNELS) -> float:
                 BUILD_LOG[n] = log
                 if p.returncode != 0:
                     raise RuntimeError(f"nvcc failed for {n}.cu:\n{log}")
+                lib.with_suffix(".log").write_text(log)
                 os.replace(tmp, lib)
         finally:
             for p, tmp, _ in procs.values():
@@ -117,7 +128,7 @@ def build(names=KERNELS) -> float:
 
 
 def library(name: str):
-    """The loaded ctypes library of one kernel (built at first use)."""
+    """The loaded ctypes library of one source (built at first use)."""
     if name not in _libs:
         build((name,))
     return _libs[name]
@@ -142,10 +153,12 @@ def check_cuda_tensor(t: torch.Tensor, what: str, ndim: int, dtype=torch.float32
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def launch(name: str, fn_name: str, argtypes, *args, device: torch.device, variant=None):
-    """Call one C entry point on the current stream of `device`; raise on a
-    refused launch, count it (and its variant) otherwise."""
-    lib = library(name)
+def launch(name: str, fn_name: str, argtypes, *args, device: torch.device, variant=None,
+           source=None):
+    """Call one C entry point of kernel `name` (in the library of `source`,
+    by default the kernel's own) on the current stream of `device`; raise on
+    a refused launch, count it (and its variant) otherwise."""
+    lib = library(source or name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p]

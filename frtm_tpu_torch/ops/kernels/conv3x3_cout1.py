@@ -2,8 +2,9 @@
 channel (the decoder head `up.conv2`), replacing
 frtm_tpu/ops/pallas/conv_small.py::conv3x3_cout1_pallas.
 
-`conv3x3_cout1` launches csrc/conv3x3_cout1.cu on CUDA tensors and runs the
-plain version — the same 9 * Cin tap sum written with tensor ops — on CPU
+`conv3x3_cout1` launches csrc/conv3x3_cout1.cu (float32) or
+csrc/conv3x3_cout1_bf16.cu (bfloat16) on CUDA tensors and runs the plain
+version — the same 9 * Cin tap sum written with tensor ops — on CPU
 tensors.
 
 float32 and bfloat16, one kernel instance each; input, weight and bias share
@@ -48,6 +49,8 @@ def conv3x3_cout1_plain(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tenso
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+# the library of each instance: the bfloat16 one is its own design
+_SOURCES = {"f32": "conv3x3_cout1", "bf16": "conv3x3_cout1_bf16"}
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
@@ -69,7 +72,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     y = torch.empty((n, 1, h, wd), dtype=x.dtype, device=x.device)
     build.launch("conv3x3_cout1", f"frtm_conv3x3_cout1_{instance}", _ARGTYPES,
                  x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-                 y.data_ptr(), n, c, h, wd, device=x.device, variant=instance)
+                 y.data_ptr(), n, c, h, wd, device=x.device, variant=instance,
+                 source=_SOURCES[instance])
     return y
 
 

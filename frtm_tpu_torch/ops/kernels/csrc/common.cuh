@@ -37,12 +37,3 @@ template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
 }
-
-// An element of either working type as float, and back (bfloat16 rounds to
-// nearest even, as torch's `.to(torch.bfloat16)` does).
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_float(float* dst, float v) { *dst = v; }
-__device__ __forceinline__ void from_float(__nv_bfloat16* dst, float v) {
-  *dst = __float2bfloat16_rn(v);
-}

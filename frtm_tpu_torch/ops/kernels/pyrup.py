@@ -3,7 +3,8 @@ PyrUpBicubic2d), replacing frtm_tpu/ops/pallas/pyrup.py::pyr_up_bicubic_pallas.
 
 (N, C, H, W) -> (N, C, 2H, 2W): replicate-pad 2, separable 4-tap Keys cubic
 (A=-0.75) at phase offsets -0.25 / -0.75, pixel interleave, crop 1.
-`pyr_up_bicubic` launches csrc/pyrup.cu on a CUDA tensor and runs the plain
+`pyr_up_bicubic` launches csrc/pyrup.cu (float32) or csrc/pyrup_bf16.cu
+(bfloat16) on a CUDA tensor and runs the plain
 version on a CPU tensor; the plain version is written from
 frtm_tpu/models/seg_network.py::pyr_up_bicubic in the same operation order.
 
@@ -66,6 +67,8 @@ def pyr_up_bicubic_plain(x: torch.Tensor) -> torch.Tensor:
     return out[:, :, 1:-1, 1:-1]
 
 
+# the library of each instance: the bfloat16 one is its own design
+_SOURCES = {"f32": "pyrup", "bf16": "pyrup_bf16"}
 _TAPS_C = ((ctypes.c_float * 4)(*W_EVEN), (ctypes.c_float * 4)(*W_ODD))
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)]
@@ -79,7 +82,8 @@ def _forward(x: torch.Tensor) -> torch.Tensor:
     n, c, h, w = x.shape
     y = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     build.launch("pyrup", f"frtm_pyrup_{instance}", _ARGTYPES, x.data_ptr(), y.data_ptr(),
-                 n * c, h, w, *_TAPS_C, device=x.device, variant=instance)
+                 n * c, h, w, *_TAPS_C, device=x.device, variant=instance,
+                 source=_SOURCES[instance])
     return y
 
 

@@ -44,20 +44,33 @@ def gen():
     return torch.Generator().manual_seed(0)
 
 
-# the main path's two stages, N=8 (the fused tracker's decode window), and
-# N=16 and 40 (that window with 2 and 5 objects);
-# odd W (2W = 2 mod 4: 8-byte stores); 2W just below, at and above the
-# 128-column tile (W = 63, 64, 65, 66); H below and just above the
-# 32-row-pair tile (H = 5, 32, 33); a single pixel
+# the main path's two stages, N=2 (the host loop with two objects), N=8
+# (the fused tracker's decode window), and N=16 and 40 (that window with 2
+# and 5 objects); YouTube-VOS's stages at 720x1280 (W = 320 and 640: 640-
+# and 1280-byte rows); odd W (2W = 2 mod 4: 8-byte stores); 2W just below,
+# at and above the float32 kernel's 128-column tile (W = 63, 64, 65, 66); H
+# below and just above its 32-row-pair tile (H = 5, 32, 33); a single
+# pixel. For the bfloat16 design: H = 7, 8, 9 and 17 where the planes are
+# many enough for its longest chunks (8 row pairs; a thread walks them 5 at a
+# time); planes so narrow that every thread's patch touches a border (W = 2,
+# 3, 4, 6)
 @pytest.mark.parametrize("shape", [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214),
                                    (16, 32, 120, 214), (16, 16, 240, 428),
-                                   (40, 32, 120, 214), (40, 16, 240, 428), (2, 3, 7, 5), (1, 1, 1, 1), (1, 2, 9, 131),
+                                   (40, 32, 120, 214), (40, 16, 240, 428), (2, 3, 7, 5),
+                                   (1, 1, 1, 1), (1, 2, 9, 131),
                                    (1, 3, 5, 63), (1, 3, 32, 64), (1, 3, 17, 65),
-                                   (2, 2, 33, 66)])
+                                   (2, 2, 33, 66), (2, 32, 120, 214), (2, 16, 240, 428),
+                                   (1, 32, 180, 320), (1, 16, 360, 640), (2, 16, 720, 1280),
+                                   (80, 64, 7, 128), (80, 64, 8, 128),
+                                   (80, 64, 9, 128), (80, 64, 17, 128), (1, 3, 6, 2), (1, 3, 4, 3), (1, 2, 5, 4),
+                                   (1, 2, 3, 6)])
 @pytest.mark.parametrize("instance", ["f32", "bf16"])
 def test_pyrup_kernel_is_bit_exact(gen, shape, instance):
-    """In bfloat16, W even takes 4-byte pair copies and 8-byte stores, W odd
-    (5, 131, 63, 65) element copies and 4-byte stores."""
+    """In bfloat16 the input rows are 4-byte (W = 2 mod 4), 8-byte (W = 4
+    mod 8) or 16-byte (W = 0 mod 8) aligned and read as 4-byte words, or
+    only 2-byte aligned (W odd) and read value by value; output rows take
+    16-byte stores (W = 0 mod 4), 16- and 8-byte stores on alternate rows
+    (W = 2 mod 4), or 4-byte stores (W odd)."""
     x = torch.randn(shape, generator=gen).cuda().to(DTYPES[instance])
     before, vbefore = LAUNCHES["pyrup"], dict(VARIANTS["pyrup"])
     got = pyr_up_bicubic(x)
@@ -69,15 +82,20 @@ def test_pyrup_kernel_is_bit_exact(gen, shape, instance):
         assert torch.equal(got, pyr_up_bicubic_plain(x.float()).to(torch.bfloat16))
 
 
-# the head conv at N=1, 8, 16 and 40 (the batch is the grid's z extent,
-# limit 65535); Cin 1, 3, 16 and 64; rows only 4-byte
-# aligned (W = 129, 127: 4-byte copies); H below (4, 5, 7, 9) and just above
-# (17) the 16-row tile
+# the head conv at N=1, 2, 8, 16 and 40 (the batch is the grid's z extent,
+# limit 65535), and at YouTube-VOS's 720x1280; Cin 1, 3, 5, 16, 32 and 64
+# (the bfloat16 design stages 4 channels at a time: 1, 3 and 5 leave a stage
+# part empty); rows only 4-byte aligned (W = 129, 127: 4-byte copies); H
+# below (4, 5, 7, 9, 15), at (16) and just above (17) the 16-row tile, the
+# last three with enough blocks for the bfloat16 design's wide tile (128
+# columns; N = 1 and 2 at 480x854 take its narrow one, 64)
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("shape", [(1, 16, 480, 854), (8, 16, 480, 854), (16, 16, 480, 854),
                                    (40, 16, 480, 854), (2, 3, 5, 129),
                                    (1, 64, 17, 33), (1, 1, 9, 130), (3, 1, 4, 7),
-                                   (1, 3, 7, 127)])
+                                   (1, 3, 7, 127), (2, 16, 480, 854),
+                                   (1, 32, 180, 320), (1, 16, 360, 640), (2, 16, 720, 1280),
+                                   (300, 3, 15, 130), (300, 5, 16, 130), (300, 3, 17, 130)])
 @pytest.mark.parametrize("instance", ["f32", "bf16"])
 def test_conv3x3_cout1_kernel_matches_plain(gen, shape, bias, instance):
     dtype = DTYPES[instance]
@@ -92,11 +110,64 @@ def test_conv3x3_cout1_kernel_matches_plain(gen, shape, bias, instance):
     if instance == "f32":
         torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
         return
+    # nearly every value is the same bfloat16 number
+    assert _differing_within_one_ulp(got, want) < 0.02
+
+
+def _misaligned(shape, offset, dtype, gen):
+    """A contiguous view of `shape` whose data pointer lies `offset` elements
+    past an aligned allocation."""
+    n = math.prod(shape)
+    base = torch.randn(n + offset, generator=gen).cuda().to(dtype)
+    x = base[offset:].view(shape)
+    assert x.data_ptr() % 16 == offset * base.element_size() % 16
+    return x
+
+
+# storage offsets of 1 (a 2-byte aligned pointer: value-by-value loads) and
+# 2 elements (4-byte aligned, not 8) in bfloat16
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 32, 120, 214), (2, 16, 240, 428), (1, 3, 9, 64),
+                                   (1, 2, 5, 7)])
+def test_pyrup_bf16_reads_misaligned_views(gen, shape, offset):
+    x = _misaligned(shape, offset, torch.bfloat16, gen)
+    before = VARIANTS["pyrup"]["bf16"]
+    got = pyr_up_bicubic(x)
+    assert VARIANTS["pyrup"]["bf16"] == before + 1
+    assert torch.equal(got, pyr_up_bicubic_plain(x))
+
+
+def _differing_within_one_ulp(got, want):
+    """Checks got within one bfloat16 ulp of want at want's peak; returns the
+    share of values that differ."""
     peak = float(want.float().abs().max())
     ulp = 2.0 ** (math.floor(math.log2(peak)) - 7)
     assert float((got.float() - want.float()).abs().max()) <= ulp
-    # nearly every value is the same bfloat16 number
-    assert float((got != want).float().mean()) < 0.02
+    return float((got != want).float().mean())
+
+
+# the decoder's own inputs (ReLU outputs) at its shapes: 99.99 % of values
+# equal (on unit normal inputs, whose sums cancel more, 99.989 % was read)
+@pytest.mark.parametrize("shape", [(1, 16, 480, 854), (16, 16, 480, 854), (2, 16, 720, 1280)])
+def test_conv3x3_cout1_bf16_on_decoder_inputs(gen, shape):
+    x = torch.relu(torch.randn(shape, generator=gen)).cuda().to(torch.bfloat16)
+    w = (torch.rand(1, shape[1], 3, 3, generator=gen) * 0.2 - 0.1).cuda().to(torch.bfloat16)
+    b = (torch.rand(1, generator=gen) * 0.2 - 0.1).cuda().to(torch.bfloat16)
+    assert _differing_within_one_ulp(conv3x3_cout1(x, w, b), conv3x3_cout1_plain(x, w, b)) <= 1e-4
+
+
+# a misaligned input view (value-by-value staging), odd W with it, and a Cin
+# whose weights take the shared memory past 48 KB
+@pytest.mark.parametrize("offset,shape", [(1, (1, 16, 480, 854)), (1, (16, 16, 64, 130)),
+                                          (1, (2, 3, 17, 127)), (0, (2, 1000, 9, 130))])
+def test_conv3x3_cout1_bf16_odd_inputs(gen, offset, shape):
+    x = _misaligned(shape, offset, torch.bfloat16, gen)
+    w = (torch.rand(1, shape[1], 3, 3, generator=gen) * 0.2 - 0.1).cuda().to(torch.bfloat16)
+    b = torch.randn(1, generator=gen).cuda().to(torch.bfloat16)
+    before = VARIANTS["conv3x3_cout1"]["bf16"]
+    got = conv3x3_cout1(x, w, b)
+    assert VARIANTS["conv3x3_cout1"]["bf16"] == before + 1
+    assert _differing_within_one_ulp(got, conv3x3_cout1_plain(x, w, b)) < 0.02
 
 
 _MATS = {
