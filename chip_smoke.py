@@ -38,7 +38,9 @@ Phases, each printing one JSON line:
                 db) against its plain backward (autograd of the plain
                 forward), within 1e-5 (pyrup, dx) or 1e-4 (dw, db) of the plain
                 result's peak, with its time, byte bound and the one PyTorch
-                call that computes the same gradient;
+                call that computes the same gradient (each row also times the
+                kernel with CUDA events, event_ms, beside the profiler's ms;
+                pyrup's backward must take its 16-byte loads, variant v4);
   4. decode   — one full seg_network_apply at 480x854, kernels against plain
                 (its logits also set the scale of the random refiner's head,
                 so that the masks hold both classes); then the same decode in
@@ -114,7 +116,8 @@ Phases, each printing one JSON line:
                 2; checkpoints ep0001 and ep0002; the resumed run starts at
                 epoch 3 from the saved tensors; every refiner parameter moved,
                 BN weight and bias included; launches of every forward and
-                backward kernel and of the warp. Then one train step of rn18
+                backward kernel and of the warp, every pyrup backward with
+                16-byte loads (v4). Then one train step of rn18
                 at 96x128, batch 4, on fixed target models on the CPU (plain
                 versions) and on the card (kernels): loss within rtol 1e-4,
                 every gradient within 1e-3 of its peak, a second card run
@@ -682,19 +685,25 @@ def backward_rows(g):
     plain backward (autograd of the plain forward on the card)."""
     import torch.nn.functional as F
     from frtm_tpu_torch.ops.kernels import (
-        conv3x3_cout1_input_grad, conv3x3_cout1_input_grad_plain, conv3x3_cout1_weight_grad,
-        conv3x3_cout1_weight_grad_plain, pyr_up_bicubic_backward, pyr_up_bicubic_backward_plain)
+        VARIANTS, conv3x3_cout1_input_grad, conv3x3_cout1_input_grad_plain,
+        conv3x3_cout1_weight_grad, conv3x3_cout1_weight_grad_plain, pyr_up_bicubic_backward,
+        pyr_up_bicubic_backward_plain)
     rows = {"pyrup_bwd": [], "conv3x3_cout1_dx": [], "conv3x3_cout1_dw": []}
     for shape in [(16, 32, 120, 214), (16, 16, 240, 428)]:
         n, c, h, w = shape
         gy = torch.randn(n, c, 2 * h, 2 * w, generator=g).cuda()
-        rows["pyrup_bwd"].append(_compare(
+        before = dict(VARIANTS["pyrup_bwd"])
+        row = _compare(
             "pyrup_bwd", list(shape), lambda gy=gy, s=shape: pyr_up_bicubic_backward(gy, s),
             lambda gy=gy, s=shape: pyr_up_bicubic_backward_plain(gy, s),
             lambda gy=gy, s=shape: torch.ops.aten.upsample_bicubic2d_backward(
                 gy, [2 * s[2], 2 * s[3]], list(s), False),
             nbytes=4 * (gy.numel() + gy.numel() // 4), flops=35 * gy.numel(),
-            tol=("peak", 1e-5)))
+            tol=("peak", 1e-5))
+        row["variant"] = sorted(v for v, k in VARIANTS["pyrup_bwd"].items() if k > before[v])
+        if row["variant"] != ["v4"]:
+            fail(f"pyrup_bwd {shape}: took {row['variant']}, not the 16-byte loads (v4)")
+        rows["pyrup_bwd"].append(row)
         del gy
     shape = (16, 16, 480, 854)
     x = torch.relu(torch.randn(shape, generator=g)).cuda()
@@ -1695,7 +1704,8 @@ def phase_train(backbone, card):
     for tag, run in runs.items():
         if any(run["launches"][k] == 0 for k in TRAIN_KERNELS if k != "warp_affine") \
                 or (run["launches"]["warp_affine"] > 0) != (run["solved"] > 0) \
-                or run["variants"]["pyrup"]["bf16"] or run["variants"]["conv3x3_cout1"]["bf16"]:
+                or run["variants"]["pyrup"]["bf16"] or run["variants"]["conv3x3_cout1"]["bf16"] \
+                or run["variants"]["pyrup_bwd"]["v4"] != run["launches"]["pyrup_bwd"]:
             fail(f"train ({tag}): launches {run['launches']}, instances {run['variants']}, "
                  f"target models solved {run['solved']}")
     small = phase_train_small()
@@ -1760,7 +1770,8 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                     "launches_eval": n_eval, "launches_ytvos": n_ytvos,
                     "launches_train": n_train,
                     "max_abs_err": r["max_abs_err"],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "shape": r["shape"], "tolerance": r["tolerance"],
                     **({"bf16_over_f32": r["bf16_over_f32"]} if bf16 else {}),

@@ -19,7 +19,13 @@ Gradient: `pyr_up_bicubic` is differentiable (a torch.autograd.Function)
 where its input requires a gradient and autograd records. Its backward is
 the adjoint of the upsampler, in float32 only: csrc/pyrup_bwd.cu on the card,
 `pyr_up_bicubic_backward_plain` (autograd of the plain forward) on the CPU.
-The bfloat16 instance serves inference only; a backward through it raises.
+Along each axis the adjoint is a stride-2 8-tap filter, PYRDOWN_TAPS, over
+the output gradient (zero outside it), plus the padded rows that the
+replicate padding folds onto the first and last index (FOLD_FIRST,
+FOLD_LAST); the kernel is given those tables. The kernel reads the gradient
+in 16-, 8- or 4-byte loads (variants "v4", "v2", "v1"), the widest its rows'
+alignment allows. The bfloat16 instance serves inference only; a backward
+through it raises.
 Under `torch.no_grad`, or on an input that needs no gradient, the forward
 runs as a plain call and records nothing.
 """
@@ -40,6 +46,16 @@ def _taps(phase):
 
 W_EVEN = _taps(-0.25)
 W_ODD = _taps(-0.75)
+
+# The adjoint along one axis of length n (csrc/pyrup_bwd.cu): for the output
+# gradient g (length 2n, zero outside it),
+#   gx[h] = sum_i PYRDOWN_TAPS[i] * g[2h - 3 + i]
+#           + (h == 0) * FOLD_FIRST . g[0:3] + (h == n - 1) * FOLD_LAST . g[2n-3:2n],
+# the two folds being padded indices 0, 1 and n + 2, n + 3.
+PYRDOWN_TAPS = [W_EVEN[3], W_ODD[3], W_EVEN[2], W_ODD[2], W_EVEN[1], W_ODD[1], W_EVEN[0],
+                W_ODD[0]]
+FOLD_FIRST = [float(np.float32(W_ODD[0]) + np.float32(W_ODD[1])), W_EVEN[0], W_ODD[0]]
+FOLD_LAST = [W_EVEN[3], W_ODD[3], float(np.float32(W_EVEN[2]) + np.float32(W_EVEN[3]))]
 
 
 def _filt4(x, taps, dim):
@@ -97,6 +113,12 @@ def pyr_up_bicubic_backward_plain(gy: torch.Tensor, in_shape) -> torch.Tensor:
     return gx
 
 
+_BWD_TAPS_C = tuple((ctypes.c_float * len(t))(*t)
+                    for t in (PYRDOWN_TAPS, FOLD_FIRST, FOLD_LAST))
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 *[ctypes.POINTER(ctypes.c_float)] * 3, ctypes.c_int]
+
+
 def pyr_up_bicubic_backward(gy: torch.Tensor, in_shape) -> torch.Tensor:
     """(N, C, 2H, 2W) float32 output gradient -> (N, C, H, W) input gradient:
     the kernel on a CUDA tensor, the plain version on a CPU tensor."""
@@ -112,8 +134,12 @@ def pyr_up_bicubic_backward(gy: torch.Tensor, in_shape) -> torch.Tensor:
     gy = gy.contiguous()
     build.check_cuda_tensor(gy, "pyr_up_bicubic output gradient", 4)
     gx = torch.empty((n, c, h, w), dtype=gy.dtype, device=gy.device)
-    build.launch("pyrup_bwd", "frtm_pyrup_bwd_f32", _ARGTYPES, gy.data_ptr(), gx.data_ptr(),
-                 n * c, h, w, *_TAPS_C, device=gy.device, variant="f32")
+    # floats per load: 4 where gy's rows are 16-byte aligned (W even, the
+    # pointer 16-byte aligned), else 2 where the pointer is 8-byte aligned
+    ptr = gy.data_ptr()
+    vec = 4 if w % 2 == 0 and ptr % 16 == 0 else 2 if ptr % 8 == 0 else 1
+    build.launch("pyrup_bwd", "frtm_pyrup_bwd_f32", _BWD_ARGTYPES, ptr, gx.data_ptr(),
+                 n * c, h, w, *_BWD_TAPS_C, vec, device=gy.device, variant=f"v{vec}")
     return gx
 
 

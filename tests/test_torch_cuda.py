@@ -297,10 +297,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         warp_affine(x[0], np.eye(2), (8, 10))
 
 
-def _launched_once(name, fn):
-    before, vbefore = LAUNCHES[name], VARIANTS[name]["f32"]
+def _launched_once(name, fn, variant="f32"):
+    before, vbefore = LAUNCHES[name], VARIANTS[name][variant]
     out = fn()
-    assert LAUNCHES[name] == before + 1 and VARIANTS[name]["f32"] == vbefore + 1
+    assert LAUNCHES[name] == before + 1 and VARIANTS[name][variant] == vbefore + 1
     return out
 
 
@@ -308,22 +308,32 @@ def _peak_err(got, want):
     return float((got - want).abs().max()), float(want.abs().max())
 
 
-# the backward kernels at the training shapes (N = 16, both pyrup stages and
-# the head) and at small and odd ones: H and W below, at and above the tile
-# (32 x 32 for pyrup's backward, 16 x 128 for the head's), one pixel, C = 1
-# and C = 32. Tolerances: 1e-5 of the plain result's peak for pyrup's
-# backward and dx (sums of at most 64 and 9 products in another order), 1e-4
-# for dw and db (sums over every pixel of the batch, reduced in another order)
-@pytest.mark.parametrize("shape", [(16, 32, 120, 214), (16, 16, 240, 428), (1, 1, 1, 1),
-                                   (2, 3, 7, 5), (1, 32, 33, 65), (1, 1, 31, 97),
-                                   (3, 2, 2, 130), (1, 4, 32, 32)])
-def test_pyrup_backward_kernel_matches_plain(gen, shape):
+# pyrup's backward at the training shapes (N = 16, both stages) and at the
+# edges of its design: H and W of 1 to 4 (every row and column a border
+# one), odd W (8-byte loads), H around its chunks of 8 rows (7, 9, 17, with
+# threads enough for the launch to pick 8 where an SM holds up to 1024),
+# and gy views 4, 8 and 16 bytes past an aligned pointer (4-, 8- and 16-byte
+# loads). The load width changes no sum, so every variant gives the bits of
+# the aligned copy.
+@pytest.mark.parametrize("shape,offset", [
+    ((16, 32, 120, 214), 0), ((16, 16, 240, 428), 0), ((1, 1, 1, 1), 0), ((2, 3, 7, 5), 0),
+    ((1, 32, 33, 65), 0), ((1, 1, 31, 97), 0), ((3, 2, 2, 130), 0), ((1, 4, 32, 32), 0),
+    *[((1, 3, h, w), 0) for h in (2, 3, 4) for w in (2, 3, 4)],
+    ((256, 32, 7, 64), 0), ((128, 32, 9, 64), 0), ((128, 32, 17, 64), 0),
+    ((2, 8, 17, 214), 1), ((2, 8, 17, 214), 2), ((2, 8, 17, 214), 4), ((1, 3, 9, 7), 1)])
+def test_pyrup_backward_kernel_matches_plain(gen, shape, offset):
     n, c, h, w = shape
-    gy = torch.randn(n, c, 2 * h, 2 * w, generator=gen).cuda()
-    got = _launched_once("pyrup_bwd", lambda: pyr_up_bicubic_backward(gy, shape))
+    numel = n * c * 4 * h * w
+    gy = torch.randn(numel + offset, generator=gen).cuda()[offset:].view(n, c, 2 * h, 2 * w)
+    variant = {0: "v4", 1: "v1", 2: "v2", 4: "v4"}[offset]    # the widest the view allows
+    if w % 2:
+        variant = {"v4": "v2"}.get(variant, variant)            # rows of 8 mod 16 bytes
+    got = _launched_once("pyrup_bwd", lambda: pyr_up_bicubic_backward(gy, shape), variant)
     err, peak = _peak_err(got, pyr_up_bicubic_backward_plain(gy, shape))
     assert err <= 1e-5 * peak
     assert torch.equal(got, pyr_up_bicubic_backward(gy, shape))    # no atomics
+    if offset:
+        assert torch.equal(got, pyr_up_bicubic_backward(gy.clone(), shape))
     x = torch.randn(shape, generator=gen).cuda().requires_grad_()
     pyr_up_bicubic(x).backward(gy)
     assert torch.equal(x.grad, got)

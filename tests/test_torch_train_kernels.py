@@ -13,6 +13,7 @@ from frtm_tpu.ops.conv import conv2d as jax_conv2d
 from frtm_tpu_torch.ops.kernels import (LAUNCHES, conv3x3_cout1, conv3x3_cout1_input_grad,
                                         conv3x3_cout1_weight_grad, pyr_up_bicubic,
                                         pyr_up_bicubic_backward)
+from frtm_tpu_torch.ops.kernels.pyrup import FOLD_FIRST, FOLD_LAST, PYRDOWN_TAPS
 
 
 def nchw(a):
@@ -40,6 +41,42 @@ def test_pyrup_backward_plain_matches_jax_vjp(rng, shape):
     xt = nchw(x).requires_grad_()
     pyr_up_bicubic(xt).backward(nchw(gy))
     assert torch.equal(xt.grad, got)
+
+
+# one compiled program per shape: op by op, JAX compiles each op of the decoder
+_jax_pyrup_vjp = jax.jit(lambda x, gy: jax.vjp(jax_pyrup, x)[1](gy)[0])
+
+
+def pyrdown_gather(gy, axis):
+    """csrc/pyrup_bwd.cu's formula along one axis of a float32 array: at
+    index h, the stride-2 8-tap filter PYRDOWN_TAPS over gy[2h - 3 ..] (zero
+    outside gy), with the folded padded rows FOLD_FIRST added into the taps
+    of index 0 and FOLD_LAST into those of index n - 1."""
+    f, first, last = (np.float32(t) for t in (PYRDOWN_TAPS, FOLD_FIRST, FOLD_LAST))
+    g = np.moveaxis(gy, axis, -1)
+    n = g.shape[-1] // 2
+    zeros = np.zeros(g.shape[:-1] + (3,), np.float32)
+    p = np.concatenate([zeros, g, zeros], -1)        # p[2h + i] = gy[2h - 3 + i]
+    taps = np.tile(f, (n, 1))
+    taps[0, 3:6] += first                            # gy[0], gy[1], gy[2]
+    taps[n - 1, 2:5] += last                         # gy[2n - 3], gy[2n - 2], gy[2n - 1]
+    out = taps[:, 0] * p[..., 0:2 * n:2]
+    for i in range(1, 8):
+        out = out + taps[:, i] * p[..., i:i + 2 * n:2]
+    return np.moveaxis(out, -1, axis)
+
+
+# (N, H, W, C): every H and W from 1 (both folds onto one index) to 5 (the
+# first size with an index that neither fold nor the zero border reaches),
+# an odd W of 11, and a training-like plane
+@pytest.mark.parametrize("shape", [(1, h, w, 2) for h in range(1, 6) for w in range(1, 6)]
+                         + [(1, 6, 11, 3), (2, 12, 16, 8)])
+def test_pyrup_backward_kernel_formula_matches_jax_vjp(rng, shape):
+    """The backward kernel cannot run here; its formula and tables can."""
+    x = rng.randn(*shape).astype(np.float32)
+    gy = rng.randn(shape[0], 2 * shape[1], 2 * shape[2], shape[3]).astype(np.float32)
+    want = _jax_pyrup_vjp(jnp.asarray(x), jnp.asarray(gy))
+    close_to_peak(pyrdown_gather(pyrdown_gather(gy, 1), 2), np.asarray(want), 1e-5)
 
 
 @pytest.mark.parametrize("shape", [(2, 13, 17, 6), (1, 1, 1, 1), (3, 5, 4, 32)])
