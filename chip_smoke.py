@@ -40,7 +40,8 @@ Phases, each printing one JSON line:
                 result's peak, with its time, byte bound and the one PyTorch
                 call that computes the same gradient (each row also times the
                 kernel with CUDA events, event_ms, beside the profiler's ms;
-                pyrup's backward must take its 16-byte loads, variant v4);
+                pyrup's backward must take its 16-byte loads, variant v4, and
+                the head conv's weight gradient its 8-byte loads, v2);
   4. decode   — one full seg_network_apply at 480x854, kernels against plain
                 (its logits also set the scale of the random refiner's head,
                 so that the masks hold both classes); then the same decode in
@@ -117,7 +118,8 @@ Phases, each printing one JSON line:
                 epoch 3 from the saved tensors; every refiner parameter moved,
                 BN weight and bias included; launches of every forward and
                 backward kernel and of the warp, every pyrup backward with
-                16-byte loads (v4). Then one train step of rn18
+                16-byte loads (v4) and every head-conv weight gradient with
+                8-byte loads (v2). Then one train step of rn18
                 at 96x128, batch 4, on fixed target models on the CPU (plain
                 versions) and on the card (kernels): loss within rtol 1e-4,
                 every gradient within 1e-3 of its peak, a second card run
@@ -688,6 +690,7 @@ def backward_rows(g):
         VARIANTS, conv3x3_cout1_input_grad, conv3x3_cout1_input_grad_plain,
         conv3x3_cout1_weight_grad, conv3x3_cout1_weight_grad_plain, pyr_up_bicubic_backward,
         pyr_up_bicubic_backward_plain)
+    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import weight_grad_plan
     rows = {"pyrup_bwd": [], "conv3x3_cout1_dx": [], "conv3x3_cout1_dw": []}
     for shape in [(16, 32, 120, 214), (16, 16, 240, 428)]:
         n, c, h, w = shape
@@ -715,14 +718,20 @@ def backward_rows(g):
         lambda: torch.nn.grad.conv2d_input(shape, wt, gy, padding=1),
         nbytes=4 * (gy.numel() + x.numel() + wt.numel()), flops=18 * x.numel(),
         tol=("peak", 1e-5)))
-    rows["conv3x3_cout1_dw"].append(_compare(
+    before = dict(VARIANTS["conv3x3_cout1_dw"])
+    row = _compare(
         "conv3x3_cout1_dw", list(shape),
         lambda: torch.cat([t.flatten() for t in conv3x3_cout1_weight_grad(x, gy)]),
         lambda: torch.cat([t.flatten() for t in conv3x3_cout1_weight_grad_plain(x, gy, wt.shape)]),
         lambda: torch.cat([torch.nn.grad.conv2d_weight(x, wt.shape, gy, padding=1).flatten(),
                            gy.sum().reshape(1)]),
         nbytes=4 * (x.numel() + gy.numel() + wt.numel() + 1),
-        flops=18 * x.numel() + gy.numel(), tol=("peak", 1e-4)))
+        flops=18 * x.numel() + gy.numel(), tol=("peak", 1e-4))
+    row["variant"] = sorted(v for v, k in VARIANTS["conv3x3_cout1_dw"].items() if k > before[v])
+    if row["variant"] != ["v2"]:
+        fail(f"conv3x3_cout1_dw {shape}: took {row['variant']}, not the 8-byte loads (v2)")
+    row["rows"] = weight_grad_plan(*shape, x.device)
+    rows["conv3x3_cout1_dw"].append(row)
     return rows
 
 
@@ -1705,7 +1714,9 @@ def phase_train(backbone, card):
         if any(run["launches"][k] == 0 for k in TRAIN_KERNELS if k != "warp_affine") \
                 or (run["launches"]["warp_affine"] > 0) != (run["solved"] > 0) \
                 or run["variants"]["pyrup"]["bf16"] or run["variants"]["conv3x3_cout1"]["bf16"] \
-                or run["variants"]["pyrup_bwd"]["v4"] != run["launches"]["pyrup_bwd"]:
+                or run["variants"]["pyrup_bwd"]["v4"] != run["launches"]["pyrup_bwd"] \
+                or run["variants"]["conv3x3_cout1_dw"]["v2"] != \
+                run["launches"]["conv3x3_cout1_dw"]:
             fail(f"train ({tag}): launches {run['launches']}, instances {run['variants']}, "
                  f"target models solved {run['solved']}")
     small = phase_train_small()

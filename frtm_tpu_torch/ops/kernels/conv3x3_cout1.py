@@ -18,8 +18,10 @@ where an input requires a gradient and autograd records, in float32 only.
 On the card its backward launches csrc/conv3x3_cout1_dx.cu for the input
 gradient and csrc/conv3x3_cout1_dw.cu for the weight and bias gradients, each
 only where it is needed; on the CPU it runs the plain backward (autograd of
-the plain forward). The bfloat16 instance serves inference only; a backward
-through it raises. Under `torch.no_grad`, or where nothing needs a gradient,
+the plain forward). The weight gradient's kernel reads 8 bytes a load where
+W is even and the tensors 8-byte aligned, else 4 (`build.VARIANTS`: v2,
+v1); both give the same bits. The bfloat16 instance serves inference only;
+a backward through it raises. Under `torch.no_grad`, or where nothing needs a gradient,
 the forward runs as a plain call and records nothing.
 """
 import ctypes
@@ -105,7 +107,8 @@ def _check_grad(gy, what):
 _DX_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _DW_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int]
 
 
 def conv3x3_cout1_input_grad(gy: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
@@ -143,15 +146,31 @@ def conv3x3_cout1_weight_grad(x: torch.Tensor, gy: torch.Tensor):
     x, gy = x.detach().contiguous(), gy.contiguous()
     build.check_cuda_tensor(x, "conv3x3_cout1 input", 4)
     build.check_cuda_tensor(gy, "conv3x3_cout1 output gradient", 4)
-    fn = build.library("conv3x3_cout1_dw").frtm_conv3x3_cout1_dw_blocks
-    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-    blocks = fn(n, h, wd)
-    partials = torch.empty((blocks, 9 * c + 1), dtype=gy.dtype, device=gy.device)
+    tiles = weight_grad_plan(n, c, h, wd, gy.device, "blocks")
+    # 8-byte loads where every row starts 8-byte aligned, else 4-byte: the
+    # same sums in the same order
+    vec = 2 if wd % 2 == 0 and (x.data_ptr() | gy.data_ptr()) % 8 == 0 else 1
+    partials = torch.empty((9 * c + 1) * tiles, dtype=gy.dtype, device=gy.device)
     out = torch.empty(9 * c + 1, dtype=gy.dtype, device=gy.device)
     build.launch("conv3x3_cout1_dw", "frtm_conv3x3_cout1_dw_f32", _DW_ARGTYPES,
-                 x.data_ptr(), gy.data_ptr(), partials.data_ptr(), out.data_ptr(), blocks,
-                 n, c, h, wd, device=gy.device, variant="f32")
+                 x.data_ptr(), gy.data_ptr(), partials.data_ptr(), out.data_ptr(), tiles,
+                 n, c, h, wd, vec, device=gy.device, variant=f"v{vec}")
     return out[:9 * c].view(1, c, 3, 3), out[9 * c:]
+
+
+def weight_grad_plan(n, c, h, w, device: torch.device, what="rows") -> int:
+    """What csrc/conv3x3_cout1_dw.cu plans for input (n, c, h, w) on a CUDA
+    device: "blocks", the partials of each output value (the tiles of pass
+    1), or "rows", the rows in a stripe."""
+    fn = getattr(build.library("conv3x3_cout1_dw"), f"frtm_conv3x3_cout1_dw_{what}")
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong if what == "blocks" else ctypes.c_int
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    got = fn(n, c, h, w, index)
+    if got <= 0:
+        raise RuntimeError(f"conv3x3_cout1 weight gradient: no plan for input "
+                           f"{(n, c, h, w)} on {device}")
+    return got
 
 
 class _Conv3x3Cout1(torch.autograd.Function):

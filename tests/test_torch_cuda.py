@@ -339,18 +339,33 @@ def test_pyrup_backward_kernel_matches_plain(gen, shape, offset):
     assert torch.equal(x.grad, got)
 
 
-@pytest.mark.parametrize("shape", [(16, 16, 480, 854), (1, 1, 5, 7), (2, 32, 17, 129),
-                                   (1, 3, 16, 128), (3, 1, 33, 257), (1, 1, 1, 1)])
-def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape):
+# The head conv's backward at the training shape and odd ones; for the
+# weight gradient's streaming design also at its edges: H around its stripes
+# (small grids take stripes of 8 rows: H = 7, 8, 9, 17), W around its column
+# segments of 128 (126 .. 130), C around its groups of 4 and chunks of 16 (1,
+# 3, 5, 17), and x and dy 4 bytes past an aligned pointer. Odd W or such a
+# view takes the 4-byte loads (v1), else the 8-byte loads (v2); both widths
+# give the same bits.
+@pytest.mark.parametrize("shape,offset", [
+    ((16, 16, 480, 854), 0), ((1, 1, 5, 7), 0), ((2, 32, 17, 129), 0), ((1, 3, 16, 128), 0),
+    ((3, 1, 33, 257), 0), ((1, 1, 1, 1), 0),
+    ((2, 5, 7, 40), 0), ((2, 5, 8, 40), 0), ((2, 5, 9, 40), 0), ((2, 5, 17, 40), 0),
+    *[((1, 3, 9, w), 0) for w in (126, 127, 128, 129, 130)],
+    ((1, 17, 9, 20), 0), ((2, 16, 17, 854), 1), ((1, 3, 9, 130), 1)])
+def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape, offset):
+    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import weight_grad_plan
     n, c, h, wd = shape
-    x = torch.randn(shape, generator=gen).cuda()
+    x = torch.randn(n * c * h * wd + offset, generator=gen).cuda()[offset:].view(shape)
     w = (torch.rand(1, c, 3, 3, generator=gen) * 0.2 - 0.1).cuda()
     b = torch.randn(1, generator=gen).cuda()
-    gy = torch.randn(n, 1, h, wd, generator=gen).cuda()
+    gy = torch.randn(n * h * wd + offset, generator=gen).cuda()[offset:].view(n, 1, h, wd)
+    if h <= 17:     # a grid of one wave: stripes of 8 rows
+        assert weight_grad_plan(n, c, h, wd, x.device) == 8
     dx = _launched_once("conv3x3_cout1_dx", lambda: conv3x3_cout1_input_grad(gy, w, shape))
     err, peak = _peak_err(dx, conv3x3_cout1_input_grad_plain(gy, w, shape))
     assert err <= 1e-5 * peak
-    dw, db = _launched_once("conv3x3_cout1_dw", lambda: conv3x3_cout1_weight_grad(x, gy))
+    width = "v1" if offset or wd % 2 else "v2"
+    dw, db = _launched_once("conv3x3_cout1_dw", lambda: conv3x3_cout1_weight_grad(x, gy), width)
     pw, pb = conv3x3_cout1_weight_grad_plain(x, gy, w.shape)
     assert dw.shape == pw.shape and db.shape == pb.shape == (1,)
     err, peak = _peak_err(torch.cat([dw.flatten(), db]), torch.cat([pw.flatten(), pb]))
@@ -358,6 +373,17 @@ def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape):
     dw2, db2 = conv3x3_cout1_weight_grad(x, gy)                    # no atomics
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
     assert torch.equal(dx, conv3x3_cout1_input_grad(gy, w, shape))
+    if width == "v2":       # the 4-byte loads on the same values: the same bits
+        xv = torch.empty(x.numel() + 1, device="cuda")[1:].view(shape)
+        gv = torch.empty(gy.numel() + 1, device="cuda")[1:].view(gy.shape)
+        xv.copy_(x)
+        gv.copy_(gy)
+        dw1, db1 = _launched_once("conv3x3_cout1_dw", lambda: conv3x3_cout1_weight_grad(xv, gv),
+                                  "v1")
+        assert torch.equal(dw, dw1) and torch.equal(db, db1)
+    elif offset:            # and an aligned copy of a view takes the bits of the view
+        dwa, dba = conv3x3_cout1_weight_grad(x.clone(), gy.clone())
+        assert torch.equal(dw, dwa) and torch.equal(db, dba)
     # through autograd: the same kernels, each launched once
     xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
     before = dict(LAUNCHES)

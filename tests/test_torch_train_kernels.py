@@ -101,6 +101,115 @@ def test_head_conv_backward_plain_matches_jax_vjp(rng, shape):
     assert torch.equal(xt.grad, dx) and torch.equal(wr.grad, dw) and torch.equal(br.grad, db)
 
 
+def _lane_tree(v, lanes):
+    """Lane 0's sum after __shfl_down_sync steps lanes / 2 .. 1 over axis 1."""
+    off = lanes // 2
+    while off:
+        v = v[:, :off] + v[:, off:2 * off]
+        off //= 2
+    return v[:, 0]
+
+
+def dw_stream(x, dy, rows, lanes=32, warps=2, sum_threads=256):
+    """csrc/conv3x3_cout1_dw.cu's order in numpy float32 (each FMA as a
+    product and a sum): per image, stripe of `rows` x rows and segment of
+    `lanes * warps` column pairs, a thread walks its pair u0, u0 + 1 down
+    the stripe with a ring of three dy-row windows (columns u0 - 1 .. u0 +
+    2: its own pair, the neighbours from the adjacent lanes, lanes 0 and
+    lanes - 1 their own halo load) and sums taps and its dy; the segment
+    reduces once (a shuffle tree per warp, then the warps in turn) into
+    partials stored output by output; pass 2 sums each output's row (per
+    thread of `sum_threads` in order, a shuffle tree per warp, the warps in
+    turn). The kernel's channel groups and chunks split only which threads
+    hold a channel's sums, so the model keeps every channel in each thread."""
+    n, c, h, w = x.shape
+    pairs = lanes * warps
+    segs = -(-((w + 1) // 2) // pairs)
+    stripes = -(-h // rows)
+    cols = 2 * pairs * segs
+    xp = np.zeros((n, c, h, cols), np.float32)
+    xp[..., :w] = x
+    dp = np.zeros((n, h + 2, cols + 2), np.float32)    # dp[b, r + 1, u + 1] = dy[b, 0, r, u]
+    dp[:, 1:h + 1, 1:w + 1] = dy[:, 0]
+    lane = np.arange(pairs) % lanes
+    tiles = n * stripes * segs
+    partials = np.full((9 * c + 1, tiles), np.nan, np.float32)
+    for b in range(n):
+        for s in range(stripes):
+            y0, y1 = s * rows, min(s * rows + rows, h)
+            for seg in range(segs):
+                u0 = 2 * (seg * pairs + np.arange(pairs))
+
+                def window(r):
+                    row = dp[b, r + 1]
+                    d0, d1 = row[u0 + 1], row[u0 + 2]
+                    left = np.where(lane == 0, row[u0], np.roll(d1, 1))
+                    right = np.where(lane == lanes - 1, row[u0 + 3], np.roll(d0, -1))
+                    return np.stack([left, d0, d1, right], -1)
+
+                ring = {y0 - 1: window(y0 - 1), y0: window(y0)}
+                acc = np.zeros((pairs, c, 9), np.float32)
+                dsum = np.zeros(pairs, np.float32)
+                for y in range(y0, y1):
+                    ring[y + 1] = window(y + 1)
+                    xa, xb = xp[b, :, y][:, u0].T, xp[b, :, y][:, u0 + 1].T
+                    for i in range(3):
+                        d = ring[y - i + 1]
+                        for j in range(3):
+                            t = acc[:, :, 3 * i + j] + xa * d[:, None, 2 - j]
+                            acc[:, :, 3 * i + j] = t + xb * d[:, None, 3 - j]
+                    dsum = dsum + (ring[y][:, 1] + ring[y][:, 2])
+                sums = np.concatenate([acc.reshape(pairs, 9 * c), dsum[:, None]], 1)
+                per_warp = _lane_tree(sums.reshape(warps, lanes, -1), lanes)
+                tile = (b * stripes + s) * segs + seg
+                partials[:, tile] = per_warp[0]
+                for k in range(1, warps):
+                    partials[:, tile] = partials[:, tile] + per_warp[k]
+    assert not np.isnan(partials).any()
+    steps = -(-tiles // sum_threads)
+    padded = np.zeros((9 * c + 1, steps * sum_threads), np.float32)
+    padded[:, :tiles] = partials
+    padded = padded.reshape(9 * c + 1, steps, sum_threads)
+    per_thread = padded[:, 0]
+    for k in range(1, steps):
+        per_thread = per_thread + padded[:, k]
+    per_warp = _lane_tree(per_thread.reshape(-1, 32), 32).reshape(9 * c + 1, -1)
+    out = per_warp[:, 0]
+    for k in range(1, per_warp.shape[1]):
+        out = out + per_warp[:, k]
+    return out
+
+
+_DW_ROWS = 8      # the kernel's stripe where the grid fits one wave
+
+
+def _jax_head_conv_weight_vjp(x, w, b, gy):
+    _, vjp = jax.vjp(lambda w, b: jax_conv2d(x, w, b, tapsum=False), w, b)
+    return vjp(gy)
+
+
+# H around the stripe (1, 2, R - 1, R, R + 1, 2R + 1), W of 1 to 3 and 17
+# (two segments of the model's 4-lane warps, the second one pair wide, its
+# second column outside), C over a masked channel group (1, 3, 5) and a whole
+# chunk (16); two images, so tiles cross an image's edge
+@pytest.mark.parametrize("h", [1, 2, _DW_ROWS - 1, _DW_ROWS, _DW_ROWS + 1, 2 * _DW_ROWS + 1])
+@pytest.mark.parametrize("w", [1, 2, 3, 17])
+@pytest.mark.parametrize("c", [1, 3, 5, 16])
+def test_head_conv_weight_grad_kernel_order_matches_jax_vjp(rng, h, w, c):
+    """The weight-gradient kernel cannot run here; its walk can: a tap
+    turned the wrong way or a halo row or column lost shows here."""
+    x = rng.randn(2, h, w, c).astype(np.float32)
+    gy = rng.randn(2, h, w, 1).astype(np.float32)
+    wt = (rng.randn(3, 3, c, 1) * 0.3).astype(np.float32)
+    b = rng.randn(1).astype(np.float32)
+    jdw, jdb = _jax_head_conv_weight_vjp(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b),
+                                         jnp.asarray(gy))
+    got = dw_stream(nchw(x).numpy(), nchw(gy).numpy(), _DW_ROWS, lanes=4)
+    close_to_peak(np.transpose(got[:9 * c].reshape(1, c, 3, 3), (2, 3, 1, 0)),
+                  np.asarray(jdw), 1e-5)
+    close_to_peak(got[9 * c:], np.asarray(jdb), 1e-5)
+
+
 def test_inference_records_no_graph_and_cpu_backward_counts_no_launch():
     x = torch.randn(1, 2, 4, 5, requires_grad=True)
     w = torch.randn(1, 2, 3, 3, requires_grad=True)
