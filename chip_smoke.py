@@ -61,6 +61,12 @@ Phases, each printing one JSON line:
                 peak memory, and the device busy share of an unsynchronised
                 pass (device time of everything in a torch.profiler trace
                 over the wall);
+  6b. init_scaling — the fused tracker on 9-frame 480x854 sequences with 1, 2
+                and 4 objects: disc_init and scan seconds of a synchronised
+                pass, and the kernels each of the two phases ran (a
+                torch.profiler session per phase) with the peak memory inside
+                it. All objects' target models are solved together, so the
+                kernels at four objects may be at most 1.25x those at one;
   7. eval     — the evaluation entry point at full width, in bfloat16:
                 `frtm_tpu_torch.evaluate.main` with --dev cuda --dtype bfloat16
                 --engine fused on a fabricated reference-format .pth and a
@@ -900,7 +906,7 @@ def phase_main(tracker, seq):
           "host_cut_inpaint_s": host_inpaint_s,
           "launches": launches, "warp_variants": warp_variants,
           "launches_per_tracked_frame": {k: v / tracked for k, v in launches.items()},
-          "resolves": target.state.n_resolves,
+          "resolves": int(target.state.n_resolves),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "finite": finite, "shapes_ok": shapes_ok,
           "fg_pixels": fg, "gt_pixels": gt, "intersection": inter})
@@ -917,8 +923,8 @@ def phase_main(tracker, seq):
         fail(f"main: every warp must take the staged kernel, got {warp_variants}")
     if launches["pyrup"] != 2 * tracked or launches["conv3x3_cout1"] != tracked:
         fail(f"main: expected 2 pyrup and 1 head-conv launch per tracked frame, got {launches}")
-    if target.state.n_resolves != (len(seq) - 1) // cfg.disc.train_skipping:
-        fail(f"main: {target.state.n_resolves} filter re-solves, expected one every "
+    if int(target.state.n_resolves) != (len(seq) - 1) // cfg.disc.train_skipping:
+        fail(f"main: {int(target.state.n_resolves)} filter re-solves, expected one every "
              f"{cfg.disc.train_skipping} frames")
     return launches
 
@@ -970,8 +976,9 @@ def phase_fused(cfg, backbone, refiner):
     (out_fused, fps_fused), launches, variants = counted(lambda: fused.run_sequence(seq))
     peak = torch.cuda.max_memory_allocated()
     enqueue_seconds = {k: v["total_s"] for k, v in fused.last_phase_stats.items()}
-    resolves = [int(s.n_resolves) for _, s in fused.last_models]
-    finite = all(bool(torch.isfinite(p.filter).all()) for p, _ in fused.last_models)
+    params, state = fused.last_models              # one lane per object
+    resolves = state.n_resolves.tolist()
+    finite = bool(torch.isfinite(params.filter).all())
 
     # the same pass under the profiler: device time of all it ran over its wall
     (out_traced, fps_traced), device_s = trace_device_seconds(lambda: fused.run_sequence(seq))
@@ -1044,6 +1051,103 @@ def phase_fused(cfg, backbone, refiner):
     if resolves != [tracked // cfg.disc.train_skipping] * n_objects:
         fail(f"fused: filter re-solves {resolves}, expected one per window and object")
     return launches
+
+
+def is_kernel(ev):
+    """A kernel in a torch.profiler trace (not a copy or a memset)."""
+    return str(getattr(ev, "device_type", "")).endswith("CUDA") and \
+        not ev.name.startswith(("Memcpy", "Memset"))
+
+
+@contextlib.contextmanager
+def per_phase_readings(names):
+    """While the block runs, every PhaseTimer phase of the given names runs
+    in a torch.profiler session of its own, with the card synchronised at
+    both edges: yields {name: {"kernels": device kernels the phase ran,
+    "by_name": those kernels counted by name, "peak_bytes": the most memory
+    allocated inside it}}, summed (kernels) or maximised (peak) over the
+    phase's calls."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    from frtm_tpu_torch.utils.profiling import PhaseTimer
+    readings = {n: {"kernels": 0, "by_name": Counter(), "peak_bytes": 0} for n in names}
+    plain = PhaseTimer.phase
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        if name not in readings:
+            with plain(self, name):
+                yield
+            return
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with plain(self, name):
+                yield
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events() if is_kernel(ev)]
+        readings[name]["kernels"] += len(kernels)
+        readings[name]["by_name"].update(kernels)
+        readings[name]["peak_bytes"] = max(readings[name]["peak_bytes"],
+                                           torch.cuda.max_memory_allocated())
+
+    PhaseTimer.phase = phase
+    try:
+        yield readings
+    finally:
+        PhaseTimer.phase = plain
+
+
+def init_scaling_readings(cfg, backbone, refiner, counts=(1, 2, 4), n_frames=9):
+    """The fused tracker (float32, 480x854) on a sequence of n_frames with
+    each number of objects in `counts`, all from frame 0: after a warm-up
+    pass, the disc_init and scan seconds of a pass synchronised at every
+    phase edge (profile=True), then, in another such pass, the kernels each
+    of the two phases ran and the peak memory inside it. 9 frames are one
+    window of 8: one re-solve per object. Returns {n: readings}."""
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    out = {}
+    for n in counts:
+        seq = make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
+                                          n_objects=n, seed=0)
+        fused = BatchedSequenceTracker(cfg, backbone, refiner, device="cuda", profile=True)
+        fused.run_sequence(seq)                        # warm-up
+        _, fps = fused.run_sequence(seq)
+        stats = fused.last_phase_stats
+        with per_phase_readings(("disc_init", "scan")) as readings:
+            fused.run_sequence(seq)
+        out[n] = {"disc_init_s": stats["disc_init"]["total_s"], "scan_s": stats["scan"]["total_s"],
+                  "fps_profiled": fps,
+                  "kernels": {k: v["kernels"] for k, v in readings.items()},
+                  "kernels_by_name": {k: dict(v["by_name"]) for k, v in readings.items()},
+                  "peak_bytes": {k: v["peak_bytes"] for k, v in readings.items()}}
+        del fused
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_init_scaling(cfg, backbone, refiner, card):
+    """The target models of 1, 2 and 4 objects solved together: the kernels
+    that disc_init and the scan run must not grow with the number of
+    objects (at most 1.25x those at one object; a loop over objects gives
+    about 4x at four)."""
+    readings = init_scaling_readings(cfg, backbone, refiner)
+    ratios = {k: readings[4]["kernels"][k] / readings[1]["kernels"][k]
+              for k in ("disc_init", "scan")}
+    # the kernels whose count differs between one and four objects, by name
+    grew = {k: {name: [readings[1]["kernels_by_name"][k].get(name, 0), n4]
+                for name, n4 in readings[4]["kernels_by_name"][k].items()
+                if n4 != readings[1]["kernels_by_name"][k].get(name, 0)}
+            for k in ("disc_init", "scan")}
+    for r in readings.values():
+        del r["kernels_by_name"]
+    emit({"phase": "init_scaling", "arch": cfg.feature_extractor, "size": [480, 854],
+          "frames": 9, "card": card, "objects": readings,
+          "kernels_4_over_1": ratios, "limit": 1.25, "kernels_1_and_4_where_they_differ": grew})
+    grown = {k: v for k, v in ratios.items() if v > 1.25}
+    if grown:
+        fail(f"init_scaling: kernels at four objects over one grew by {grown}")
 
 
 class SyntheticDataset:
@@ -1503,7 +1607,7 @@ def phase_small(arch="resnet18"):
         scale_head(tr.refiner, median, std)
         outs, _ = tr.run_sequence(seq)
         masks[dev] = (tr.current_masks.cpu(), outs)
-        resolves[dev] = tr.targets[1].state.n_resolves
+        resolves[dev] = int(tr.targets[1].state.n_resolves)
     mask_err = float((masks["cpu"][0] - masks["cuda"][0]).abs().max())
     label_diff = max(float(np.mean(a != b)) for a, b in zip(masks["cpu"][1], masks["cuda"][1]))
     expected = (len(seq) - 1) // cfg.disc.train_skipping
@@ -1814,6 +1918,7 @@ def main():
     phase_decode(tracker, seq)
     launches = phase_main(tracker, seq)
     launches_fused = phase_fused(cfg, tracker.backbone, tracker.refiner)
+    phase_init_scaling(cfg, tracker.backbone, tracker.refiner, card)
     launches_eval, instances_eval = phase_eval(cfg, tracker.backbone, tracker.refiner)
     launches_ytvos, instances_ytvos = phase_ytvos(tracker.backbone, tracker.refiner)
     backbone = tracker.backbone

@@ -57,11 +57,12 @@ def project_targets(w2, y, score_hw):
 
 def apply_stencil(M9, s):
     """M(s) = sum over the 3x3 neighbourhood of M9 * shifted(s).
-    M9: (S, 3, 3, h, w), s: (S, h, w) -> (S, h, w)."""
-    h, w = s.shape[1], s.shape[2]
+    M9: (..., 3, 3, h, w), s: (..., h, w) -> (..., h, w); the leading axes
+    (samples, or objects and samples) are independent."""
+    h, w = s.shape[-2], s.shape[-1]
     sp = F.pad(s, (1, 1, 1, 1))
     out = torch.zeros_like(s)
     for di in range(3):
         for dj in range(3):
-            out = out + M9[:, di, dj] * sp[:, di:di + h, dj:dj + w]
+            out = out + M9[..., di, dj, :, :] * sp[..., di:di + h, dj:dj + w]
     return out

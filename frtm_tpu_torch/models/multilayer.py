@@ -21,11 +21,13 @@ def ml_init_params(cfgs: Dict[str, DiscConfig], generator: torch.Generator, devi
 
 
 def ml_disc_init(params0: Dict[str, DiscParams], features, labels, cfgs: Dict[str, DiscConfig]):
-    """One target model per layer on its own feature map.
+    """One target model per layer and object on the layer's feature map:
+    per layer one disc_init of all N objects.
 
-    :param features: {layer: (K, C_L, h_L, w_L)} augmented first-frame features
-    :param labels:   (K, 1, H, W) augmented masks, shared
-    :return: ({layer: DiscParams}, {layer: DiscState})
+    :param params0: {layer: DiscParams with the object axis}
+    :param features: {layer: (N, K, C_L, h_L, w_L)} augmented first-frame features
+    :param labels:   (N, K, 1, H, W) augmented masks, shared by the layers
+    :return: ({layer: DiscParams}, {layer: DiscState}), each with the object axis
     """
     params, states = {}, {}
     for L in sorted(cfgs):
@@ -44,8 +46,8 @@ def ml_disc_apply(params: Dict[str, DiscParams], features, cfgs: Dict[str, DiscC
 
 
 def ml_disc_update(params, states, cfts, train_y, cfgs: Dict[str, DiscConfig]):
-    """The per-frame online update of every layer's model with the shared
-    merged mask train_y (1, H, W)."""
+    """The host loop's per-frame online update of every layer's model of
+    one object with the shared merged mask train_y (1, 1, H, W)."""
     new_p, new_s = {}, {}
     for L in sorted(params):
         new_p[L], new_s[L] = disc_update(params[L], states[L], cfts[L], train_y, cfgs[L])

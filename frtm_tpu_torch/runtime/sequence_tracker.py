@@ -6,9 +6,13 @@ extracted in batches before tracking starts, and each object's projection
 filter re-solves the target models are constant, so classify -> decode ->
 merge for a whole `train_skipping` window runs as one batch of
 window x objects; only the memory inserts inside a window are sequential.
-Objects are lanes with start-frame masks: all are initialised up front, a
-lane is silent before its start frame, contributes its ground truth at it,
-and is tracked after it.
+Objects are lanes with start-frame masks: all are initialised up front, in
+one backbone pass over every object's augmented frames and one solve of
+all target models (models/discriminator.py takes the object axis, as the
+JAX package's `jax.vmap` does); a lane is silent before its start frame,
+contributes its ground truth at it, and is tracked after it. In the loop,
+each tracked frame makes one memory insert of all lanes and each window at
+most one re-solve of all lanes, whose result a lane takes where it is due.
 
 Two merge modes:
   * 'online'  — per-frame soft aggregation with entering objects' ground
@@ -63,7 +67,7 @@ from ..models.aug_compose import compose_aug_batch, pack_bits, pack_compact_batc
 from ..models.augmenter import ImageAugmenter
 from ..models.discriminator import (DiscParams, DiscState, classify_objects, disc_init,
                                     init_disc_params, insert_sample, project_all,
-                                    resolve_due)
+                                    repeat_params, resolve_due)
 from ..models.multilayer import layer_configs, ml_disc_init, starting_params
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, seg_network_apply, seg_network_reduce
@@ -125,9 +129,13 @@ def merge_rows_and_label(rows: torch.Tensor, obj_ids_lut: torch.Tensor):
     return merged, label.to(torch.uint8)
 
 
-# one object's target model: (DiscParams, DiscState), or with multilayer
-# models ({layer: DiscParams}, {layer: DiscState})
-Model = Tuple[DiscParams, DiscState]
+# the target models of all objects, with the object axis: (DiscParams,
+# DiscState), or with multilayer models ({layer: DiscParams}, {layer: DiscState})
+Models = Tuple[DiscParams, DiscState]
+
+# frames per backbone pass of the init's extract over all objects' augmented
+# frames (four objects of the eval config's 6 frames go in one pass)
+INIT_EXTRACT_CHUNK = 32
 
 
 class BatchedSequenceTracker:
@@ -180,7 +188,7 @@ class BatchedSequenceTracker:
                                         reverse=True))
         self.last_phase_report = ""
         self.last_phase_stats = {}
-        self.last_models: List[Model] = []
+        self.last_models: Optional[Models] = None
         self.last_feats_dtype = None    # the type the last run kept its pyramid in
 
     # -- frames and features --------------------------------------------------
@@ -271,46 +279,45 @@ class BatchedSequenceTracker:
                 batches.append(self._pack_aug_batch(im_aug, lb_aug))
         return batches
 
-    def _init_objects_dense(self, images, labels) -> List[Model]:
-        """One target model per object: per object one backbone pass over its
-        augmented frames and the two-phase GN-CG init.
+    def _init_objects_dense(self, images, labels) -> Models:
+        """The target models of all objects: one backbone pass over every
+        object's augmented frames (in chunks of INIT_EXTRACT_CHUNK frames)
+        and one two-phase GN-CG init of all of them.
 
-        :param images: N tensors (K, 3, H, W) uint8
-        :param labels: N tensors (K, 1, H, W)
+        :param images: (N, K, 3, H, W) uint8
+        :param labels: (N, K, 1, H, W)
         """
-        layer = self.disc_cfg.layer
-        models = []
-        for im, lb in zip(images, labels):
-            # emits float32
-            ft = self.backbone_c.extract_features(im, output_layers=list(self.disc_cfgs))
-            if self.multilayer:
-                params, state = ml_disc_init(self.disc_params0, ft, lb, self.disc_cfgs)
-                states = list(state.values())
-            else:
-                params, state = disc_init(self.disc_params0, ft[layer], lb, self.disc_cfg)
-                states = [state]
-            for st in states:
-                st.n_resolves = torch.zeros((), dtype=torch.int64, device=self.device)
-            models.append((params, state))
-        return models
+        N, K = images.shape[:2]
+        flat = images.flatten(0, 1)
+        outs = [self.backbone_c.extract_features(flat[i:i + INIT_EXTRACT_CHUNK],
+                                                 output_layers=list(self.disc_cfgs))
+                for i in range(0, N * K, INIT_EXTRACT_CHUNK)]
+        # emits float32
+        ft = {L: (outs[0][L] if len(outs) == 1 else torch.cat([o[L] for o in outs]))
+              .unflatten(0, (N, K)) for L in self.disc_cfgs}
+        if self.multilayer:
+            return ml_disc_init({L: repeat_params(p, N) for L, p in self.disc_params0.items()},
+                                ft, labels, self.disc_cfgs)
+        return disc_init(repeat_params(self.disc_params0, N), ft[self.disc_cfg.layer], labels,
+                         self.disc_cfg)
 
     def _init_objects(self, f0, ims_rest, lbs_packed):
         """Init from the packed dense batches: reattach slot 0, unpack the
         masks. Returns (models, (N, H, W) float32 slot-0 masks, the scan's
         start masks)."""
         W = f0[0].shape[1]
-        images = [torch.cat([f.permute(2, 0, 1)[None], rest]) for f, rest in zip(f0, ims_rest)]
-        labels = [unpack_bits(p, W)[:, None] for p in lbs_packed]
-        return (self._init_objects_dense(images, labels),
-                torch.stack([lb[0, 0] for lb in labels]).float())
+        images = torch.cat([torch.stack(f0).permute(0, 3, 1, 2)[:, None],
+                            torch.stack(ims_rest)], dim=1)
+        labels = unpack_bits(torch.stack(lbs_packed), W)[:, :, None]
+        return self._init_objects_dense(images, labels), labels[:, 0, 0].float()
 
     def _init_objects_compact(self, f0, packs):
         """Init from compact encodings: each object's batch is composed on
         the device from its packed pieces. Returns as _init_objects."""
         pairs = [compose_aug_batch(f.permute(2, 0, 1), pk) for f, pk in zip(f0, packs)]
-        labels = [lb for _, lb in pairs]
-        return (self._init_objects_dense([im for im, _ in pairs], labels),
-                torch.stack([lb[0, 0] for lb in labels]).float())
+        images = torch.stack([im for im, _ in pairs])
+        labels = torch.stack([lb for _, lb in pairs])
+        return self._init_objects_dense(images, labels), labels[:, 0, 0].float()
 
     # -- the frame loop ---------------------------------------------------------
 
@@ -335,39 +342,46 @@ class BatchedSequenceTracker:
                                        reduced=reduced)
         return torch.sigmoid(logits[:, 0].float())
 
-    def _track(self, feats_all, models: List[Model], start_frames, start_masks,
+    def _track(self, feats_all, models: Models, start_frames, start_masks,
                obj_ids_lut, im_size, window: int):
         """Track frames 1..T' in windows of `window` frames: one batched
-        classify + decode of window x objects lanes, a merge per frame, the
-        window's memory inserts in frame order, then the filter re-solve of
-        every object whose own counter is due.
+        classify + decode of window x objects lanes, a merge per frame, per
+        tracked frame one memory insert of all lanes, then, when the host's
+        facts (which lanes are tracked, their frame counters) say that some
+        lane is due, one filter re-solve of all lanes, whose result each
+        lane takes where it is due on the device: tracked, on its own
+        cadence and with >= 10 foreground pixels, as the JAX `due`.
 
         :param feats_all:    {layer: (T', c, h, w)} frames 1..T'
-        :param models:       per object (DiscParams, DiscState); the states
-                             are updated in place, the filters in the list
+        :param models:       the target models of all objects (Models); the
+                             states are updated in place
         :param start_frames: per object, its start frame index (host ints)
         :param start_masks:  (N, H, W) float32 ground-truth start masks
         :param obj_ids_lut:  (N + 1,) int labels, background first
-        :return: (T', H, W) uint8 labels (online) or (T', N, H, W) float32
-                 suppressed soft rows (deferred)
+        :return: ((T', H, W) uint8 labels (online) or (T', N, H, W) float32
+                 suppressed soft rows (deferred), the updated models)
         """
         cfg = self.disc_cfg
         cfgs = self.disc_cfgs
         online = self.merge_mode == "online"
-        N = len(models)
+        N = len(start_frames)
         W = window
         dev = self.device
         layers = self.cfg.refnet_layers
-        # per object {layer: [params, state]}; the filters are replaced here
-        by_layer = [{L: [m[0][L], m[1][L]] for L in cfgs} if self.multilayer
-                    else {cfg.layer: list(m)} for m in models]
+        params, states = models if self.multilayer else ({cfg.layer: models[0]},
+                                                         {cfg.layer: models[1]})
+        # every layer follows the first layer's counter, as in the JAX scan
+        counter = states[next(iter(cfgs))]
         n_track = feats_all[next(iter(cfgs))].shape[0]
-        compressed_all = {L: project_all(feats_all[L].float(), [o[L][0].project for o in by_layer])
-                          for L in cfgs}
+        compressed_all = {L: project_all(feats_all[L].float(), params[L].project) for L in cfgs}
         t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
         starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
         active_all = t_all > starts          # (T', N) tracked this frame
         fresh_all = t_all == starts          # entering this frame
+        # a lane's frame counter after frame t is t - (start - counter at init)
+        base = torch.stack([torch.full((), s - f, device=dev)
+                            for s, f in zip(start_frames, counter.frame_num)])
+        cadence_all = active_all & ((t_all - base) % cfg.train_skipping == 0)
         outs = []
         for i0 in range(0, n_track, W):
             i1 = min(i0 + W, n_track)
@@ -381,8 +395,7 @@ class BatchedSequenceTracker:
             cft = {L: c[i0:i1] for L, c in compressed_all.items()}     # (w, N, c, h, w)
             scores = []
             for L, c in cft.items():
-                s = classify_objects(c, [o[L][0].filter for o in by_layer],
-                                     clamp_output=cfgs[L].clamp_output)
+                s = classify_objects(c, params[L].filter, clamp_output=cfgs[L].clamp_output)
                 scores.append(s.reshape(w * N, 1, *s.shape[-2:]).to(self.dtype))
             # the object-independent TSE reductions run once per frame and
             # are repeated, at 32 channels, across the object lanes
@@ -404,27 +417,23 @@ class BatchedSequenceTracker:
             outs.append(labels if online else rows)
 
             if not cfg.update_filters:
-                for k, o in enumerate(by_layer):
-                    for _, state in o.values():
-                        state.frame_num += sum(a[k] for a in active_h)
+                for state in states.values():
+                    state.frame_num = [f + sum(a[k] for a in active_h)
+                                       for k, f in enumerate(state.frame_num)]
                 continue
             enough = ((merged > 0.5).sum(dim=(-2, -1)) >= 10) & active      # (w, N)
             for f in range(w):
-                for k, o in enumerate(by_layer):
-                    if active_h[f][k]:
-                        for L, (_, state) in o.items():
-                            insert_sample(state, cft[L][f, k], merged[f, k][None], enough[f, k],
-                                          cfgs[L])
-            for k, o in enumerate(by_layer):
-                # every layer follows the first layer's counter, as in the JAX scan
-                first_state = next(iter(o.values()))[1]
-                if active_h[-1][k] and first_state.frame_num % cfg.train_skipping == 0:
-                    for L, pair in o.items():
-                        pair[0] = resolve_due(pair[0], pair[1], enough[-1, k], cfgs[L])
-        for k, o in enumerate(by_layer):
-            models[k] = (({L: p for L, (p, _) in o.items()}, models[k][1]) if self.multilayer
-                         else tuple(o[cfg.layer]))
-        return torch.cat(outs)
+                if any(active_h[f]):
+                    for L, state in states.items():
+                        insert_sample(state, cft[L][f], merged[f][:, None], enough[f],
+                                      active_h[f], cfgs[L])
+            if any(a and n % cfg.train_skipping == 0
+                   for a, n in zip(active_h[-1], counter.frame_num)):
+                due = cadence_all[i1 - 1] & enough[-1]
+                for L, state in states.items():
+                    params[L] = resolve_due(params[L], state, due, cfgs[L])
+        models = (params, states) if self.multilayer else (params[cfg.layer], states[cfg.layer])
+        return torch.cat(outs), models
 
     def _window_track(self, *args):
         """The windowed loop, a window of train_skipping frames: with every
@@ -649,7 +658,6 @@ class BatchedSequenceTracker:
             else:
                 models, start_masks = self._init_objects(
                     f0, [a for a, _ in aug_batches], [b for _, b in aug_batches])
-        self.last_models = models
 
         # the windowed loop when re-solves provably fall on window ends
         # (every start frame = 0 mod train_skipping, or no online updates)
@@ -658,7 +666,8 @@ class BatchedSequenceTracker:
         track = self._window_track if aligned else self._scan_track
         with timer.phase("scan"):
             with count_host_syncs(self.device if self.profile else "cpu") as syncs:
-                outs = track(feats_all, models, start_frames, start_masks, lut, im_size)
+                outs, self.last_models = track(feats_all, models, start_frames, start_masks,
+                                               lut, im_size)
         self._scan_host_syncs = syncs
         if self.merge_mode == "online":
             return (frame0_label, outs)

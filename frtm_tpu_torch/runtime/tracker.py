@@ -30,7 +30,7 @@ from ..data.image import imwrite_indexed
 from ..device import resolve_device
 from ..models.augmenter import ImageAugmenter
 from ..models.discriminator import (DiscParams, DiscState, disc_apply, disc_init,
-                                    disc_update, init_disc_params)
+                                    disc_update, init_disc_params, repeat_params)
 from ..models.multilayer import (layer_configs, ml_disc_apply, ml_disc_init, ml_disc_update,
                                  starting_params)
 from ..models.resnet import ResNet
@@ -46,8 +46,8 @@ class TargetObject:
     index: int              # row in the mask stack (background = 0)
     start_frame: int
     start_mask: torch.Tensor  # (H, W) float 0/1
-    params: DiscParams      # {layer: DiscParams} with multilayer models
-    state: DiscState        # {layer: DiscState} with multilayer models
+    params: DiscParams      # one lane; {layer: DiscParams} with multilayer models
+    state: DiscState        # one lane; {layer: DiscState} with multilayer models
     current_sample: Optional[torch.Tensor] = None
 
 
@@ -123,10 +123,14 @@ class Tracker:
                 im_aug, lb_aug = self.augmenter.augment_first_frame(image, mask[..., None], rng)
             with self._phase("init_solve"):
                 ft = self.backbone_c.extract_features(im_aug, output_layers=list(self.disc_cfgs))
+                # one object: the batched init with N = 1
                 if self.multilayer:
-                    params, state = ml_disc_init(self.disc_params0, ft, lb_aug, self.disc_cfgs)
+                    params, state = ml_disc_init(
+                        {L: repeat_params(p, 1) for L, p in self.disc_params0.items()},
+                        {L: f[None] for L, f in ft.items()}, lb_aug[None], self.disc_cfgs)
                 else:
-                    params, state = disc_init(self.disc_params0, ft[self.disc_cfg.layer], lb_aug,
+                    params, state = disc_init(repeat_params(self.disc_params0, 1),
+                                              ft[self.disc_cfg.layer][None], lb_aug[None],
                                               self.disc_cfg)
             start_mask = torch.from_numpy(mask).to(self.device)
             t = TargetObject(object_id=obj_id, index=len(self.targets) + 1,
@@ -171,7 +175,7 @@ class Tracker:
             cfg = self.disc_cfgs if self.multilayer else self.disc_cfg
             for t in tracked:
                 t.params, t.state = update(t.params, t.state, t.current_sample,
-                                           self.current_masks[t.index][None], cfg)
+                                           self.current_masks[t.index][None, None], cfg)
         return self.current_masks
 
     def run_sequence(self, sequence, speedrun: bool = False):

@@ -18,8 +18,9 @@ autodiff of its XLA decoder). Everything before the decoder runs under
 What the JAX trainer has and this one does not: the data-parallel mesh and
 multi-process training (ROADMAP.md queue item 7; `Trainer(mesh=...)`
 raises), and the power-of-two bucket of cache misses, which only bounds the
-number of XLA programs: the misses are solved one by one here, each with the
-same `disc_init` the tracker runs.
+number of XLA programs. A batch's misses are solved together here, as the
+JAX trainer's vmapped program solves them: one `disc_init` (the one the
+tracker runs) with a lane per miss.
 """
 import json
 import time
@@ -34,7 +35,7 @@ from ..config import TrackerConfig
 from ..data.training_datasets import SampleSpec
 from ..device import resolve_device
 from ..models.augmenter import ImageAugmenter
-from ..models.discriminator import DiscParams, disc_init, init_disc_params
+from ..models.discriminator import DiscParams, disc_init, init_disc_params, repeat_params
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, apply_bn_updates, seg_network_apply
 from ..utils.convert import disc_params_from_jax, disc_params_to_jax
@@ -185,8 +186,9 @@ class TrainerModel:
         """Per sample: a cache hit, or a miss that is augmented (each with
         np.random.RandomState(0)), extracted and solved, then saved. All the
         misses' augmented frames go through the backbone together, in chunks
-        of 32; each unique miss is solved once, and a duplicate in the batch
-        counts as a hit. Returns (DiscParams stacked over the batch, hits)."""
+        of 32, and all unique misses are solved together, one lane each, in
+        one disc_init; a duplicate in the batch counts as a hit. Returns
+        (DiscParams stacked over the batch, hits)."""
         L = self.disc_cfg.layer
         params = [None] * len(specs)
         hits = 0
@@ -217,8 +219,10 @@ class TrainerModel:
                 ft = self._extract_flat(torch.cat(ims))
                 ft = ft.reshape((len(keys), K) + tuple(ft.shape[1:]))
             with self.timer.phase("disc_init"):
+                solved, _ = disc_init(repeat_params(self.disc_params0, len(keys)), ft,
+                                      torch.stack(lbs), self.disc_cfg)
                 for k, key in enumerate(keys):
-                    p, _ = disc_init(self.disc_params0, ft[k], lbs[k], self.disc_cfg)
+                    p = DiscParams(solved.project[k], solved.filter[k])
                     self.cache.save(specs[unique_misses[key][0]], L, p)
                     for i in unique_misses[key]:
                         params[i] = p

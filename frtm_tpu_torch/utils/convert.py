@@ -9,9 +9,9 @@
 * `disc_params_to_jax` is the way back, for the target-model cache that
   both packages read (runtime/trainer.py::TModelCache).
 * `disc_objects_from_jax` takes the fused tracker's target models (params
-  and states with a leading object axis) and returns the port's per-object
-  list, so that a test can compare both sides after the init or hand one
-  side's state to the other.
+  and states with a leading object axis) and returns the port's, which
+  keeps that axis, so that a test can compare both sides after the init or
+  hand one side's state to the other.
 * The port's own seeded init from a torch.Generator: `init_resnet`
   (He-normal fan-out convs; see its note on residual gains) and
   `init_seg_network` (torch Conv2d's default uniform bounds).
@@ -106,15 +106,9 @@ def disc_params_to_jax(params: DiscParams):
                  for t in params)
 
 
-def _nchw(a) -> torch.Tensor:
-    # always a copy: the memory's stores are written in place
-    return torch.from_numpy(np.array(np.transpose(np.asarray(a, np.float32), (0, 3, 1, 2)),
-                                     order="C"))
-
-
 def disc_objects_from_jax(params, states, device=None):
-    """The JAX fused tracker's target models -> the port's list of
-    (DiscParams, DiscState), one per object.
+    """The JAX fused tracker's target models -> the port's (DiscParams,
+    DiscState) of N objects, built straight from the JAX leading axis.
 
     :param params: DiscParams leaves with a leading object axis, as numpy:
         (project (N, 1, 1, Cin, c), filter (N, 3, 3, c, out))
@@ -129,22 +123,29 @@ def disc_objects_from_jax(params, states, device=None):
     memory, cg, frame_num = states
     samples, labels, pixel_weights, weights, current_size, prev_ind = memory
     cg_p, cg_r_prev, rho, have_p, step_alpha = cg
-    models = []
-    for k in range(np.asarray(project).shape[0]):
-        mem = MemoryState(
-            samples=_nchw(samples[k]).to(dev), labels=_nchw(labels[k]).to(dev),
-            pixel_weights=_nchw(pixel_weights[k]).to(dev), weights=_t(weights[k]).to(dev),
-            current_size=torch.tensor(int(current_size[k]), dtype=torch.int64, device=dev),
-            prev_ind=torch.tensor(int(prev_ind[k]), dtype=torch.int64, device=dev))
-        cg_k = CGState(p=tuple(_oihw(a[k]).to(dev) for a in cg_p),
-                       r_prev=tuple(_oihw(a[k]).to(dev) for a in cg_r_prev),
-                       rho=_t(rho[k]).to(dev),
-                       have_p=torch.tensor(bool(have_p[k]), device=dev),
-                       step_alpha=_t(step_alpha[k]).to(dev))
-        state = DiscState(memory=mem, cg=cg_k, frame_num=int(frame_num[k]),
-                          n_resolves=torch.zeros((), dtype=torch.int64, device=dev))
-        models.append((DiscParams(_oihw(project[k]).to(dev), _oihw(filt[k]).to(dev)), state))
-    return models
+
+    def nchw(a):            # (N, cap, h, w, c) -> (N, cap, c, h, w); always a copy:
+        # the memory's stores are written in place
+        return torch.from_numpy(np.array(np.moveaxis(np.asarray(a, np.float32), -1, 2),
+                                         order="C")).to(dev)
+
+    def oihw(a):            # (N, kh, kw, i, o) -> (N, o, i, kh, kw)
+        return torch.from_numpy(np.ascontiguousarray(
+            np.transpose(np.asarray(a, np.float32), (0, 4, 3, 1, 2)))).to(dev)
+
+    def vec(a, dtype=torch.float32):
+        return torch.from_numpy(np.array(a)).to(dtype).to(dev)
+
+    mem = MemoryState(samples=nchw(samples), labels=nchw(labels),
+                      pixel_weights=nchw(pixel_weights), weights=vec(weights),
+                      current_size=vec(current_size, torch.int64),
+                      prev_ind=vec(prev_ind, torch.int64))
+    n = mem.weights.shape[0]
+    cg_state = CGState(p=tuple(oihw(a) for a in cg_p), r_prev=tuple(oihw(a) for a in cg_r_prev),
+                       rho=vec(rho), have_p=vec(have_p, torch.bool), step_alpha=vec(step_alpha))
+    state = DiscState(memory=mem, cg=cg_state, frame_num=[int(f) for f in frame_num],
+                      n_resolves=torch.zeros(n, dtype=torch.int64, device=dev))
+    return DiscParams(oihw(project), oihw(filt)), state
 
 
 @torch.no_grad()

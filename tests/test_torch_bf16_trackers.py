@@ -73,9 +73,9 @@ def test_fused_tracker_in_bfloat16_matches_jax(world, n_objects):
     _assert_within(got, want16, want32, 2.0, n_objects, seq)
     # the pyramid stayed in bfloat16; target model and memory are float32
     assert port.last_feats_dtype == torch.bfloat16
-    params, state = port.last_models[0]
+    params, state = port.last_models
     assert params.filter.dtype == params.project.dtype == torch.float32
-    assert [int(s.n_resolves) for _, s in port.last_models] == [2] * n_objects
+    assert state.n_resolves.tolist() == [2] * n_objects
     # and bfloat16 did change the port's own labels
     got32, _ = world.port("online").run_sequence(seq)
     assert _gaps(got, got32).max() > 0
@@ -113,4 +113,4 @@ def test_host_loop_tracker_in_bfloat16_matches_jax(world, n_objects):
     assert port.backbone.conv1.weight.dtype == torch.float32       # the module handed in is kept
     assert next(port.refiner.parameters()).dtype == torch.float32  # the decoder stays float32
     _assert_within(got, outs["bfloat16"], outs["float32"], 1.5, n_objects, seq)
-    assert all(t.state.n_resolves == 2 for t in port.targets.values())
+    assert all(t.state.n_resolves.tolist() == [2] for t in port.targets.values())

@@ -1,5 +1,7 @@
 """The port's target model — memory, stencil, GN-CG init and the online
-update — against frtm_tpu's on the same inputs and starting weights."""
+update — against frtm_tpu's on the same inputs and starting weights. The
+port's functions take an object axis; these tests give them one object
+(N = 1), as the host loop does, and read its lane."""
 import numpy as np
 import pytest
 import torch
@@ -43,21 +45,20 @@ def test_memory_insert_and_replace_match_jax(rng):
     labels = (rng.rand(3, 8, 10, 1) > 0.5).astype(np.float32)
     pw = rng.rand(3, 8, 10, 1).astype(np.float32)
     js = jm.memory_init(5, jnp.asarray(feats), jnp.asarray(labels), jnp.asarray(pw))
-    ts = tm.memory_init(5, t(feats), t(labels), t(pw))
+    ts = tm.memory_init(5, t(feats)[None], t(labels)[None], t(pw)[None])
     for step, enabled in enumerate([True, True, False, True, True, True]):
         f = rng.randn(4, 5, 6).astype(np.float32)
         y = rng.rand(8, 10, 1).astype(np.float32)
         p = rng.rand(8, 10, 1).astype(np.float32)
         js = jm.memory_update(js, jnp.asarray(f), jnp.asarray(y), jnp.asarray(p), 0.1,
                               enabled=jnp.asarray(enabled))
-        ts = tm.memory_update(ts, t(f[None])[0], t(y[None])[0], t(p[None])[0], 0.1,
-                              enabled=enabled)
-        np.testing.assert_allclose(ts.weights.numpy(), np.asarray(js.weights), rtol=1e-6)
-        assert ts.current_size == int(js.current_size)
-        assert int(ts.prev_ind) == int(js.prev_ind)
-        np.testing.assert_array_equal(n(ts.samples), np.asarray(js.samples))
-        np.testing.assert_array_equal(n(ts.labels), np.asarray(js.labels))
-        np.testing.assert_array_equal(n(ts.pixel_weights), np.asarray(js.pixel_weights))
+        ts = tm.memory_update(ts, t(f[None]), t(y[None]), t(p[None]), 0.1, enabled=enabled)
+        np.testing.assert_allclose(ts.weights[0].numpy(), np.asarray(js.weights), rtol=1e-6)
+        assert ts.current_size.tolist() == [int(js.current_size)]
+        assert ts.prev_ind.tolist() == [int(js.prev_ind)]
+        np.testing.assert_array_equal(n(ts.samples[0]), np.asarray(js.samples))
+        np.testing.assert_array_equal(n(ts.labels[0]), np.asarray(js.labels))
+        np.testing.assert_array_equal(n(ts.pixel_weights[0]), np.asarray(js.pixel_weights))
 
 
 def test_stencil_matches_jax(rng):
@@ -83,13 +84,14 @@ def _init_both(rng):
     p0 = jd.init_disc_params(jax.random.PRNGKey(0), jcfg)
     feats, labels = _problem(rng)
     jp, js = jd.disc_init(p0, jnp.asarray(feats), jnp.asarray(labels), jcfg)
-    tp, ts = td.disc_init(disc_params_from_jax(np.asarray(p0.project), np.asarray(p0.filter)),
-                          t(feats), t(labels), tcfg)
+    tp, ts = td.disc_init(td.repeat_params(disc_params_from_jax(np.asarray(p0.project),
+                                                                np.asarray(p0.filter)), 1),
+                          t(feats)[None], t(labels)[None], tcfg)
     return (jcfg, jp, js), (tcfg, tp, ts)
 
 
 def _filters_close(tp, jp, rtol=1e-3):
-    for a, b in ((tp.project, jp.project), (tp.filter, jp.filter)):
+    for a, b in ((tp.project[0], jp.project), (tp.filter[0], jp.filter)):
         b = np.transpose(np.asarray(b), (3, 2, 0, 1))
         np.testing.assert_allclose(a.numpy(), b, rtol=rtol, atol=rtol * np.abs(b).max())
 
@@ -99,9 +101,9 @@ def test_disc_init_both_phases_match_jax(rng):
     # phase 1 sets `project`, phase 2 re-solves `filter` from the big memory;
     # measured max relative-to-peak diff 2e-5
     _filters_close(tp, jp)
-    np.testing.assert_allclose(ts.memory.weights.numpy(), np.asarray(js.memory.weights),
+    np.testing.assert_allclose(ts.memory.weights[0].numpy(), np.asarray(js.memory.weights),
                                rtol=1e-6)
-    np.testing.assert_allclose(float(ts.cg.rho), float(js.cg.rho), rtol=1e-3)
+    np.testing.assert_allclose(float(ts.cg.rho[0]), float(js.cg.rho), rtol=1e-3)
 
 
 def test_disc_update_across_a_resolve_matches_jax(rng):
@@ -115,10 +117,10 @@ def test_disc_update_across_a_resolve_matches_jax(rng):
         np.testing.assert_allclose(n(tscores), np.asarray(jscores), rtol=1e-3,
                                    atol=1e-3 * float(np.abs(np.asarray(jscores)).max()))
         jp, js = jd.disc_update(jp, js, jcft[0], jnp.asarray(y), jcfg)
-        tp, ts = td.disc_update(tp, ts, tcft[0], t(y[None])[0], tcfg)
-        assert ts.frame_num == int(js.frame_num)
+        tp, ts = td.disc_update(tp, ts, tcft[0], t(y[None]), tcfg)
+        assert ts.frame_num == [int(js.frame_num)]
         _filters_close(tp, jp)
-    assert ts.n_resolves == 2
+    assert ts.n_resolves.tolist() == [2]
 
 
 @pytest.mark.parametrize("area", [0, 5, 200])

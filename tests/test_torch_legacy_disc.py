@@ -10,7 +10,10 @@ their filters, because the phase-1 problem is ill-conditioned at these
 sizes (ROADMAP.md section 4, F5): scores within 1e-3 of their peak, loss
 trajectories within rtol 1e-3. The direct solver calls solve a problem
 linear in its parameters: parameters within 1e-4 of their peak, losses
-within rtol 1e-4."""
+within rtol 1e-4.
+
+The port's functions take an object axis; these tests give them one
+object (N = 1), as the host loop does, and read its lane."""
 from dataclasses import replace
 
 import numpy as np
@@ -110,8 +113,9 @@ def _init_both(rng, collect_losses=False, **kw):
     feats, labels = _problem(rng)
     jout = jd.disc_init(p0, jnp.asarray(feats), jnp.asarray(labels), jcfg,
                         collect_losses=collect_losses)
-    tout = td.disc_init(disc_params_from_jax(np.asarray(p0.project), np.asarray(p0.filter)),
-                        t(feats), t(labels), tcfg, collect_losses=collect_losses)
+    tout = td.disc_init(td.repeat_params(disc_params_from_jax(np.asarray(p0.project),
+                                                              np.asarray(p0.filter)), 1),
+                        t(feats)[None], t(labels)[None], tcfg, collect_losses=collect_losses)
     return (jcfg,) + tuple(jout), (tcfg,) + tuple(tout)
 
 
@@ -135,11 +139,12 @@ def test_update_methods_through_disc_update_match_jax(rng, method):
         _, jcft = jd.disc_apply(jp, jnp.asarray(ft))
         _, tcft = td.disc_apply(tp, t(ft))
         jp, js = jd.disc_update(jp, js, jcft[0], jnp.asarray(y), jcfg)
-        tp, ts = td.disc_update(tp, ts, tcft[0], t(y[None])[0], tcfg)
-        np.testing.assert_allclose(n(ts.memory.labels), np.asarray(js.memory.labels), rtol=1e-6)
-        np.testing.assert_allclose(n(ts.memory.pixel_weights),
+        tp, ts = td.disc_update(tp, ts, tcft[0], t(y[None]), tcfg)
+        np.testing.assert_allclose(n(ts.memory.labels[0]), np.asarray(js.memory.labels),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(n(ts.memory.pixel_weights[0]),
                                    np.asarray(js.memory.pixel_weights), rtol=1e-6, atol=1e-7)
-    assert ts.n_resolves == 1
+    assert ts.n_resolves.tolist() == [1]
     _scores_close(tp, jp, rng.randn(1, 6, 8, CFG["in_channels"]).astype(np.float32))
 
 
@@ -150,7 +155,7 @@ def test_clamp_output_matches_jax(rng):
     assert got.min() == np.float32(-0.1) and got.max() == np.float32(1.2)
     # the fused tracker's grouped classification clamps alike
     cft = td.disc_apply(tp, t(ft))[1]
-    grouped = td.classify_objects(cft[:, None], [tp.filter], clamp_output=True)
+    grouped = td.classify_objects(cft, tp.filter, clamp_output=True)
     np.testing.assert_array_equal(grouped[:, 0].numpy(), got[..., 0])
 
 
@@ -171,14 +176,14 @@ def test_collect_losses_trajectories_match_jax(rng, solver):
     (jcfg, jp, js, jl), (tcfg, tp, ts, tloss) = _init_both(rng, collect_losses=True,
                                                             solver=solver)
     for key, n_iter in (("init", len(CFG["init_iters"])), ("update", len(CFG["update_iters"]))):
-        got, want = tloss[key].numpy(), np.asarray(jl[key])
+        got, want = tloss[key][0].numpy(), np.asarray(jl[key])
         assert got.shape == (n_iter + 1,)
         np.testing.assert_allclose(got, want, rtol=1e-3)
         assert got[-1] < got[0]
     # the re-solve reports its trajectory too
     jout = jd.filter_resolve(jp, js, jcfg, collect_losses=True)
     tout = td.filter_resolve(tp, ts, tcfg, collect_losses=True)
-    np.testing.assert_allclose(tout[2].numpy(), np.asarray(jout[2]), rtol=1e-3)
+    np.testing.assert_allclose(tout[2][0].numpy(), np.asarray(jout[2]), rtol=1e-3)
 
 
 def test_both_forms_report_the_same_losses(rng):
@@ -188,10 +193,10 @@ def test_both_forms_report_the_same_losses(rng):
     p0 = jd.init_disc_params(jax.random.PRNGKey(0), jd.DiscConfig(**CFG))
     out = {}
     for solver in ("stencil", "residual"):
-        out[solver] = td.disc_init(disc_params_from_jax(np.asarray(p0.project),
-                                                        np.asarray(p0.filter)),
-                                   t(feats), t(labels), DiscConfig(**CFG, solver=solver),
-                                   collect_losses=True)[2]
+        out[solver] = td.disc_init(td.repeat_params(disc_params_from_jax(
+                                       np.asarray(p0.project), np.asarray(p0.filter)), 1),
+                                   t(feats)[None], t(labels)[None],
+                                   DiscConfig(**CFG, solver=solver), collect_losses=True)[2]
     for key in ("init", "update"):
         np.testing.assert_allclose(out["stencil"][key].numpy(), out["residual"][key].numpy(),
                                    rtol=1e-3)
@@ -203,15 +208,17 @@ def test_update_filters_off_only_counts_frames(rng):
     y = np.ones((24, 32, 1), np.float32)
     _, tcft = td.disc_apply(tp, t(rng.randn(1, 6, 8, CFG["in_channels"]).astype(np.float32)))
     for _ in range(2):
-        tp, ts = td.disc_update(tp, ts, tcft[0], t(y[None])[0], tcfg)
-    assert ts.frame_num == 2 and ts.n_resolves == 0 and torch.equal(tp.filter, before)
+        tp, ts = td.disc_update(tp, ts, tcft[0], t(y[None]), tcfg)
+    assert ts.frame_num == [2] and ts.n_resolves.tolist() == [0]
+    assert torch.equal(tp.filter, before)
     assert int(ts.memory.current_size) == 3
 
 
 def _solve_both(rng, form, fletcher_reeves):
     """One weighted least-squares problem, linear in a (C,) filter f with
     scores einsum(x, f) at (h, w), through frtm_tpu's and the port's solver
-    of the given form: ((theta, rho, losses) of JAX, of the port)."""
+    of the given form: ((theta, rho, losses) of JAX, of the port). The
+    port's solver takes the problem as one lane (N = 1)."""
     S, C, h, w = 3, 24, 5, 7
     H, W = (h, w) if form == "residual" else (4 * h, 4 * w)
     x = rng.randn(S, C, h, w).astype(np.float32)
@@ -225,10 +232,11 @@ def _solve_both(rng, form, fletcher_reeves):
             (jnp, jsolver, jls, jnp.asarray,
              jsolver.scalar_preconditioner((jnp.asarray(precond, jnp.float32),))),
             (torch, tsolver, tls, torch.from_numpy, tsolver.scalar_preconditioner((precond,)))):
-        xa, ya, w2a, theta = arr(x), arr(y), arr(w2), (arr(f0),)
+        lane = (lambda a: a[None]) if xp is torch else (lambda a: a)
+        xa, ya, w2a, theta = arr(x), lane(arr(y)), lane(arr(w2)), (lane(arr(f0)),)
 
         def net(f, xp=xp, xa=xa):
-            return xp.einsum("schw,c->shw", xa, f)
+            return xp.einsum("schw,...c->...shw", xa, f)
 
         state = solver.init_cg_state(theta)
         if xp is jnp:
@@ -241,13 +249,17 @@ def _solve_both(rng, form, fletcher_reeves):
             theta, state, losses = solver.gauss_newton_cg(unpack(residuals), theta, state,
                                                           schedule, M1, dff, **kw)
         else:
-            M9 = stencil.precompute_stencil(w2a, (h, w))
-            v = stencil.project_targets(w2a, ya, (h, w))
+            M9 = lane(stencil.precompute_stencil(arr(w2), (h, w)))
+            v = lane(stencil.project_targets(arr(w2), arr(y), (h, w)))
             const = float((w2 * y * y).sum())
             theta, state, losses = solver.gauss_newton_cg_quadform(
                 unpack(net), theta, state, schedule, M1, dff, M9, v, (reg,),
                 loss_const=const, **kw)
-        out.append((np.asarray(theta[0]), float(state.rho), np.asarray(losses)))
+        if xp is torch:     # the lane
+            theta, rho, losses = (theta[0][0],), state.rho[0], losses[0]
+        else:
+            rho = state.rho
+        out.append((np.asarray(theta[0]), float(rho), np.asarray(losses)))
     return out
 
 

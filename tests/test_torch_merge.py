@@ -86,8 +86,9 @@ def test_merge_volume_windows_equals_one_shot(window):
 
 @pytest.mark.parametrize("gate", ["tensor", "bool"])
 def test_memory_update_gate_matches_jax(gate):
-    """Inserts with the gate on and off, as a 0-dim tensor (never read on the
-    host) and as a host bool, against memory_update(..., enabled=e)."""
+    """Inserts with the gate on and off, as an (N,) tensor (never read on the
+    host) and as a host bool, against memory_update(..., enabled=e); one
+    object (N = 1)."""
     rng = np.random.RandomState(1)
     K, cap, C, h, w, H, W = 2, 4, 3, 4, 5, 8, 10
     f = rng.rand(K, h, w, C).astype(np.float32)
@@ -95,21 +96,21 @@ def test_memory_update_gate_matches_jax(gate):
     p = rng.rand(K, H, W, 1).astype(np.float32)
     js = jm.memory_init(cap, jnp.asarray(f), jnp.asarray(y), jnp.asarray(p))
     nchw = lambda a: torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, -3)))
-    ts = tm.memory_init(cap, nchw(f), nchw(y), nchw(p))
+    ts = tm.memory_init(cap, nchw(f)[None], nchw(y)[None], nchw(p)[None])
     for step, e in enumerate([True, False, True, True, False, True, True]):
         fi = rng.rand(h, w, C).astype(np.float32)
         yi = rng.rand(H, W, 1).astype(np.float32)
         pi = rng.rand(H, W, 1).astype(np.float32)
         js = jm.memory_update(js, jnp.asarray(fi), jnp.asarray(yi), jnp.asarray(pi), 0.1,
                               enabled=jnp.asarray(e))
-        ts = tm.memory_update(ts, nchw(fi), nchw(yi), nchw(pi), 0.1,
-                              enabled=torch.tensor(e) if gate == "tensor" else e)
-        np.testing.assert_array_equal(ts.weights.numpy(), np.asarray(js.weights))
-        np.testing.assert_array_equal(ts.samples.numpy(),
+        ts = tm.memory_update(ts, nchw(fi)[None], nchw(yi)[None], nchw(pi)[None], 0.1,
+                              enabled=torch.tensor([e]) if gate == "tensor" else e)
+        np.testing.assert_array_equal(ts.weights[0].numpy(), np.asarray(js.weights))
+        np.testing.assert_array_equal(ts.samples[0].numpy(),
                                       np.moveaxis(np.asarray(js.samples), -1, -3))
-        np.testing.assert_array_equal(ts.labels.numpy(),
+        np.testing.assert_array_equal(ts.labels[0].numpy(),
                                       np.moveaxis(np.asarray(js.labels), -1, -3))
-        np.testing.assert_array_equal(ts.pixel_weights.numpy(),
+        np.testing.assert_array_equal(ts.pixel_weights[0].numpy(),
                                       np.moveaxis(np.asarray(js.pixel_weights), -1, -3))
         assert int(ts.current_size) == int(js.current_size)
         assert int(ts.prev_ind) == int(js.prev_ind)

@@ -29,6 +29,7 @@ from frtm_tpu.runtime.sequence_tracker import BatchedSequenceTracker as JaxFused
 from frtm_tpu.runtime.tracker import Tracker as JaxTracker
 from frtm_tpu_torch.config import DiscConfig, eval_config
 from frtm_tpu_torch.models import multilayer as tml
+from frtm_tpu_torch.models.discriminator import repeat_params
 from frtm_tpu_torch.models.resnet import ResNet
 from frtm_tpu_torch.models.seg_network import SegNetwork, seg_network_apply
 from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
@@ -79,8 +80,9 @@ def test_ml_functions_match_jax(rng):
     p0 = jml.ml_init_params(jax.random.PRNGKey(0), jcfgs)
     jp, js = jml.ml_disc_init(p0, {L: jnp.asarray(f) for L, f in feats.items()},
                               jnp.asarray(masks), jcfgs)
-    tp, ts = tml.ml_disc_init(_convert_p0(p0), {L: t(f) for L, f in feats.items()}, t(masks),
-                              tcfgs)
+    # one object (N = 1), as the host loop gives it
+    tp, ts = tml.ml_disc_init({L: repeat_params(p, 1) for L, p in _convert_p0(p0).items()},
+                              {L: t(f)[None] for L, f in feats.items()}, t(masks)[None], tcfgs)
     assert list(tp) == list(ts) == ["layer3", "layer4"]
     jscores, jcfts = jml.ml_disc_apply(jp, {L: jnp.asarray(f) for L, f in feats.items()}, jcfgs)
     tscores, tcfts = tml.ml_disc_apply(tp, {L: t(f) for L, f in feats.items()}, tcfgs)
@@ -91,12 +93,12 @@ def test_ml_functions_match_jax(rng):
     y = masks[0] * 0.9
     jp, js = jml.ml_disc_update(jp, js, {L: c[0] for L, c in jcfts.items()}, jnp.asarray(y),
                                 jcfgs)
-    tp, ts = tml.ml_disc_update(tp, ts, {L: c[0] for L, c in tcfts.items()}, t(y[None])[0],
+    tp, ts = tml.ml_disc_update(tp, ts, {L: c[0] for L, c in tcfts.items()}, t(y[None]),
                                 tcfgs)
     for L in shapes:
-        assert ts[L].frame_num == int(js[L].frame_num) == 1
+        assert ts[L].frame_num == [int(js[L].frame_num)] == [1]
         assert int(ts[L].memory.current_size) == int(js[L].memory.current_size) == K + 1
-        assert ts[L].n_resolves == 1
+        assert ts[L].n_resolves.tolist() == [1]
     jscores, _ = jml.ml_disc_apply(jp, {L: jnp.asarray(f) for L, f in feats.items()}, jcfgs)
     tscores, _ = tml.ml_disc_apply(tp, {L: t(f) for L, f in feats.items()}, tcfgs)
     for a, b in zip(tscores, jscores):
@@ -215,7 +217,7 @@ def test_host_loop_two_layers_matches_jax(world, n_objects):
     _labels_close(got, want, n_objects)
     target = port.targets[1]
     assert set(target.params) == set(target.state) == set(LAYERS)
-    assert [target.state[L].n_resolves for L in sorted(LAYERS)] == [2, 2]
+    assert [target.state[L].n_resolves.tolist() for L in sorted(LAYERS)] == [[2], [2]]
     assert not torch.allclose(target.params["layer3"].filter, target.params["layer4"].filter)
 
 
@@ -239,8 +241,9 @@ def test_fused_two_layers_matches_jax(world, n_objects, starts):
     want, _ = world.jax_fused.run_sequence(seq)
     port = world.fused()
     got, _ = port.run_sequence(seq)
-    resolves = [[int(s[L].n_resolves) for L in sorted(LAYERS)] for _, s in port.last_models]
-    assert resolves == [[2, 2]] * n_objects if starts is None else [[2, 2], [1, 1]]
+    _, states = port.last_models
+    resolves = [states[L].n_resolves.tolist() for L in sorted(LAYERS)]
+    assert resolves == [[2] * n_objects] * 2 if starts is None else [[2, 1], [2, 1]]
     jax_host, _ = world.jax_host.run_sequence(seq)
     jax_gap = max(float(np.mean(a != b)) for a, b in zip(want, jax_host))
     if n_objects == 1:

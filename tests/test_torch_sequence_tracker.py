@@ -162,8 +162,9 @@ def test_fused_tracker_matches_jax(world, n_objects):
     _assert_labels_close(got, want, n_objects)
     np.testing.assert_array_equal(got[0], seq.labels[0][..., 0])
     # frames 2 and 4 re-solved every object's filter
-    assert [int(s.n_resolves) for _, s in port.last_models] == [2] * n_objects
-    assert [s.frame_num for _, s in port.last_models] == [5] * n_objects
+    _, state = port.last_models
+    assert state.n_resolves.tolist() == [2] * n_objects
+    assert state.frame_num == [5] * n_objects
     assert set(port.last_phase_stats) == {"extract", "augment", "aug_upload", "disc_init", "scan"}
 
 
@@ -191,7 +192,7 @@ def test_mid_sequence_entry_matches_jax(world, start):
     assert all((lb == 2).sum() >= 10 for lb in want[start:])
     assert not any((lb == 2).any() for lb in got[:start])
     # object 1 re-solves at frames 2, 4, 6; object 2 every second frame of its own
-    assert [int(s.n_resolves) for _, s in port.last_models] == [3, (6 - start) // 2]
+    assert port.last_models[1].n_resolves.tolist() == [3, (6 - start) // 2]
 
 
 def test_deferred_soft_volume_matches_jax(world):
@@ -249,10 +250,11 @@ def test_jax_volume_ignores_augment_buffer_alignment(world):
 
 def test_batched_init_matches_jax(world):
     """Two objects through the JAX _init_objects_dense and the port's, on
-    the same augment batches: filters within 1e-3 of their peak (the
-    ill-conditioned phase-1 solve; measured 2.1e-5 of it), scores on the
-    tracked frames within 1e-4 (measured 2.3e-5 at a peak of 0.58). Then the JAX side's models, converted,
-    drive the port's loop to the JAX tracker's labels."""
+    the same augment batches, each solving both objects as one batch:
+    filters within 1e-3 of their peak (the ill-conditioned phase-1 solve;
+    measured 4.0e-5 of it), scores on the tracked frames within 1e-4
+    (measured 4.2e-5 at a peak of 0.58). Then the JAX side's models,
+    converted, drive the port's loop to the JAX tracker's labels."""
     seq = _sequence(6, 2)
     jt, port = world.jax("online"), world.port()
     objects = port._collect_objects(seq)
@@ -266,26 +268,27 @@ def test_batched_init_matches_jax(world):
     jp, js = jax.tree.map(np.asarray, (jp[layer], js[layer]))
     with torch.no_grad():
         models = port._init_objects_dense(
-            [torch.from_numpy(np.ascontiguousarray(i.transpose(0, 3, 1, 2))) for i in ims],
-            [torch.from_numpy(np.ascontiguousarray(l.transpose(0, 3, 1, 2))) for l in lbs])
+            torch.from_numpy(np.ascontiguousarray(ims.transpose(0, 1, 4, 2, 3))),
+            torch.from_numpy(np.ascontiguousarray(lbs.transpose(0, 1, 4, 2, 3))))
         converted = disc_objects_from_jax(tuple(jp), (tuple(js.memory), tuple(js.cg),
                                                       js.frame_num), "cpu")
         frames = np.stack(seq.images[1:])
         feats = port._extract_sequence(port._upload_chunks(frames))
         scores = {}
-        for name, ms in (("port", models), ("jax", converted)):
-            cft = project_all(feats[layer], [p.project for p, _ in ms])
-            scores[name] = classify_objects(cft, [p.filter for p, _ in ms]).numpy()
-    for (pt, st), (pj, sj) in zip(models, converted):
-        peak = float(pj.filter.abs().max())
-        np.testing.assert_allclose(pt.filter.numpy(), pj.filter.numpy(), rtol=0, atol=1e-3 * peak)
-        np.testing.assert_allclose(st.memory.weights.numpy(), sj.memory.weights.numpy(),
-                                   atol=1e-7)
-        np.testing.assert_array_equal(st.memory.labels.numpy(), sj.memory.labels.numpy())
-        np.testing.assert_allclose(st.memory.pixel_weights.numpy(),
-                                   sj.memory.pixel_weights.numpy(), atol=1e-6)
-        assert int(st.memory.current_size) == int(sj.memory.current_size) == 3
-        assert st.frame_num == sj.frame_num == 0
+        for name, (p, _) in (("port", models), ("jax", converted)):
+            cft = project_all(feats[layer], p.project)
+            scores[name] = classify_objects(cft, p.filter).numpy()
+    (pt, st), (pj, sj) = models, converted
+    for k in range(2):
+        peak = float(pj.filter[k].abs().max())
+        np.testing.assert_allclose(pt.filter[k].numpy(), pj.filter[k].numpy(), rtol=0,
+                                   atol=1e-3 * peak)
+    np.testing.assert_allclose(st.memory.weights.numpy(), sj.memory.weights.numpy(), atol=1e-7)
+    np.testing.assert_array_equal(st.memory.labels.numpy(), sj.memory.labels.numpy())
+    np.testing.assert_allclose(st.memory.pixel_weights.numpy(),
+                               sj.memory.pixel_weights.numpy(), atol=1e-6)
+    assert st.memory.current_size.tolist() == sj.memory.current_size.tolist() == [3, 3]
+    assert st.frame_num == sj.frame_num == [0, 0]
     assert np.abs(scores["jax"]).max() > 0.1
     np.testing.assert_allclose(scores["port"], scores["jax"], rtol=0, atol=1e-4)
 
@@ -294,5 +297,5 @@ def test_batched_init_matches_jax(world):
     with torch.no_grad():
         lut = torch.tensor([0, 1, 2], dtype=torch.int32)
         masks = torch.from_numpy(np.stack([o[2] for o in objects]))
-        got = port._window_track(feats, converted, [0, 0], masks, lut, SIZE).numpy()
+        got = port._window_track(feats, converted, [0, 0], masks, lut, SIZE)[0].numpy()
     _assert_labels_close([want[0]] + list(got), want, 2)
