@@ -40,8 +40,10 @@ Phases, each printing one JSON line:
                 result's peak, with its time, byte bound and the one PyTorch
                 call that computes the same gradient (each row also times the
                 kernel with CUDA events, event_ms, beside the profiler's ms;
-                pyrup's backward must take its 16-byte loads, variant v4, and
-                the head conv's weight gradient its 8-byte loads, v2);
+                pyrup's backward must take its 16-byte loads, variant v4, the
+                head conv's input gradient its 8-byte stores, v2 (the row
+                also gives its stripe rows and block warps), and its weight
+                gradient its 8-byte loads, v2);
   4. decode   — one full seg_network_apply at 480x854, kernels against plain
                 (its logits also set the scale of the random refiner's head,
                 so that the masks hold both classes); then the same decode in
@@ -124,8 +126,9 @@ Phases, each printing one JSON line:
                 epoch 3 from the saved tensors; every refiner parameter moved,
                 BN weight and bias included; launches of every forward and
                 backward kernel and of the warp, every pyrup backward with
-                16-byte loads (v4) and every head-conv weight gradient with
-                8-byte loads (v2). Then one train step of rn18
+                16-byte loads (v4), every head-conv input gradient with 8-byte
+                stores (v2) and every head-conv weight gradient with 8-byte
+                loads (v2). Then one train step of rn18
                 at 96x128, batch 4, on fixed target models on the CPU (plain
                 versions) and on the card (kernels): loss within rtol 1e-4,
                 every gradient within 1e-3 of its peak, a second card run
@@ -696,7 +699,7 @@ def backward_rows(g):
         VARIANTS, conv3x3_cout1_input_grad, conv3x3_cout1_input_grad_plain,
         conv3x3_cout1_weight_grad, conv3x3_cout1_weight_grad_plain, pyr_up_bicubic_backward,
         pyr_up_bicubic_backward_plain)
-    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import weight_grad_plan
+    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import input_grad_plan, weight_grad_plan
     rows = {"pyrup_bwd": [], "conv3x3_cout1_dx": [], "conv3x3_cout1_dw": []}
     for shape in [(16, 32, 120, 214), (16, 16, 240, 428)]:
         n, c, h, w = shape
@@ -718,12 +721,19 @@ def backward_rows(g):
     x = torch.relu(torch.randn(shape, generator=g)).cuda()
     wt = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
     gy = (torch.randn(16, 1, 480, 854, generator=g) * 1e-3).cuda()
-    rows["conv3x3_cout1_dx"].append(_compare(
+    before = dict(VARIANTS["conv3x3_cout1_dx"])
+    row = _compare(
         "conv3x3_cout1_dx", list(shape), lambda: conv3x3_cout1_input_grad(gy, wt, shape),
         lambda: conv3x3_cout1_input_grad_plain(gy, wt, shape),
         lambda: torch.nn.grad.conv2d_input(shape, wt, gy, padding=1),
         nbytes=4 * (gy.numel() + x.numel() + wt.numel()), flops=18 * x.numel(),
-        tol=("peak", 1e-5)))
+        tol=("peak", 1e-5))
+    row["variant"] = sorted(v for v, k in VARIANTS["conv3x3_cout1_dx"].items() if k > before[v])
+    if row["variant"] != ["v2"]:
+        fail(f"conv3x3_cout1_dx {shape}: took {row['variant']}, not the 8-byte stores (v2)")
+    row["rows"] = input_grad_plan(*shape)
+    row["warps"] = input_grad_plan(*shape, "warps")
+    rows["conv3x3_cout1_dx"].append(row)
     before = dict(VARIANTS["conv3x3_cout1_dw"])
     row = _compare(
         "conv3x3_cout1_dw", list(shape),
@@ -1819,6 +1829,8 @@ def phase_train(backbone, card):
                 or (run["launches"]["warp_affine"] > 0) != (run["solved"] > 0) \
                 or run["variants"]["pyrup"]["bf16"] or run["variants"]["conv3x3_cout1"]["bf16"] \
                 or run["variants"]["pyrup_bwd"]["v4"] != run["launches"]["pyrup_bwd"] \
+                or run["variants"]["conv3x3_cout1_dx"]["v2"] != \
+                run["launches"]["conv3x3_cout1_dx"] \
                 or run["variants"]["conv3x3_cout1_dw"]["v2"] != \
                 run["launches"]["conv3x3_cout1_dw"]:
             fail(f"train ({tag}): launches {run['launches']}, instances {run['variants']}, "
@@ -1861,8 +1873,10 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
     the float32 fused tracker and the two training runs for the float32
     instances, the unpipelined CLI runs (synthetic and DAVIS tree) and the
     YouTube-VOS CLI run for the bfloat16 ones, all of them for the warp.
-    Each entry carries ptxas's readings of its source's kernel functions, and
-    each bfloat16 entry its time over the float32 instance's (bf16_over_f32)."""
+    Each entry carries ptxas's readings of its source's kernel functions,
+    each bfloat16 entry its time over the float32 instance's (bf16_over_f32),
+    and each entry whose row names them the variant its launch took and the
+    stripe rows and block warps it planned."""
     entries = [("pyrup", "pyrup", 1, False), ("conv3x3_cout1", "conv3x3_cout1", 0, False),
                ("warp_affine", "warp_affine", 0, True), ("pyrup_bf16", "pyrup", 5, True),
                ("conv3x3_cout1_bf16", "conv3x3_cout1", 2, True),
@@ -1890,6 +1904,7 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "shape": r["shape"], "tolerance": r["tolerance"],
                     **({"bf16_over_f32": r["bf16_over_f32"]} if bf16 else {}),
+                    **{k: r[k] for k in ("variant", "rows", "warps") if k in r},
                     "ptxas": ptxas.get(Path(source).stem),
                     "other_shapes": [o for i, o in enumerate(rows[name]) if i != main_row]})
     return {"kernels": out}

@@ -18,10 +18,10 @@ where an input requires a gradient and autograd records, in float32 only.
 On the card its backward launches csrc/conv3x3_cout1_dx.cu for the input
 gradient and csrc/conv3x3_cout1_dw.cu for the weight and bias gradients, each
 only where it is needed; on the CPU it runs the plain backward (autograd of
-the plain forward). The weight gradient's kernel reads 8 bytes a load where
-W is even and the tensors 8-byte aligned, else 4 (`build.VARIANTS`: v2,
-v1); both give the same bits. The bfloat16 instance serves inference only;
-a backward through it raises. Under `torch.no_grad`, or where nothing needs a gradient,
+the plain forward). Both kernels read (dw) or store (dx) 8 bytes at a time
+where W is even and the tensors 8-byte aligned, else 4 (`pair_width`,
+`build.VARIANTS`: v2, v1); both widths give the same bits. The bfloat16
+instance serves inference only; a backward through it raises. Under `torch.no_grad`, or where nothing needs a gradient,
 the forward runs as a plain call and records nothing.
 """
 import ctypes
@@ -105,10 +105,18 @@ def _check_grad(gy, what):
 
 
 _DX_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
 _DW_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int]
+
+
+def pair_width(w: int, *ptrs: int) -> int:
+    """Floats per load or store of the backward kernels, which move column
+    pairs: 2 where every row starts 8-byte aligned (W even, each pointer
+    8-byte aligned), else 1. Both widths give the same sums in the same
+    order."""
+    return 2 if w % 2 == 0 and all(p % 8 == 0 for p in ptrs) else 1
 
 
 def conv3x3_cout1_input_grad(gy: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
@@ -126,9 +134,10 @@ def conv3x3_cout1_input_grad(gy: torch.Tensor, w: torch.Tensor, x_shape) -> torc
     build.check_cuda_tensor(gy, "conv3x3_cout1 output gradient", 4)
     build.check_cuda_tensor(w, "conv3x3_cout1 weight", 4)
     dx = torch.empty((n, c, h, wd), dtype=gy.dtype, device=gy.device)
+    vec = pair_width(wd, gy.data_ptr(), dx.data_ptr())
     build.launch("conv3x3_cout1_dx", "frtm_conv3x3_cout1_dx_f32", _DX_ARGTYPES,
-                 gy.data_ptr(), w.data_ptr(), dx.data_ptr(), n, c, h, wd,
-                 device=gy.device, variant="f32")
+                 gy.data_ptr(), w.data_ptr(), dx.data_ptr(), n, c, h, wd, vec,
+                 device=gy.device, variant=f"v{vec}")
     return dx
 
 
@@ -147,9 +156,7 @@ def conv3x3_cout1_weight_grad(x: torch.Tensor, gy: torch.Tensor):
     build.check_cuda_tensor(x, "conv3x3_cout1 input", 4)
     build.check_cuda_tensor(gy, "conv3x3_cout1 output gradient", 4)
     tiles = weight_grad_plan(n, c, h, wd, gy.device, "blocks")
-    # 8-byte loads where every row starts 8-byte aligned, else 4-byte: the
-    # same sums in the same order
-    vec = 2 if wd % 2 == 0 and (x.data_ptr() | gy.data_ptr()) % 8 == 0 else 1
+    vec = pair_width(wd, x.data_ptr(), gy.data_ptr())
     partials = torch.empty((9 * c + 1) * tiles, dtype=gy.dtype, device=gy.device)
     out = torch.empty(9 * c + 1, dtype=gy.dtype, device=gy.device)
     build.launch("conv3x3_cout1_dw", "frtm_conv3x3_cout1_dw_f32", _DW_ARGTYPES,
@@ -170,6 +177,19 @@ def weight_grad_plan(n, c, h, w, device: torch.device, what="rows") -> int:
     if got <= 0:
         raise RuntimeError(f"conv3x3_cout1 weight gradient: no plan for input "
                            f"{(n, c, h, w)} on {device}")
+    return got
+
+
+def input_grad_plan(n, c, h, w, what="rows") -> int:
+    """What csrc/conv3x3_cout1_dx.cu launches for input gradient (n, c, h,
+    w): "rows", the rows in a stripe, or "warps", the warps across a block's
+    column segment."""
+    fn = build.library("conv3x3_cout1_dx").frtm_conv3x3_cout1_dx_plan
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    got = fn(n, c, h, w, {"rows": 0, "warps": 1}[what])
+    if got <= 0:
+        raise RuntimeError(f"conv3x3_cout1 input gradient: no plan for {(n, c, h, w)}")
     return got
 
 

@@ -343,17 +343,27 @@ def test_pyrup_backward_kernel_matches_plain(gen, shape, offset):
 # weight gradient's streaming design also at its edges: H around its stripes
 # (small grids take stripes of 8 rows: H = 7, 8, 9, 17), W around its column
 # segments of 128 (126 .. 130), C around its groups of 4 and chunks of 16 (1,
-# 3, 5, 17), and x and dy 4 bytes past an aligned pointer. Odd W or such a
-# view takes the 4-byte loads (v1), else the 8-byte loads (v2); both widths
-# give the same bits.
+# 3, 5, 17), and x and dy 4 bytes past an aligned pointer. For the input
+# gradient's register walk: H around its stripes of 3 rows (1, 3, 4, 5, 6, 7,
+# 8, 9, 17, 31, 32, 33), W of 1, 2, 3, odd W, W around its warps of 64
+# columns (126 .. 130) and around a block's span of 14 warps (895, 896 in one
+# block; 897, 898 in two segments of 8 warps), C around its groups of 4 (1,
+# 3, 5, 17) and over 256 (300, 512). Odd W or such a view takes the 4-byte
+# loads and stores (v1), else the 8-byte ones (v2); both widths give the same
+# bits.
 @pytest.mark.parametrize("shape,offset", [
     ((16, 16, 480, 854), 0), ((1, 1, 5, 7), 0), ((2, 32, 17, 129), 0), ((1, 3, 16, 128), 0),
     ((3, 1, 33, 257), 0), ((1, 1, 1, 1), 0),
     ((2, 5, 7, 40), 0), ((2, 5, 8, 40), 0), ((2, 5, 9, 40), 0), ((2, 5, 17, 40), 0),
     *[((1, 3, 9, w), 0) for w in (126, 127, 128, 129, 130)],
-    ((1, 17, 9, 20), 0), ((2, 16, 17, 854), 1), ((1, 3, 9, 130), 1)])
+    ((1, 17, 9, 20), 0), ((2, 16, 17, 854), 1), ((1, 3, 9, 130), 1),
+    ((2, 3, 1, 12), 0), ((2, 3, 5, 2), 0), ((2, 3, 5, 3), 0), ((1, 3, 6, 1), 0),
+    ((1, 5, 3, 40), 0), ((1, 5, 4, 40), 0),
+    ((1, 5, 31, 40), 0), ((1, 5, 32, 40), 0), ((1, 5, 33, 40), 0),
+    *[((1, 2, 9, w), 0) for w in (895, 896, 897, 898)],
+    ((1, 300, 9, 20), 0), ((1, 512, 3, 10), 0), ((2, 5, 9, 898), 1)])
 def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape, offset):
-    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import weight_grad_plan
+    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import input_grad_plan, weight_grad_plan
     n, c, h, wd = shape
     x = torch.randn(n * c * h * wd + offset, generator=gen).cuda()[offset:].view(shape)
     w = (torch.rand(1, c, 3, 3, generator=gen) * 0.2 - 0.1).cuda()
@@ -361,10 +371,16 @@ def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape, offset):
     gy = torch.randn(n * h * wd + offset, generator=gen).cuda()[offset:].view(n, 1, h, wd)
     if h <= 17:     # a grid of one wave: stripes of 8 rows
         assert weight_grad_plan(n, c, h, wd, x.device) == 8
-    dx = _launched_once("conv3x3_cout1_dx", lambda: conv3x3_cout1_input_grad(gy, w, shape))
+    # the input gradient's blocks: whole rows up to 14 warps, wider rows in
+    # segments of equal warps; stripes of 3 rows
+    across = -(-((wd + 1) // 2) // 32)
+    assert input_grad_plan(n, c, h, wd, "warps") == -(-across // -(-across // 14))
+    assert input_grad_plan(n, c, h, wd) == 3
+    width = "v1" if offset or wd % 2 else "v2"
+    dx = _launched_once("conv3x3_cout1_dx", lambda: conv3x3_cout1_input_grad(gy, w, shape),
+                        width)
     err, peak = _peak_err(dx, conv3x3_cout1_input_grad_plain(gy, w, shape))
     assert err <= 1e-5 * peak
-    width = "v1" if offset or wd % 2 else "v2"
     dw, db = _launched_once("conv3x3_cout1_dw", lambda: conv3x3_cout1_weight_grad(x, gy), width)
     pw, pb = conv3x3_cout1_weight_grad_plain(x, gy, w.shape)
     assert dw.shape == pw.shape and db.shape == pb.shape == (1,)
@@ -381,9 +397,16 @@ def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape, offset):
         dw1, db1 = _launched_once("conv3x3_cout1_dw", lambda: conv3x3_cout1_weight_grad(xv, gv),
                                   "v1")
         assert torch.equal(dw, dw1) and torch.equal(db, db1)
+        dx1 = _launched_once("conv3x3_cout1_dx", lambda: conv3x3_cout1_input_grad(gv, w, shape),
+                             "v1")
+        assert torch.equal(dx, dx1)
     elif offset:            # and an aligned copy of a view takes the bits of the view
         dwa, dba = conv3x3_cout1_weight_grad(x.clone(), gy.clone())
         assert torch.equal(dw, dwa) and torch.equal(db, dba)
+        dxa = _launched_once("conv3x3_cout1_dx",
+                             lambda: conv3x3_cout1_input_grad(gy.clone(), w, shape),
+                             "v1" if wd % 2 else "v2")
+        assert torch.equal(dx, dxa)
     # through autograd: the same kernels, each launched once
     xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
     before = dict(LAUNCHES)
@@ -391,6 +414,23 @@ def test_conv3x3_cout1_backward_kernels_match_plain(gen, shape, offset):
     assert LAUNCHES["conv3x3_cout1_dx"] == before["conv3x3_cout1_dx"] + 1
     assert LAUNCHES["conv3x3_cout1_dw"] == before["conv3x3_cout1_dw"] + 1
     assert torch.equal(xr.grad, dx) and torch.equal(wr.grad, dw) and torch.equal(br.grad, db)
+
+
+def test_input_grad_kernel_takes_channels_up_to_its_limit(gen):
+    """csrc/conv3x3_cout1_dx.cu takes C up to kMaxChannels (65536) and refuses
+    more; the wrapper raises on the refusal, with no plain fallback."""
+    c = 1 << 16
+    w = (torch.rand(1, c, 3, 3, generator=gen) * 0.2 - 0.1).cuda()
+    gy = torch.randn(1, 1, 2, 6, generator=gen).cuda()
+    dx = _launched_once("conv3x3_cout1_dx",
+                        lambda: conv3x3_cout1_input_grad(gy, w, (1, c, 2, 6)), "v2")
+    err, peak = _peak_err(dx, conv3x3_cout1_input_grad_plain(gy, w, (1, c, 2, 6)))
+    assert err <= 1e-5 * peak
+    before = LAUNCHES["conv3x3_cout1_dx"]
+    w1 = torch.zeros(1, c + 1, 3, 3, device="cuda")
+    with pytest.raises(RuntimeError):
+        conv3x3_cout1_input_grad(gy, w1, (1, c + 1, 2, 6))
+    assert LAUNCHES["conv3x3_cout1_dx"] == before
 
 
 def test_bf16_instances_refuse_a_backward(gen):
@@ -670,12 +710,17 @@ def test_train_step_launches_the_backward_kernels_and_reruns_bit_equal(gen):
         model.refiner.load_state_dict(state)
         model.refiner.zero_grad(set_to_none=True)
         before = dict(LAUNCHES)
+        vbefore = {k: dict(v) for k, v in VARIANTS.items()}
         total, acc = model.loss(disc, images, labels, mask)
         total.backward()
         torch.cuda.synchronize()
         launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         assert launched == {"pyrup": 4, "conv3x3_cout1": 2, "warp_affine": 0, "pyrup_bwd": 4,
                             "conv3x3_cout1_dx": 2, "conv3x3_cout1_dw": 2}, launched
+        # W = 128: the head conv's backward takes its 8-byte stores and loads
+        assert {k: VARIANTS[k]["v2"] - vbefore[k]["v2"] for k in
+                ("conv3x3_cout1_dx", "conv3x3_cout1_dw")} == {"conv3x3_cout1_dx": 2,
+                                                              "conv3x3_cout1_dw": 2}
         runs.append((total.detach().clone(), acc.clone(),
                      {n: p.grad.clone() for n, p in model.refiner.named_parameters()},
                      {k: v.clone() for k, v in model.refiner.state_dict().items()}))

@@ -13,6 +13,7 @@ from frtm_tpu.ops.conv import conv2d as jax_conv2d
 from frtm_tpu_torch.ops.kernels import (LAUNCHES, conv3x3_cout1, conv3x3_cout1_input_grad,
                                         conv3x3_cout1_weight_grad, pyr_up_bicubic,
                                         pyr_up_bicubic_backward)
+from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import pair_width
 from frtm_tpu_torch.ops.kernels.pyrup import FOLD_FIRST, FOLD_LAST, PYRDOWN_TAPS
 
 
@@ -79,7 +80,13 @@ def test_pyrup_backward_kernel_formula_matches_jax_vjp(rng, shape):
     close_to_peak(pyrdown_gather(pyrdown_gather(gy, 1), 2), np.asarray(want), 1e-5)
 
 
-@pytest.mark.parametrize("shape", [(2, 13, 17, 6), (1, 1, 1, 1), (3, 5, 4, 32)])
+# (N, H, W, C): the input-gradient kernel's edges too: W of 1, 2 and 3 (a
+# pair with its second column outside, every column a border one), an odd W,
+# H = 1 (both neighbouring dy rows outside) and C = 17 (a masked last group
+# of one channel)
+@pytest.mark.parametrize("shape", [(2, 13, 17, 6), (1, 1, 1, 1), (3, 5, 4, 32),
+                                   (2, 6, 1, 3), (1, 4, 2, 2), (2, 5, 3, 4), (1, 7, 9, 3),
+                                   (2, 1, 10, 5), (1, 6, 8, 17)])
 def test_head_conv_backward_plain_matches_jax_vjp(rng, shape):
     x = rng.randn(*shape).astype(np.float32)
     w = (rng.randn(3, 3, shape[3], 1) * 0.3).astype(np.float32)
@@ -208,6 +215,90 @@ def test_head_conv_weight_grad_kernel_order_matches_jax_vjp(rng, h, w, c):
     close_to_peak(np.transpose(got[:9 * c].reshape(1, c, 3, 3), (2, 3, 1, 0)),
                   np.asarray(jdw), 1e-5)
     close_to_peak(got[9 * c:], np.asarray(jdb), 1e-5)
+
+
+def dx_walk(dy, w, rows, lanes=32, max_warps=14):
+    """csrc/conv3x3_cout1_dx.cu's walk in numpy float32 (each FMA as a
+    product and a sum): per image, stripe of `rows` rows and segment of
+    column pairs (whole rows up to `max_warps` warps of `lanes` lanes, wider
+    rows split into segments of equal warps), a thread walks its pair u0, u0
+    + 1 down the stripe with a ring of three dy-row windows (columns u0 - 1
+    .. u0 + 2: its own pair, the neighbours from the adjacent lanes, lanes 0
+    and lanes - 1 their own halo load) and sums each value's 9 taps in the
+    order t = 3 i + j from 0. Channel groups split only which threads hold a
+    channel, so the model keeps every channel in each thread."""
+    n, _, h, wd = dy.shape
+    c = w.shape[1]
+    taps = w[0].reshape(c, 9)
+    across = -(-((wd + 1) // 2) // lanes)
+    segs = -(-across // max_warps)
+    span = -(-across // segs) * lanes          # column pairs in a segment
+    cols = 2 * span * segs
+    dp = np.zeros((n, h + 2, cols + 2), np.float32)    # dp[b, r + 1, u + 1] = dy[b, 0, r, u]
+    dp[:, 1:h + 1, 1:wd + 1] = dy[:, 0]
+    out = np.full((n, c, h, cols), np.nan, np.float32)
+    lane = np.arange(span) % lanes
+    for b in range(n):
+        for y0 in range(0, h, rows):
+            for seg in range(segs):
+                u0 = 2 * (seg * span + np.arange(span))
+
+                def window(r):
+                    row = dp[b, r + 1]
+                    d0, d1 = row[u0 + 1], row[u0 + 2]
+                    left = np.where(lane == 0, row[u0], np.roll(d1, 1))
+                    right = np.where(lane == lanes - 1, row[u0 + 3], np.roll(d0, -1))
+                    return np.stack([left, d0, d1, right], -1)
+
+                ring = {y0 - 1: window(y0 - 1), y0: window(y0)}
+                for y in range(y0, min(y0 + rows, h)):
+                    ring[y + 1] = window(y + 1)
+                    d = (ring[y + 1], ring[y], ring[y - 1])     # taps i = 0, 1, 2
+                    a = np.zeros((c, span), np.float32)
+                    a1 = np.zeros((c, span), np.float32)
+                    for t in range(9):
+                        i, j = divmod(t, 3)
+                        a = a + taps[:, t, None] * d[i][None, :, 2 - j]
+                        a1 = a1 + taps[:, t, None] * d[i][None, :, 3 - j]
+                    row = out[b, :, y]
+                    row[:, u0], row[:, u0 + 1] = a, a1
+    assert not np.isnan(out[..., :wd]).any()
+    return out[..., :wd]
+
+
+_DX_ROWS = 3      # the kernel's stripe (kRows)
+
+
+# H around the stripe (1, 2, R, R + 1, 2R + 1), W of 1 to 3, 17 (two segments
+# of the model's blocks of two 4-lane warps, the second one pair wide, its
+# second column outside) and 33 (three); C over a masked channel group (1, 5);
+# two images, so stripes cross an image's edge
+@pytest.mark.parametrize("h", [1, 2, _DX_ROWS, _DX_ROWS + 1, 2 * _DX_ROWS + 1])
+@pytest.mark.parametrize("w", [1, 2, 3, 17, 33])
+@pytest.mark.parametrize("c", [1, 5])
+def test_head_conv_input_grad_kernel_order_matches_jax_vjp(rng, h, w, c):
+    """The input-gradient kernel cannot run here; its walk can: a tap turned
+    the wrong way or a halo row or column lost shows here."""
+    x = rng.randn(2, h, w, c).astype(np.float32)
+    gy = rng.randn(2, h, w, 1).astype(np.float32)
+    wt = (rng.randn(3, 3, c, 1) * 0.3).astype(np.float32)
+    b = rng.randn(1).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: jax_conv2d(x, jnp.asarray(wt), jnp.asarray(b), tapsum=False),
+                     jnp.asarray(x))
+    (jdx,) = vjp(jnp.asarray(gy))
+    w_oihw = np.ascontiguousarray(np.transpose(wt, (3, 2, 0, 1)))
+    got = dx_walk(nchw(gy).numpy(), w_oihw, _DX_ROWS, lanes=4, max_warps=2)
+    close_to_peak(np.transpose(got, (0, 2, 3, 1)), np.asarray(jdx), 1e-5)
+
+
+# (W, pointers, floats per load or store): 8 bytes only where every row and
+# every tensor starts 8-byte aligned
+@pytest.mark.parametrize("w,ptrs,want", [
+    (854, (0x7f0000000000, 0x7f0000100000), 2), (854, (0x7f0000000004, 0x7f0000100000), 1),
+    (854, (0x7f0000000000, 0x7f0000100004), 1), (853, (0x7f0000000000, 0x7f0000100000), 1),
+    (2, (8, 16, 24), 2), (1, (8,), 1), (128, (), 2), (130, (8, 12), 1)])
+def test_pair_width_takes_8_bytes_only_where_every_row_is_aligned(w, ptrs, want):
+    assert pair_width(w, *ptrs) == want
 
 
 def test_inference_records_no_graph_and_cpu_backward_counts_no_launch():
