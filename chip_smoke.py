@@ -31,7 +31,12 @@ Phases, each printing one JSON line:
                 bound; each bfloat16 row gives its time over the float32 one's
                 on the same values, bf16_over_f32), also at YouTube-VOS's
                 720x1280 decoder shapes with two lanes; the warp rows name the
-                variant they took (staged or direct), and the phase gives the
+                variant they took (staged or direct, for one map or batched),
+                among them the mixed launch of the host augmenter's paste (RGBA
+                bicubic and label nearest, 200x240) and the batched launches of
+                one device-augmenter round at S = 19 (backgrounds, target
+                crops, masks at 480x854), each bit-exact, against
+                F.grid_sample over the same maps; the phase gives the
                 launch floor (a one-element
                 zero_()); then each backward kernel at the training shapes
                 (N = 16: both pyrup stages, the head conv's dx and its dw and
@@ -69,6 +74,20 @@ Phases, each printing one JSON line:
                 torch.profiler session per phase) with the peak memory inside
                 it. All objects' target models are solved together, so the
                 kernels at four objects may be at most 1.25x those at one;
+  6c. device_augment — the device augment backend: DeviceAugmenter on the
+                card against the same call on the CPU on a textured 480x854
+                frame (visibility counts of every round and labels equal,
+                images at most one grey level apart on under 0.1 % of the
+                values) and against the host augmenter on the card (the same);
+                one round at 4 and at 19 specs must launch the same kernels,
+                its warps all batched; then the fused tracker in bfloat16
+                (rn101, 480x854, 9 frames, two objects) with each backend:
+                fps of three passes, augment and disc_init seconds of a
+                synchronised pass, kernels, launches and peak memory of one
+                augment_first_frame, and the share of labels the two
+                backends agree on, printed beside its yardstick: the host
+                backend's own label movement when the same share of its
+                augment values moves by one grey level;
   7. eval     — the evaluation entry point at full width, in bfloat16:
                 `frtm_tpu_torch.evaluate.main` with --dev cuda --dtype bfloat16
                 --engine fused on a fabricated reference-format .pth and a
@@ -81,8 +100,9 @@ Phases, each printing one JSON line:
                 ground truth; the pipelined run's PNGs equal the others byte
                 for byte; both report files, whose dataset means equal
                 evaluate_dataset's return; per run 18 pyrup, 9 head-conv and
-                48 warp launches, every decode launch the bfloat16 instance,
-                every warp staged; no host wait in the scan; a re-run equal.
+                24 warp launches (one mixed launch per accepted spec), every
+                decode launch the bfloat16 instance, every warp staged; no
+                host wait in the scan; a re-run equal.
                 Printed: fps per sequence, the average, the pipelined
                 aggregate, the host's seconds per phase, and on the first
                 sequence, its augment batches made once, fps and phase
@@ -94,7 +114,10 @@ Phases, each printing one JSON line:
                 annotations, one sequence of 9 480x854 frames, two objects),
                 read through DAVISDataset and the host library's decoder;
                 checked as above (PNGs, frame 0, reports, launches 2 / 1 /
-                16). Per sequence of every run: fps and host_cut_inpaint_s
+                8); and once more on that tree with the committed frtm_tpu
+                .npz model (tests/data/torch_fixtures/models: a resnet18-width
+                refiner, no --backbone), checked alike. Per sequence of every
+                run: fps and host_cut_inpaint_s
                 (the host's cut and Telea inpaint of every object, timed
                 again after the run);
   7b. ytvos   — `frtm_tpu_torch.evaluate_ytvos.main` with --dev cuda --dtype
@@ -104,7 +127,7 @@ Phases, each printing one JSON line:
                 deferred merge: one PNG per frame, each equal to what was
                 tracked; frame 0 the ground truth of object 1, object 2's
                 ground truth at its entry frame; a re-run equal byte for byte;
-                launches 16 / 8 / 16 (the per-frame loop, 8 decodes of two
+                launches 16 / 8 / 8 (the per-frame loop, 8 decodes of two
                 lanes), all bf16 / staged; no host wait in the scan; a decode
                 at 720x1280 in bf16, kernels against plain within one ulp.
                 Printed: fps, phase seconds, peak memory;
@@ -181,6 +204,9 @@ KERNEL_INFO = {
                            "frtm_tpu_torch/ops/kernels/csrc/conv3x3_cout1_bf16.cu"),
     "warp_affine": ("frtm_tpu/ops/pallas/warp.py:167",
                     "frtm_tpu_torch/ops/kernels/csrc/warp_affine.cu"),
+    # its launches of S maps (the device augmenter's rounds)
+    "warp_affine_batched": ("frtm_tpu/ops/pallas/warp.py:167",
+                            "frtm_tpu_torch/ops/kernels/csrc/warp_affine.cu"),
     # the gradients of kernels 1 and 2, which the JAX package takes by
     # autodiff of its XLA decoder
     "pyrup_bwd": ("frtm_tpu/ops/pallas/pyrup.py:74",
@@ -241,36 +267,43 @@ def device_ms(fn, iters=20):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def cuda_ms(fn):
-    """(ms, method): device time per call where the profiler gives it, else
-    the CUDA-event time per call."""
-    d = device_ms(fn)
-    return (d, "profiler_device_time") if d is not None else (event_ms(fn), "cuda_events")
+def cuda_ms(fn, attempts=3):
+    """(ms, method): device time per call where the profiler gives it (a
+    session that delivers no device event is repeated, up to `attempts`
+    sessions), else the CUDA-event time per call."""
+    for _ in range(attempts):
+        d = device_ms(fn)
+        if d is not None:
+            return d, "profiler_device_time"
+    return event_ms(fn), "cuda_events"
 
 
-def warp_source_pixels(M, src_hw, size, mode):
-    """Source pixels a warp must read: the in-range taps of every output
-    pixel (1, 4 or 16 per pixel), counted once each. The map is the kernel's
-    own (the float32 inverse_coefficients of M, evaluated in float64)."""
+def warp_source_pixels(Ms, src_hw, size, mode):
+    """Source pixels a warp by the forward matrices Ms must read: the
+    in-range taps (1, 4 or 16 per output pixel) of every map, counted once
+    each, however many maps read them (the maps of a batched launch read one
+    source). Each map is the kernel's own (the float32 inverse_coefficients
+    of M, evaluated in float64)."""
     from frtm_tpu_torch.ops.warp import inverse_coefficients
-    h = torch.tensor(inverse_coefficients(M), dtype=torch.float32, device="cuda").double()
+    H, W = src_hw
+    read = torch.zeros(H * W, dtype=torch.bool, device="cuda")
     yo, xo = torch.meshgrid(torch.arange(size[0], device="cuda", dtype=torch.float64),
                             torch.arange(size[1], device="cuda", dtype=torch.float64),
                             indexing="ij")
-    w = h[6] * xo + h[7] * yo + h[8]
-    xs, ys = (h[0] * xo + h[1] * yo + h[2]) / w, (h[3] * xo + h[4] * yo + h[5]) / w
-    if mode == "nearest":
-        xs, ys, offsets = torch.floor(xs + 0.5), torch.floor(ys + 0.5), [0]
-    else:
-        xs, ys = torch.floor(xs), torch.floor(ys)
-        offsets = [0, 1] if mode == "bilinear" else [-1, 0, 1, 2]
-    H, W = src_hw
-    read = torch.zeros(H * W, dtype=torch.bool, device="cuda")
-    for dy in offsets:
-        for dx in offsets:
-            x, y = (xs + dx).long(), (ys + dy).long()
-            ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
-            read[(y * W + x)[ok]] = True
+    for M in Ms:
+        h = torch.tensor(inverse_coefficients(M), dtype=torch.float32, device="cuda").double()
+        w = h[6] * xo + h[7] * yo + h[8]
+        xs, ys = (h[0] * xo + h[1] * yo + h[2]) / w, (h[3] * xo + h[4] * yo + h[5]) / w
+        if mode == "nearest":
+            xs, ys, offsets = torch.floor(xs + 0.5), torch.floor(ys + 0.5), [0]
+        else:
+            xs, ys = torch.floor(xs), torch.floor(ys)
+            offsets = [0, 1] if mode == "bilinear" else [-1, 0, 1, 2]
+        for dy in offsets:
+            for dx in offsets:
+                x, y = (xs + dx).long(), (ys + dy).long()
+                ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+                read[(y * W + x)[ok]] = True
     return int(read.sum())
 
 
@@ -664,7 +697,7 @@ def phase_kernels():
             ("label", lbl, Ts, (200, 240), "nearest"),
             ("foreground_worst", rgba, Tw, (200, 240), "bicubic")]:
         n_out = src.shape[0] * size[0] * size[1]
-        n_read = src.shape[0] * warp_source_pixels(M, src.shape[1:], size, mode)
+        n_read = src.shape[0] * warp_source_pixels([M], src.shape[1:], size, mode)
         taps = {"nearest": 1, "bilinear": 4, "bicubic": 16}[mode]
         # the library call: grid_sample on the kernel's own map (its nearest
         # rounds halves to even where the kernel takes floor(x + 0.5))
@@ -685,9 +718,155 @@ def phase_kernels():
         row["source_values_read"] = n_read
         row["launch_floor_ms"] = launch_floor_ms
         warps.append(row)
-    rows["warp_affine"] = warps
+    # the mixed paste first: the form the host augmenter launches on the main
+    # path (its label no longer takes a launch of its own, the "label" row)
+    forms = warp_form_rows(g, rgba, lbl, Ts, Tw, launch_floor_ms)
+    rows["warp_affine"] = forms[:2] + warps + [perspective_row(img, launch_floor_ms)]
+    rows["remap"] = remap_checks(img)
+    rows["warp_affine_batched"] = forms[2:]
     rows.update(backward_rows(g))
     emit({"phase": "kernels", "launch_floor_ms": launch_floor_ms, "rows": rows})
+    return rows
+
+
+def perspective_row(img, launch_floor_ms):
+    """warp_perspective on the card (kernel 3's direct variant, which takes
+    projective maps) against its plain version, bit-exact, on a full frame
+    (bicubic) by a projective matrix; with its byte bound and F.grid_sample's
+    time for the same work."""
+    import torch.nn.functional as F
+    from frtm_tpu_torch.ops.kernels import VARIANTS
+    from frtm_tpu_torch.ops.warp import inverse_coefficients, warp_affine_plain, warp_perspective
+    P = np.array([[1.05, 0.04, -20.0], [-0.03, 0.97, 12.0], [6e-5, -4e-5, 1.0]])
+    size = (480, 854)
+    n_read = img.shape[0] * warp_source_pixels([P], img.shape[1:], size, "bicubic")
+    n_out = img.shape[0] * size[0] * size[1]
+    grid = inverse_grid(P, size, img.shape[1:])
+    row = _compare(
+        "warp_perspective", [*img.shape, "bicubic", list(size)],
+        lambda: warp_perspective(img, P, size, "bicubic"),
+        lambda: warp_affine_plain(img, inverse_coefficients(P), size, "bicubic"),
+        lambda: F.grid_sample(img[None], grid, mode="bicubic", padding_mode="zeros",
+                              align_corners=True),
+        nbytes=4 * (n_read + n_out), flops=n_out * (2 * 16 + 20), tol=0.0)
+    before = dict(VARIANTS["warp_affine"])
+    warp_perspective(img, P, size, "bicubic")
+    row["variant"] = [v for v, n in VARIANTS["warp_affine"].items() if n > before[v]][0]
+    row.update(role="perspective", source_values_read=n_read, launch_floor_ms=launch_floor_ms)
+    if row["variant"] != "direct":
+        fail(f"kernels: warp_perspective took the {row['variant']} variant, not direct")
+    return row
+
+
+def remap_checks(img):
+    """remap (plain torch on both devices, as frtm_tpu's is XLA) on the card
+    against the same call on the CPU, bit-exact, in each mode, on a full
+    frame under a smooth distortion reaching past the edges; with the
+    card's time."""
+    from frtm_tpu_torch.ops.warp import remap
+    yy, xx = np.mgrid[0:480, 0:854].astype(np.float32)
+    map_x = xx * 1.02 - 8.0 + 6.0 * np.sin(yy / 40.0)
+    map_y = yy * 0.98 + 5.0 + 4.0 * np.cos(xx / 55.0)
+    mx, my = torch.from_numpy(map_x).cuda(), torch.from_numpy(map_y).cuda()
+    out = []
+    for mode in ("nearest", "bilinear", "bicubic"):
+        got = remap(img, mx, my, mode).cpu()
+        want = remap(img.cpu(), map_x, map_y, mode)
+        err = float((got - want).abs().max())
+        if err != 0.0:
+            fail(f"kernels: remap ({mode}) on the card differs from the CPU by {err}")
+        out.append({"mode": mode, "shape": [*img.shape, 480, 854], "max_abs_err": err,
+                    "tolerance": 0.0, "ms": cuda_ms(lambda mode=mode: remap(img, mx, my, mode))[0]})
+    return out
+
+
+def device_round_inputs(aug_params, size=(480, 854), seed=3):
+    """The inputs of the device augmenter's first retry round on a textured
+    frame with a 120 px square target: (inpainted, target crop, mask, fg_T,
+    fg_T_full, fg_K, bg_T, bg_K, out_hw) as batch_augment takes them."""
+    from frtm_tpu_torch.models import device_augmenter as tda
+    frame = textured_frame(size, seed)
+    mask = np.zeros(size + (1,), np.float32)
+    mask[180:300, 367:487] = 1
+    captured, inner = [], tda.batch_augment
+
+    def spy(*args):
+        captured.append(args)
+        return inner(*args)
+    tda.batch_augment = spy
+    try:
+        tda.DeviceAugmenter(aug_params, "cuda").augment_first_frame(frame, mask,
+                                                                    np.random.RandomState(0))
+    finally:
+        tda.batch_augment = inner
+    return captured[0]
+
+
+def warp_form_rows(g, rgba, lbl, Ts, Tw, launch_floor_ms):
+    """Kernel 3's mixed and batched launches against their plain versions
+    (bit-exact), each with its time, byte bound and F.grid_sample's time for
+    the same work: the host augmenter's paste (the RGBA target and its
+    label in one launch, the 200x240 box of the single-map rows; and the
+    worst footprint there), then one round of the device augmenter at S = 19
+    (the background, the target crop and the mask, each under its round's
+    maps)."""
+    import torch.nn.functional as F
+    from frtm_tpu_torch.config import eval_aug_params
+    from frtm_tpu_torch.ops.kernels import VARIANTS, warp_affine, warp_affine_batched
+    from frtm_tpu_torch.ops.warp import inverse_coefficients, warp_affine_batched_plain
+
+    both = torch.cat([rgba, lbl])
+    inp, crop, mask, fg_T, fg_Tf, _, bg_T, _, _ = device_round_inputs(eval_aug_params(5))
+    forms = [("paste_mixed", both, [Ts], (200, 240), "bicubic", 4, False),
+             ("paste_mixed_worst", both, [Tw], (200, 240), "bicubic", 4, False),
+             ("background_round", inp.float(), bg_T, (480, 854), "bicubic", None, True),
+             ("target_round", crop.float(), fg_T, (480, 854), "bicubic", None, True),
+             ("label_round", mask.float(), fg_Tf, (480, 854), "nearest", None, True)]
+    rows = []
+    for role, src, Ms, size, mode, nearest_from, batched in forms:
+        c = src.shape[0]
+        k = c if nearest_from is None else nearest_from
+        hinvs = np.stack([inverse_coefficients(M) for M in Ms])
+        # the source is read once for all maps: the union of their taps
+        n_read = (k * warp_source_pixels(Ms, src.shape[1:], size, mode)
+                  + (c - k) * warp_source_pixels(Ms, src.shape[1:], size, "nearest"))
+        n_out = len(Ms) * c * size[0] * size[1]
+        taps = {"nearest": 1, "bilinear": 4, "bicubic": 16}[mode]
+        flops = len(Ms) * size[0] * size[1] * (k * (2 * taps + 20) + (c - k) * 20)
+        grid = torch.cat([inverse_grid(M, size, src.shape[1:]) for M in Ms])
+
+        def lib(src=src, grid=grid, mode=mode, k=k):
+            # one grid_sample per mode over the S maps (nearest rounds halves
+            # to even where the kernel takes floor(x + 0.5))
+            s = src[None].expand(grid.shape[0], *src.shape)
+            out = F.grid_sample(s[:, :k], grid, mode=mode, padding_mode="zeros",
+                                align_corners=True)
+            if k < s.shape[1]:
+                out = F.grid_sample(s[:, k:], grid, mode="nearest", padding_mode="zeros",
+                                    align_corners=True)
+            return out
+
+        if batched:
+            kernel = (lambda src=src, Ms=Ms, size=size, mode=mode, nf=nearest_from:
+                      warp_affine_batched(src, Ms, size, mode, nf))
+        else:
+            kernel = (lambda src=src, M=Ms[0], size=size, mode=mode, nf=nearest_from:
+                      warp_affine(src, M, size, mode, nf)[None])
+        row = _compare(
+            "warp_affine", [c, *src.shape[1:], mode, list(size), len(Ms)], kernel,
+            lambda src=src, h=hinvs, size=size, mode=mode, nf=nearest_from:
+                warp_affine_batched_plain(src, h, size, mode, nf),
+            lib, nbytes=4 * (n_read + n_out), flops=flops, tol=0.0)
+        before = dict(VARIANTS["warp_affine"])
+        kernel()
+        row["variant"] = [v for v, n in VARIANTS["warp_affine"].items() if n > before[v]][0]
+        row.update(role=role, maps=len(Ms), nearest_from=nearest_from,
+                   source_values_read=n_read, launch_floor_ms=launch_floor_ms,
+                   library="F.grid_sample, one call per mode over the maps")
+        want = "staged_batched" if batched else "staged"
+        if row["variant"] != want:
+            fail(f"kernels: the {role} warp took the {row['variant']} variant, not {want}")
+        rows.append(row)
     return rows
 
 
@@ -1055,8 +1234,9 @@ def phase_fused(cfg, backbone, refiner):
         if ln["pyrup"] != 2 * windows or ln["conv3x3_cout1"] != windows:
             fail(f"fused ({name}): expected 2 pyrup and 1 head-conv launch per decode call "
                  f"({windows} windows), got {ln}")
-        if vr["direct"] or vr["staged"] != ln["warp_affine"] or ln["warp_affine"] != 8 * n_objects:
-            fail(f"fused ({name}): expected 8 staged warps per object and no direct one, "
+        # per object 4 accepted specs, each one mixed launch (RGBA + label)
+        if vr["direct"] or vr["staged"] != ln["warp_affine"] or ln["warp_affine"] != 4 * n_objects:
+            fail(f"fused ({name}): expected 4 staged warps per object and no other, "
                  f"got {ln['warp_affine']} launches, {vr}")
     if resolves != [tracked // cfg.disc.train_skipping] * n_objects:
         fail(f"fused: filter re-solves {resolves}, expected one per window and object")
@@ -1160,6 +1340,208 @@ def phase_init_scaling(cfg, backbone, refiner, card):
         fail(f"init_scaling: kernels at four objects over one grew by {grown}")
 
 
+def augment_call_readings(augmenter, image, mask, attempts=3):
+    """One augment_first_frame on the card: the kernels it ran (a
+    torch.profiler session), the port's kernel launches by variant, the
+    retry rounds, and the most memory it allocated over what was allocated
+    before it. A session that delivers no device event at all (torch.profiler
+    has been seen to lose a whole session's events while the launch counts
+    showed the call's kernels) is repeated, up to `attempts` calls;
+    `profiler_sessions` says how many it took."""
+    from torch.profiler import ProfilerActivity, profile
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    for session in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = augmenter.augment_first_frame(image, mask, np.random.RandomState(0))
+            torch.cuda.synchronize()
+        kernels = sum(1 for ev in prof.events() if is_kernel(ev))
+        if kernels:
+            break
+    return out, {"kernels": kernels, "profiler_sessions": session,
+                 "launches": dict(LAUNCHES), "warp_variants": dict(VARIANTS["warp_affine"]),
+                 "rounds": getattr(augmenter, "last_rounds", None),
+                 "peak_bytes_over_base": torch.cuda.max_memory_allocated() - base}
+
+
+def augment_backend_readings(cfg, backbone, refiner, n_objects, n_frames=9, passes=3):
+    """The fused tracker (480x854, n_objects 120 px squares from frame 0)
+    with augment_backend "host" and "device": per backend, after a warm-up
+    pass, the fps of `passes` unsynchronised passes (the port's kernel
+    launches counted from 0 over them), the augment and disc_init seconds
+    of a pass synchronised at every phase edge, the labels, and one
+    augment_first_frame of object 1 (augment_call_readings). Returns
+    ({backend: readings}, {backend: labels})."""
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    seq = make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
+                                      n_objects=n_objects, seed=0)
+    mask = (seq.labels[0][..., 0] == 1).astype(np.float32)[..., None]
+    readings, labels = {}, {}
+    for backend in ("host", "device"):
+        tracker = BatchedSequenceTracker(cfg, backbone, refiner, device="cuda",
+                                         augment_backend=backend)
+        tracker.run_sequence(seq)                      # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        fps = []
+        for _ in range(passes):
+            labels[backend], f = tracker.run_sequence(seq)
+            fps.append(f)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        variants = dict(VARIANTS["warp_affine"])
+        tracker.profile = True
+        _, fps_profiled = tracker.run_sequence(seq)
+        stats = tracker.last_phase_stats
+        _, call = augment_call_readings(tracker.augmenter, seq.images[0], mask)
+        readings[backend] = {
+            "fps": fps, "fps_median": statistics.median(fps), "fps_profiled": fps_profiled,
+            "phase_seconds_synchronised": {k: v["total_s"] for k, v in stats.items()},
+            "augment_s": stats["augment"]["total_s"], "disc_init_s": stats["disc_init"]["total_s"],
+            "launches_per_pass": {k: v / passes for k, v in launches.items()},
+            "warp_variants_per_pass": {k: v / passes for k, v in variants.items()},
+            "launches_timed_passes": launches, "augment_first_frame": call}
+        del tracker
+        torch.cuda.empty_cache()
+    return readings, labels
+
+
+def phase_device_augment(cfg, backbone, refiner, card):
+    """The device augment backend: DeviceAugmenter on the card against the
+    same call on the CPU and against the host augmenter on the card; the
+    launches of one round at 4 and at 19 specs; then the fused tracker at
+    full width in bfloat16 with both backends. Returns the port's kernel
+    launches of the device backend's timed passes (its main path)."""
+    from dataclasses import replace
+    from frtm_tpu_torch.models import device_augmenter as tda
+    from frtm_tpu_torch.models.augmenter import ImageAugmenter
+
+    aug_params = cfg.aug_params
+    frame = textured_frame((480, 854), seed=4)
+    mask = np.zeros((480, 854, 1), np.float32)
+    mask[150:270, 300:420] = 1
+    counts, inner = {}, tda.batch_augment
+
+    def spy_on(dev):
+        def spy(*args):
+            out = inner(*args)
+            counts.setdefault(dev, []).append(out[2].cpu().tolist())
+            return out
+        return spy
+    batches = {}
+    for dev in ("cuda", "cpu"):
+        tda.batch_augment = spy_on(dev)
+        try:
+            t0 = time.perf_counter()
+            batches[dev] = tda.DeviceAugmenter(aug_params, dev).augment_first_frame(
+                frame, mask, np.random.RandomState(0))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            tda.batch_augment = inner
+        if dev == "cpu":
+            cpu_seconds = seconds
+    batches["host"] = ImageAugmenter(aug_params, "cuda").augment_first_frame(
+        frame, mask, np.random.RandomState(0))
+
+    def gap(a, b):
+        d = (a[0].cpu().float() - b[0].cpu().float()).abs()
+        return {"labels_equal": bool(torch.equal(a[1].cpu(), b[1].cpu())),
+                "label_agreement": float((a[1].cpu() == b[1].cpu()).float().mean()),
+                "image_max_abs_diff": float(d.max()),
+                "image_share_differing": float((d > 0).float().mean())}
+    card_vs_cpu, device_vs_host = gap(batches["cuda"], batches["cpu"]), \
+        gap(batches["cuda"], batches["host"])
+
+    # one round's launches at 4 and at 19 specs (num_aug in the selections)
+    per_round = {}
+    for n in (5, 20):
+        p = dict(aug_params, fg_aug_params=dict(aug_params["fg_aug_params"], num_aug=n),
+                 bg_aug_params=dict(aug_params["bg_aug_params"], num_aug=n))
+        aug = tda.DeviceAugmenter(p, "cuda")
+        aug.augment_first_frame(frame, mask, np.random.RandomState(0))   # first launches
+        _, per_round[n] = augment_call_readings(aug, frame, mask)
+
+    bf16 = replace(cfg, compute_dtype="bfloat16")
+    readings, labels = augment_backend_readings(bf16, backbone, refiner, n_objects=2)
+    agreement = [float(np.mean(a == b)) for a, b in zip(labels["device"], labels["host"])]
+    sensitivity = augment_gap_sensitivity(
+        bf16, backbone, refiner, device_vs_host["image_share_differing"])
+    # the two backends' augment batches differ by one grey level on a share
+    # of their values (the CPU test's bound: under 0.1 %); the yardstick
+    # moves the host backend's own values by that share at other, seeded
+    # positions. The backends' label gap a frame stays within twice the
+    # yardstick's largest movement (positions other than the yardstick's
+    # may move labels as much again) plus the CPU tracker test's 0.5 %.
+    gap_limit = 2 * max(sensitivity) + 0.005
+    emit({"phase": "device_augment", "card": card, "arch": cfg.feature_extractor,
+          "size": [480, 854], "dtype": "bfloat16", "objects": 2, "frames": 9,
+          "augment_counts_per_round": counts["cuda"], "card_vs_cpu": card_vs_cpu,
+          "cpu_augment_s": cpu_seconds, "device_vs_host_augmenter": device_vs_host,
+          "round_at_4_specs": per_round[5], "round_at_19_specs": per_round[20],
+          "backends": readings, "tracker_label_agreement_device_vs_host": agreement,
+          "host_tracker_label_movement_under_augment_gap": sensitivity,
+          "tracker_label_gap_limit": gap_limit,
+          "tolerance": {"image_max_abs_diff": 1.0, "image_share_differing": 1e-3}})
+    if counts["cuda"] != counts["cpu"]:
+        fail(f"device_augment: visibility counts on the card {counts['cuda']} differ from the "
+             f"CPU's {counts['cpu']}")
+    for name, g in (("card vs CPU", card_vs_cpu), ("device vs host augmenter", device_vs_host)):
+        if not g["labels_equal"] or g["image_max_abs_diff"] > 1.0 \
+                or g["image_share_differing"] >= 1e-3:
+            fail(f"device_augment ({name}): {g}")
+    if max(1 - a for a in agreement) > gap_limit:
+        fail(f"device_augment: the backends' labels differ by up to "
+             f"{max(1 - a for a in agreement)} of a frame, over {gap_limit}")
+    r4, r19 = per_round[5], per_round[20]
+    if r4["rounds"] != 1 or r19["rounds"] != 1 or not r4["kernels"] \
+            or r4["kernels"] != r19["kernels"] or r4["launches"] != r19["launches"]:
+        fail(f"device_augment: one round at 4 and at 19 specs launched differently: {r4}, {r19}")
+    if not r19["warp_variants"]["staged_batched"] or r19["warp_variants"]["staged"] \
+            or r19["warp_variants"]["direct"]:
+        fail(f"device_augment: the round took no batched warp variant: {r19['warp_variants']}")
+    dev = readings["device"]
+    n_warps = dev["launches_timed_passes"]["warp_affine"]
+    if dev["warp_variants_per_pass"]["staged_batched"] != dev["launches_per_pass"]["warp_affine"] \
+            or n_warps % 3 or n_warps < 3 * 2 * 3:
+        fail(f"device_augment: expected 3 batched warps per round, at least one round per "
+             f"object and pass, all staged, got {dev['launches_timed_passes']}, "
+             f"{dev['warp_variants_per_pass']}")
+    return dev["launches_timed_passes"], readings
+
+
+def augment_gap_sensitivity(cfg, backbone, refiner, share, n_objects=2, n_frames=9):
+    """The yardstick for the two backends' label agreement: the host
+    backend's fused tracker on the device_augment sequence, once on its own
+    augment batches and once on the same batches with `share` of their
+    image values (the share the device augmenter's differ on) moved by one
+    grey level at seeded positions; per frame, the share of labels that
+    moved."""
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    seq = make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
+                                      n_objects=n_objects, seed=0)
+    tracker = BatchedSequenceTracker(cfg, backbone, refiner, device="cuda")
+    batches = tracker._augment_objects(tracker._collect_objects(seq))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    moved = []
+    for ims, lbs in batches:
+        flat = ims.flatten().clone()
+        n = max(1, round(share * flat.numel()))
+        pos = torch.randperm(flat.numel(), generator=g)[:n].to(flat.device)
+        step = torch.where(flat[pos] < 255, 1, -1).to(torch.int16)
+        flat[pos] = (flat[pos].to(torch.int16) + step).to(torch.uint8)
+        moved.append((flat.view_as(ims), lbs))
+    base, _ = tracker.run_sequence(seq, aug_batches=batches)
+    nudged, _ = tracker.run_sequence(seq, aug_batches=moved)
+    return [float(np.mean(a != b)) for a, b in zip(base, nudged)]
+
+
 class SyntheticDataset:
     """Synthetic sequences behind the interface the CLI reads of a dataset:
     a name, iteration over sequences, and per sequence the ground-truth
@@ -1198,7 +1580,7 @@ def phase_eval(cfg, backbone, refiner):
     tracked = n_frames - 1
     windows = -(-tracked // cfg.disc.train_skipping)
     expected = {"pyrup": 2 * windows * n_seqs, "conv3x3_cout1": windows * n_seqs,
-                "warp_affine": 8 * n_objects * n_seqs}
+                "warp_affine": 4 * n_objects * n_seqs}
 
     recorded = {}           # run tag -> {sequence name: (labels, fps)}
     enqueue = {}            # run tag -> {sequence name: {phase: host seconds}}
@@ -1241,10 +1623,18 @@ def phase_eval(cfg, backbone, refiner):
         BatchedSequenceTracker.run_sequence = recording
         BatchedSequenceTracker.run_dataset = timed_dataset
         try:
-            # the last run reads the committed DAVIS tree from disk: no dataset
-            # object, the CLI's own DAVISDataset and JPEG decoder
-            for tag, extra, dset in (("plain", [], dataset), ("pipelined", ["--pipeline"], dataset),
-                                     ("davis", ["--davis", str(FIXTURES / "davis")], None)):
+            # the last two runs read the committed DAVIS tree from disk: no
+            # dataset object, the CLI's own DAVISDataset and JPEG decoder; the
+            # last one with the committed frtm_tpu .npz model (a resnet18-width
+            # refiner, with no --backbone: a seeded random backbone)
+            davis_args = ["--davis", str(FIXTURES / "davis")]
+            npz_argv = ["--model", str(FIXTURES / "models" / "rn18_refiner.npz"),
+                        "--dset", "dv2017val", "--dev", "cuda", "--dtype", "bfloat16",
+                        "--engine", "fused"]
+            for tag, args, dset in (("plain", argv, dataset),
+                                    ("pipelined", argv + ["--pipeline"], dataset),
+                                    ("davis", argv + davis_args, None),
+                                    ("npz", npz_argv + davis_args, None)):
                 BatchedSequenceTracker.run_tag = tag
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1252,8 +1642,7 @@ def phase_eval(cfg, backbone, refiner):
                 text = io.StringIO()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(text):
-                    result = evaluate.main(argv + ["--output", str(tmp / tag)] + extra,
-                                           dataset=dset)
+                    result = evaluate.main(args + ["--output", str(tmp / tag)], dataset=dset)
                 torch.cuda.synchronize()
                 runs[tag] = dict(result, wall_s=time.perf_counter() - t0,
                                  launches=dict(LAUNCHES),
@@ -1282,6 +1671,7 @@ def phase_eval(cfg, backbone, refiner):
         # PNGs: all there, equal to what run_sequence returned, frame 0 the
         # ground truth, the pipelined run's equal byte for byte
         davis = runs.pop("davis")
+        npz = runs.pop("npz")
         for tag, run in runs.items():
             if run["out_path"] != (tmp / tag).resolve() / "synthval-rn101_smoke":
                 fail(f"eval: results went to {run['out_path']}")
@@ -1318,7 +1708,8 @@ def phase_eval(cfg, backbone, refiner):
                 fail(f"eval ({tag}): expected launches {expected}, got {ln}")
             if vr["pyrup"] != {"f32": 0, "bf16": expected["pyrup"]} \
                     or vr["conv3x3_cout1"] != {"f32": 0, "bf16": expected["conv3x3_cout1"]} \
-                    or vr["warp_affine"] != {"staged": expected["warp_affine"], "direct": 0}:
+                    or vr["warp_affine"] != {"staged": expected["warp_affine"], "direct": 0,
+                                             "staged_batched": 0, "direct_batched": 0}:
                 fail(f"eval ({tag}): every decode launch must take the bfloat16 instance and "
                      f"every warp the staged one, got {vr}")
         if (runs["plain"]["J"], runs["plain"]["F"]) != (runs["pipelined"]["J"],
@@ -1333,6 +1724,10 @@ def phase_eval(cfg, backbone, refiner):
             fail("eval: the pipelined run printed no aggregate line")
 
         davis_checks = check_davis_run(davis, recorded["davis"], tmp / "davis")
+        npz_checks = check_davis_run(npz, recorded["npz"], tmp / "npz", "rn18_refiner")
+        if npz["tracker"].cfg.feature_extractor != "resnet18" \
+                or "no --backbone weights given" not in npz["text"]:
+            fail("eval (npz): the CLI did not build the fixture's resnet18 tracker")
 
         # per sequence: fps and the host's cut-and-inpaint of its objects
         from frtm_tpu_torch.data.datasets import DAVISDataset
@@ -1386,6 +1781,7 @@ def phase_eval(cfg, backbone, refiner):
           "run_dataset_fps": {t: n_seqs * n_frames / w for t, w in walls.items()},
           "wall_s_with_load_and_scoring": {t: r["wall_s"] for t, r in runs.items()},
           "per_sequence": per_sequence, "davis_tree": davis_checks,
+          "davis_tree_npz_model": npz_checks,
           "J": runs["plain"]["J"], "F": runs["plain"]["F"],
           "launches": {t: r["launches"] for t, r in runs.items()},
           "instances": {t: r["variants"] for t, r in runs.items()},
@@ -1404,8 +1800,9 @@ def phase_eval(cfg, backbone, refiner):
         fail(f"eval: a re-run of the CLI's tracker differs on {rerun_diff:.4%} of a frame")
     if not max(gap) <= 5e-2:
         fail(f"eval: bfloat16 labels differ from float32 on {max(gap):.2%} of a frame")
-    return ({k: runs["plain"]["launches"][k] + davis["launches"][k] for k in expected},
-            {k: {i: runs["plain"]["variants"][k][i] + davis["variants"][k][i]
+    counted = (runs["plain"], davis, npz)
+    return ({k: sum(r["launches"][k] for r in counted) for k in expected},
+            {k: {i: sum(r["variants"][k][i] for r in counted)
                  for i in runs["plain"]["variants"][k]} for k in expected})
 
 
@@ -1422,7 +1819,7 @@ def phase_ytvos(backbone, refiner):
     name, n_frames, entry = "0a1b2c3d4e", 9, 4
     anno = tree / "valid" / "Annotations" / name
     # the per-frame loop (entry at 4 is not on a window of 8): 8 decodes of 2 lanes
-    expected = {"pyrup": 16, "conv3x3_cout1": 8, "warp_affine": 16}
+    expected = {"pyrup": 16, "conv3x3_cout1": 8, "warp_affine": 8}
     recorded = []
     original = BatchedSequenceTracker.run_sequence
 
@@ -1489,7 +1886,7 @@ def phase_ytvos(backbone, refiner):
         for tag, r in runs.items():
             ln, vr = r["launches"], r["variants"]
             if {k: ln[k] for k in expected} != expected or vr["pyrup"]["f32"] \
-                    or vr["conv3x3_cout1"]["f32"] or vr["warp_affine"]["direct"]:
+                    or vr["conv3x3_cout1"]["f32"] or vr["warp_affine"]["staged"] != 8:
                 fail(f"ytvos ({tag}): expected launches {expected}, all bf16 / staged, "
                      f"got {ln}, {vr}")
 
@@ -1563,13 +1960,14 @@ def cut_inpaint_seconds(image, labels):
     return time.perf_counter() - t0
 
 
-def check_davis_run(run, recorded, out_root):
+def check_davis_run(run, recorded, out_root, model="rn101_smoke"):
     """The CLI's run over the committed DAVIS tree: 9 PNGs equal to what was
     tracked, frame 0 the ground truth, both reports, launches of one window
-    of two objects, all bf16 / staged."""
+    of two objects (4 warps each, one per accepted spec), all bf16 /
+    staged."""
     from frtm_tpu_torch.data.image import imread
     anno = FIXTURES / "davis" / "Annotations" / "480p" / "blobs"
-    if run["out_path"] != out_root.resolve() / "dv2017val-rn101_smoke" or list(recorded) != ["blobs"]:
+    if run["out_path"] != out_root.resolve() / f"dv2017val-{model}" or list(recorded) != ["blobs"]:
         fail(f"eval (davis): results went to {run['out_path']}, sequences {list(recorded)}")
     labels, fps = recorded["blobs"]
     files = sorted((run["out_path"] / "blobs").glob("*.png"))
@@ -1584,10 +1982,10 @@ def check_davis_run(run, recorded, out_root):
         last = (run["out_path"] / f"evaluation-{measure}.txt").read_text().splitlines()[-1]
         if not (np.isfinite(run[measure]) and last.startswith(f"{measure}: {run[measure]:.3f}")):
             fail(f"eval (davis): report ends {last!r}, returned {run[measure]}")
-    want = {"pyrup": 2, "conv3x3_cout1": 1, "warp_affine": 16}
+    want = {"pyrup": 2, "conv3x3_cout1": 1, "warp_affine": 8}
     ln, vr = run["launches"], run["variants"]
     if {k: ln[k] for k in want} != want or vr["pyrup"]["bf16"] != 2 \
-            or vr["conv3x3_cout1"]["bf16"] != 1 or vr["warp_affine"]["staged"] != 16:
+            or vr["conv3x3_cout1"]["bf16"] != 1 or vr["warp_affine"]["staged"] != 8:
         fail(f"eval (davis): expected launches {want}, all bf16 / staged, got {ln}, {vr}")
     return {"fps": fps, "frames": len(labels), "J": run["J"], "F": run["F"],
             "launches": ln, "wall_s_with_load_and_scoring": run["wall_s"],
@@ -1863,7 +2261,7 @@ def phase_train(backbone, card):
 
 
 def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                 launches_ytvos, instances_ytvos, launches_train, ptxas):
+                 launches_ytvos, instances_ytvos, launches_train, launches_device, ptxas):
     """The contract line: one entry per kernel instance at its main-path
     shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
     host loop runs them, and at N = 16 in bfloat16, the eval path's window of
@@ -1871,8 +2269,11 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
     kernels at the training batch, N = 16, pyrup's at stage 2). `launches`
     sums the paths that run the instance, each counted from 0: the host loop,
     the float32 fused tracker and the two training runs for the float32
-    instances, the unpipelined CLI runs (synthetic and DAVIS tree) and the
-    YouTube-VOS CLI run for the bfloat16 ones, all of them for the warp.
+    instances, the unpipelined CLI runs (synthetic, DAVIS tree, DAVIS tree
+    with the .npz model) and the YouTube-VOS CLI run for the bfloat16 ones,
+    all of them for the one-map warp (its main row the host augmenter's
+    mixed paste), and the device augment backend's timed passes for the
+    batched warp (its main row a round's backgrounds, S = 19).
     Each entry carries ptxas's readings of its source's kernel functions,
     each bfloat16 entry its time over the float32 instance's (bf16_over_f32),
     and each entry whose row names them the variant its launch took and the
@@ -1881,7 +2282,8 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                ("warp_affine", "warp_affine", 0, True), ("pyrup_bf16", "pyrup", 5, True),
                ("conv3x3_cout1_bf16", "conv3x3_cout1", 2, True),
                ("pyrup_bwd", "pyrup_bwd", 1, False), ("conv3x3_cout1_dx", "conv3x3_cout1_dx", 0, False),
-               ("conv3x3_cout1_dw", "conv3x3_cout1_dw", 0, False)]
+               ("conv3x3_cout1_dw", "conv3x3_cout1_dw", 0, False),
+               ("warp_affine_batched", "warp_affine", 0, False)]
     out = []
     for name, kernel, main_row, in_eval in entries:
         replaces, source = KERNEL_INFO[name]
@@ -1893,18 +2295,22 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
             if in_eval else 0
         n_host, n_fused = (0, 0) if bf16 else (launches[kernel], launches_fused[kernel])
         n_train = 0 if bf16 else launches_train[kernel]
+        n_device = 0
+        if name == "warp_affine_batched":
+            n_host = n_fused = n_train = 0
+            n_device = launches_device[kernel]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": n_host + n_fused + n_eval + n_ytvos + n_train,
+                    "launches": n_host + n_fused + n_eval + n_ytvos + n_train + n_device,
                     "launches_host_loop": n_host, "launches_fused": n_fused,
                     "launches_eval": n_eval, "launches_ytvos": n_ytvos,
-                    "launches_train": n_train,
+                    "launches_train": n_train, "launches_device_augment": n_device,
                     "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "shape": r["shape"], "tolerance": r["tolerance"],
                     **({"bf16_over_f32": r["bf16_over_f32"]} if bf16 else {}),
-                    **{k: r[k] for k in ("variant", "rows", "warps") if k in r},
+                    **{k: r[k] for k in ("variant", "rows", "warps", "role", "maps") if k in r},
                     "ptxas": ptxas.get(Path(source).stem),
                     "other_shapes": [o for i, o in enumerate(rows[name]) if i != main_row]})
     return {"kernels": out}
@@ -1934,6 +2340,7 @@ def main():
     launches = phase_main(tracker, seq)
     launches_fused = phase_fused(cfg, tracker.backbone, tracker.refiner)
     phase_init_scaling(cfg, tracker.backbone, tracker.refiner, card)
+    launches_device, _ = phase_device_augment(cfg, tracker.backbone, tracker.refiner, card)
     launches_eval, instances_eval = phase_eval(cfg, tracker.backbone, tracker.refiner)
     launches_ytvos, instances_ytvos = phase_ytvos(tracker.backbone, tracker.refiner)
     backbone = tracker.backbone
@@ -1942,7 +2349,7 @@ def main():
     launches_train = phase_train(backbone, card)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                      launches_ytvos, instances_ytvos, launches_train, ptxas))
+                      launches_ytvos, instances_ytvos, launches_train, launches_device, ptxas))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

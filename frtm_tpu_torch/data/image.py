@@ -1,12 +1,14 @@
-"""Image IO (frtm_tpu/data/image.py): reading frames and annotations, and
+"""Image IO (frtm_tpu/data/image.py): reading frames and annotations,
 writing label images as indexed-colour PNGs with the DAVIS palette, which is
-what the DAVIS tooling reads. (H, W, C) numpy arrays throughout.
+what the DAVIS tooling reads, and writing greyscale, RGB and RGBA images as
+PNG (`imwrite`). (H, W, C) numpy arrays throughout.
 
 Nothing here needs PIL, cv2 or libpng's headers, none of which the port may
 assume. PNG goes through this module's own codec: chunks and inflation with
 `zlib` and `struct` from the standard library, the row unfilter in the port's
 host library (utils/native.py; `_unfilter_plain` is its plain version). It
-writes 8-bit indexed PNG with a PLTE chunk; it reads non-interlaced 8-bit PNG
+writes 8-bit PNG, indexed with a PLTE chunk or greyscale, grey + alpha, RGB
+and RGBA, every row unfiltered; it reads non-interlaced 8-bit PNG
 of every colour type (greyscale, RGB, indexed, and both with alpha) with all
 five scanline filters (None, Sub, Up, Average, Paeth: other writers choose a
 filter per row), and raises on what it does not read (16-bit samples, bit
@@ -55,13 +57,35 @@ def encode_png_indexed(labels, palette) -> bytes:
     if palette.ndim != 2 or palette.shape[1] != 3 or not 1 <= palette.shape[0] <= 256:
         raise ValueError(f"encode_png_indexed: palette shape {palette.shape}")
     h, w = labels.shape
-    # every scanline starts with its filter type; 0 = None
-    rows = np.zeros((h, w + 1), np.uint8)
-    rows[:, 1:] = labels
+    return _encode_png(labels, w, h, 3, _chunk(b"PLTE", palette.tobytes()))
+
+
+# PNG colour type by samples per pixel: grey, grey + alpha, RGB, RGBA
+_COLOUR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
+def encode_png(im) -> bytes:
+    """The bytes of an 8-bit PNG of a (H, W) or (H, W, C) uint8 image, C = 1
+    (greyscale), 2 (grey + alpha), 3 (RGB) or 4 (RGBA)."""
+    im = np.asarray(im)
+    if im.dtype != np.uint8:
+        raise TypeError(f"encode_png: expected uint8, got {im.dtype}")
+    if im.ndim == 2:
+        im = im[..., None]
+    if im.ndim != 3 or im.shape[2] not in _COLOUR_TYPE:
+        raise ValueError(f"encode_png: expected (H, W) or (H, W, 1-4), got {im.shape}")
+    h, w, c = im.shape
+    return _encode_png(np.ascontiguousarray(im).reshape(h, w * c), w, h, _COLOUR_TYPE[c])
+
+
+def _encode_png(rows, w, h, ctype, extra=b"") -> bytes:
+    """A PNG of (h, w * samples) uint8 rows, each written with filter None."""
+    data = np.zeros((h, rows.shape[1] + 1), np.uint8)
+    data[:, 1:] = rows
     return (_PNG_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
-            + _chunk(b"PLTE", palette.tobytes())
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + extra
+            + _chunk(b"IDAT", zlib.compress(data.tobytes(), 6))
             + _chunk(b"IEND", b""))
 
 
@@ -180,3 +204,12 @@ def imwrite_indexed(filename, labels, color_palette=None):
     if labels.ndim == 3 and labels.shape[2] == 1:
         labels = labels[..., 0]
     Path(filename).write_bytes(encode_png_indexed(labels, palette))
+
+
+def imwrite(filename, im):
+    """Write a uint8 image, (H, W), (H, W, 1), (H, W, 3) or (H, W, 4), as PNG;
+    the counterpart of frtm_tpu/data/image.py::imwrite for PNG files. Other
+    formats (JPEG) are not written: they raise."""
+    if Path(filename).suffix.lower() != ".png":
+        raise ValueError(f"imwrite writes PNG only (a .png file name), got {filename}")
+    Path(filename).write_bytes(encode_png(im))

@@ -5,7 +5,7 @@ the JAX package's evaluate.py, with its command-line surface.
         --davis /data/DAVIS --backbone resnet101.pth --output /data/results
 
 It loads a reference-format refiner .pth (the backbone is autodetected from
-it), builds the eval configuration, tracks every sequence of the dataset,
+it) or a frtm_tpu `.npz` model (its arch is stored in it), builds the eval configuration, tracks every sequence of the dataset,
 writes indexed PNGs under <output>/<dataset>-<model>[_fast]/<sequence>/ and
 scores J and F into evaluation-J.txt and evaluation-F.txt beside them.
 
@@ -16,6 +16,7 @@ there is none; `--dev cpu` must be asked for. `--dtype` defaults to bfloat16,
 """
 import argparse
 import sys
+import zipfile
 from pathlib import Path
 
 import torch
@@ -82,7 +83,7 @@ def load_models(args):
     """What both CLIs load: (model path, arch, refiner, backbone) on
     args.dev, the backbone seeded at random where --backbone is not given.
     Exits with an error where --dev cuda finds no card, or the model file is
-    missing or not a reference-format .pth."""
+    missing or neither a reference-format .pth nor a frtm_tpu .npz model."""
     if args.dev == "cuda" and not torch.cuda.is_available():
         sys.exit("--dev cuda: no CUDA device is available (torch.cuda.is_available() is "
                  "false); nothing runs on the CPU unless --dev cpu asks for it")
@@ -92,10 +93,15 @@ def load_models(args):
     model_path = Path(args.model)
     if not model_path.exists():
         sys.exit(f"Model file '{model_path}' not found.")
-    if model_path.suffix != ".pth":
-        sys.exit(f"{model_path.name}: only reference-format .pth checkpoints are read; the "
-                 "JAX package's .npz format is not ported (ROADMAP.md queue item 8)")
-    arch, refiner = ckpt.load_reference_model(model_path, device=args.dev)
+    if model_path.suffix == ".pth":
+        arch, refiner = ckpt.load_reference_model(model_path, device=args.dev)
+    else:
+        # the JAX package's own model format, as its CLIs read it
+        try:
+            arch, refiner = ckpt.load_jax_model(model_path, device=args.dev)
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile) as e:
+            sys.exit(f"{model_path.name}: not a reference-format .pth nor a frtm_tpu .npz "
+                     f"model ({e})")
     if args.backbone:
         backbone = ckpt.load_backbone(args.backbone, arch, device=args.dev)
     else:

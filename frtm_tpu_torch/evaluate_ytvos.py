@@ -14,8 +14,8 @@ go to <output>/ytvos2018valid_all_frames/Annotations/<sequence>/.
 
 It runs on the card (`--dev cuda`, the default) and exits with an error where
 there is none; `--dev cpu` must be asked for. `--model` takes a
-reference-format .pth; the JAX package's own .npz checkpoints are not
-ported (ROADMAP.md queue item 8).
+reference-format .pth or a frtm_tpu `.npz` model, as the JAX package's CLI
+does.
 """
 import argparse
 from dataclasses import replace

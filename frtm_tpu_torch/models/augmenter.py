@@ -4,9 +4,10 @@ affine and blur transforms to build the target model's initial training set.
 
 The spec and accept sequence comes from the caller's np.random.RandomState
 exactly as in the JAX augmenter. Cutting and Telea inpainting run on the host
-(models/inpaint.py, no cv2); every warp — the background warp and the
-foreground's bicubic RGBA and nearest label warps — runs through kernel 3
-(ops/kernels/warp_affine.py) on the augmenter's device, the blur filters are
+(models/inpaint.py, no cv2); every warp runs through kernel 3
+(ops/kernels/warp_affine.py) on the augmenter's device — the background
+warp, and the foreground's RGBA target (bicubic) and label (nearest) in one
+mixed launch under their common map — the blur filters are
 zero-border per-channel convolutions there, and the batch is composed there.
 With `compact=True` the pieces of the batch are returned instead of its K
 full frames (CompactAugBatch; models/aug_compose.py composes them).
@@ -217,10 +218,12 @@ class ImageAugmenter:
         out = F.conv2d(planes[:, None], k, padding=(kernel.shape[0] // 2, kernel.shape[1] // 2))
         return out[:, 0]
 
-    def _paste_bbox(self, target, labels, T, G, src_bbox, im_size):
+    def _paste_bbox(self, target_lbl, T, G, src_bbox, im_size):
         """Warped, blurred target patch restricted to its transformed bbox:
         (None, box, None) when it lands fully off-frame, else (RGBA patch
-        (4, h, w) float32, (y0, y1, x0, x1), label patch (1, h, w) float32)."""
+        (4, h, w) float32, (y0, y1, x0, x1), label patch (1, h, w) float32).
+        target_lbl: the RGBA target and the label, (5, H, W) float32; one
+        warp samples the first four planes bicubic and the label nearest."""
         H, W = im_size
         cx, cy, bw, bh = src_bbox
         margin = 3 + G.shape[0] // 2
@@ -236,9 +239,8 @@ class ImageAugmenter:
             return None, (y0, y1, x0, x1), None
         Ts = _translate(-x0, -y0) @ np.asarray(T)
         sub = (y1 - y0, x1 - x0)
-        tgt = warp_affine(target, Ts, sub, "bicubic").clamp(0, 255)
-        lbl = warp_affine(labels, Ts, sub, "nearest")
-        return self._filter(tgt, G), (y0, y1, x0, x1), lbl
+        both = warp_affine(target_lbl, Ts, sub, "bicubic", nearest_from=4)
+        return self._filter(both[:4].clamp(0, 255), G), (y0, y1, x0, x1), both[4:]
 
     # -- top level ----------------------------------------------------------
 
@@ -280,6 +282,7 @@ class ImageAugmenter:
         labels = torch.from_numpy(np.ascontiguousarray(
             np.asarray(mask, np.float32).transpose(2, 0, 1))).to(dev)
         inpainted = torch.from_numpy(np.ascontiguousarray(inpainted.transpose(2, 0, 1))).to(dev)
+        target_lbl = torch.cat([target, labels])
 
         fg_sel = dict(p["fg_aug_params"])
         fg_sel["location"] = self.generate_target_locations(p["num_aug"], im_sz, rng)
@@ -347,8 +350,8 @@ class ImageAugmenter:
                     break
                 base_idx, bg_kern, bg_f32, bg_u8 = bg_for(bg_spec)
                 T, G = self.get_transform(fg_spec, tg_bbox, im_sz)
-                tgt, (y0, y1, x0, x1), lbl = self._paste_bbox(target, labels, T, G,
-                                                              tg_bbox, im_sz)
+                tgt, (y0, y1, x0, x1), lbl = self._paste_bbox(target_lbl, T, G, tg_bbox,
+                                                              im_sz)
                 if tgt is not None:
                     lbl_u8 = lbl.to(torch.uint8)
                     px = int((lbl_u8 == 1).sum())

@@ -9,10 +9,11 @@ from .pyrup import (pyr_up_bicubic, pyr_up_bicubic_backward, pyr_up_bicubic_back
 from .conv3x3_cout1 import (conv3x3_cout1, conv3x3_cout1_input_grad,
                             conv3x3_cout1_input_grad_plain, conv3x3_cout1_plain,
                             conv3x3_cout1_weight_grad, conv3x3_cout1_weight_grad_plain)
-from .warp_affine import warp_affine
+from .warp_affine import warp_affine, warp_affine_batched
 
 __all__ = ["KERNELS", "LAUNCHES", "VARIANTS", "build", "reset_launches",
            "pyr_up_bicubic", "pyr_up_bicubic_plain", "pyr_up_bicubic_backward",
            "pyr_up_bicubic_backward_plain", "conv3x3_cout1", "conv3x3_cout1_plain",
            "conv3x3_cout1_input_grad", "conv3x3_cout1_input_grad_plain",
-           "conv3x3_cout1_weight_grad", "conv3x3_cout1_weight_grad_plain", "warp_affine"]
+           "conv3x3_cout1_weight_grad", "conv3x3_cout1_weight_grad_plain", "warp_affine",
+           "warp_affine_batched"]

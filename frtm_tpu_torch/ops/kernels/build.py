@@ -10,7 +10,8 @@ raises; there is no fallback.
 LAUNCHES counts, per kernel, the launches its wrapper made; a run reads it to
 show which kernels the main path went through. VARIANTS splits each kernel's
 count by the instance a launch took: the element type of kernels 1 and 2, the
-staged or direct variant of the warp, the load width of `pyrup_bwd` (16,
+staged or direct variant of the warp (one map, or S maps in one launch:
+"staged_batched", "direct_batched"), the load width of `pyrup_bwd` (16,
 8 or 4 bytes: "v4", "v2", "v1") and of `conv3x3_cout1_dw` (8 or 4 bytes:
 "v2", "v1"), and the store width of `conv3x3_cout1_dx` (8 or 4 bytes: "v2",
 "v1"). The backward kernels of 1 and 2 (`pyrup_bwd`,
@@ -42,7 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {name: 0 for name in KERNELS}
 VARIANTS = {"pyrup": {"f32": 0, "bf16": 0},
             "conv3x3_cout1": {"f32": 0, "bf16": 0},
-            "warp_affine": {"staged": 0, "direct": 0},
+            "warp_affine": {"staged": 0, "direct": 0, "staged_batched": 0,
+                            "direct_batched": 0},
             "pyrup_bwd": {"v4": 0, "v2": 0, "v1": 0}, "conv3x3_cout1_dx": {"v2": 0, "v1": 0},
             "conv3x3_cout1_dw": {"v2": 0, "v1": 0}}
 # the element types kernels 1 and 2 are instantiated for, by instance name

@@ -19,7 +19,19 @@
 // kernel's one-hot selection-matrix products (99.6% multiplications by zero)
 // worked around the TPU's lack of a vector gather; a GPU gathers directly.
 //
-// Two variants; ops/kernels/warp_affine.py::plan_warp picks one per call.
+// One launch takes S inverse maps (S <= 32, in the launch's parameters) and
+// writes S outputs from one source, (S, C + CN, OH, OW): block z samples map
+// z. Its C leading planes take the launch's mode and its CN trailing planes
+// nearest taps, under the same map (a mixed launch: the augmenter's RGBA
+// target and its label). A nearest tap floor(v + 0.5) lies in floor(v) ..
+// floor(v) + 1, inside the bilinear and bicubic boxes, so a tile whose box
+// misses the image is zeros in every plane. The staged variant stages only
+// the C leading planes: a trailing plane's one tap per output is read from
+// global memory through the read-only cache, so a mixed launch plans and
+// stages exactly as a launch of its C planes would.
+//
+// Two variants; ops/kernels/warp_affine.py::plan_warp picks one per launch,
+// the staged one only where every map's boxes fit the plan.
 //
 // STAGED (affine maps, the augmenter's every warp). A block owns a 16x32
 // output tile: 8 warps of 2 outputs each for small outputs (a paste box:
@@ -63,6 +75,19 @@ namespace {
 struct Inverse {
   float h[9];
 };
+
+// The inverse maps of one launch, block z taking map z.
+constexpr int kMaxMaps = 32;
+struct Maps {
+  float h[kMaxMaps * 9];
+};
+
+__device__ __forceinline__ Inverse map_of(const Maps& maps, int z) {
+  Inverse m;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) m.h[k] = maps.h[9 * z + k];
+  return m;
+}
 
 // The Keys weight's two pieces (a = -0.75: (a+2) = 1.25, (a+3) = 2.25,
 // 5a = -3.75, 8a = -6, 4a = -3), x = |t|; x^3 = (x*x)*x as in the plain version.
@@ -131,11 +156,12 @@ __device__ __forceinline__ int to_index(float v, int n) {
 // ---------------------------------------------------------------------------
 // DIRECT: one output pixel, every channel, taps from global memory.
 
+// Planes c0 .. c1 - 1 of one output pixel.
 template <int MODE>
 __device__ __forceinline__ void warp_pixel_direct(const float* __restrict__ src,
-                                                  float* __restrict__ out, int C, int H,
-                                                  int W, int OH, int OW, const Inverse& m,
-                                                  int ox, int oy) {
+                                                  float* __restrict__ out, int c0, int c1,
+                                                  int H, int W, int OH, int OW,
+                                                  const Inverse& m, int ox, int oy) {
   const float xo = static_cast<float>(ox);
   const float yo = static_cast<float>(oy);
   const float* h = m.h;
@@ -152,7 +178,7 @@ __device__ __forceinline__ void warp_pixel_direct(const float* __restrict__ src,
   if (MODE == 0) {
     const int ix = to_index(tap_base<0>(xs), W);
     const int iy = to_index(tap_base<0>(ys), H);
-    for (int c = 0; c < C; ++c) o[c * oplane] = tap(src + c * plane, ix, iy, H, W);
+    for (int c = c0; c < c1; ++c) o[c * oplane] = tap(src + c * plane, ix, iy, H, W);
     return;
   }
 
@@ -168,7 +194,7 @@ __device__ __forceinline__ void warp_pixel_direct(const float* __restrict__ src,
     const float gy = __fsub_rn(1.f, fy);
     const float w00 = __fmul_rn(gx, gy), w10 = __fmul_rn(fx, gy);
     const float w01 = __fmul_rn(gx, fy), w11 = __fmul_rn(fx, fy);
-    for (int c = 0; c < C; ++c) {
+    for (int c = c0; c < c1; ++c) {
       const float* p = src + c * plane;
       float acc = __fmul_rn(w00, tap(p, ix0, iy0, H, W));
       acc = __fadd_rn(acc, __fmul_rn(w10, tap(p, ix0 + 1, iy0, H, W)));
@@ -185,7 +211,7 @@ __device__ __forceinline__ void warp_pixel_direct(const float* __restrict__ src,
     wx[k] = cubic_weight(__fsub_rn(static_cast<float>(k - 1), fx));
     wy[k] = cubic_weight(__fsub_rn(static_cast<float>(k - 1), fy));
   }
-  for (int c = 0; c < C; ++c) {
+  for (int c = c0; c < c1; ++c) {
     const float* p = src + c * plane;
     float acc = 0.f;
 #pragma unroll
@@ -205,12 +231,15 @@ constexpr int kDirectY = 8;
 
 template <int MODE>
 __global__ void __launch_bounds__(kDirectX * kDirectY)
-warp_direct_kernel(const float* __restrict__ src, float* __restrict__ out, int C, int H,
-                   int W, int OH, int OW, Inverse m) {
+warp_direct_kernel(const float* __restrict__ src, float* __restrict__ out, int C, int CN,
+                   int H, int W, int OH, int OW, Maps maps) {
   const int ox = blockIdx.x * kDirectX + threadIdx.x;
   const int oy = blockIdx.y * kDirectY + threadIdx.y;
   if (ox >= OW || oy >= OH) return;
-  warp_pixel_direct<MODE>(src, out, C, H, W, OH, OW, m, ox, oy);
+  const Inverse m = map_of(maps, blockIdx.z);
+  out += static_cast<size_t>(blockIdx.z) * (C + CN) * OH * OW;
+  warp_pixel_direct<MODE>(src, out, 0, C, H, W, OH, OW, m, ox, oy);
+  if (CN > 0) warp_pixel_direct<0>(src, out, C, C + CN, H, W, OH, OW, m, ox, oy);
 }
 
 // ---------------------------------------------------------------------------
@@ -301,8 +330,8 @@ __device__ __forceinline__ void tile_box(const Inverse& m, float xa, float xb, f
 // 85 registers a thread.
 template <int MODE, int kWarps>
 __global__ void __launch_bounds__(32 * kWarps, 24 / kWarps)
-warp_staged_kernel(const float* __restrict__ src, float* __restrict__ out, int C, int H,
-                   int W, int OH, int OW, Inverse m, int SW, int SH, bool pairs) {
+warp_staged_kernel(const float* __restrict__ src, float* __restrict__ out, int C, int CN,
+                   int H, int W, int OH, int OW, Maps maps, int SW, int SH, bool pairs) {
   extern __shared__ __align__(16) float stage[];
   constexpr int lo = Taps<MODE>::lo;
   constexpr int kPerThread = kTileX * kTileY / (32 * kWarps);
@@ -310,6 +339,8 @@ warp_staged_kernel(const float* __restrict__ src, float* __restrict__ out, int C
   const int ty0 = blockIdx.y * kTileY;
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t oplane = static_cast<size_t>(OH) * OW;
+  const Inverse m = map_of(maps, blockIdx.z);
+  out += static_cast<size_t>(blockIdx.z) * (C + CN) * oplane;
   // output i of this thread: lane (x, y) of the 8x4 patch warp + kWarps * i;
   // with a box row pitch of 8 mod 32 words a patch's taps spread over the
   // banks, rotated or not (a row of 32 outputs, or x-adjacent output pairs
@@ -331,7 +362,7 @@ warp_staged_kernel(const float* __restrict__ src, float* __restrict__ out, int C
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       if (ox[i] < OW && oy[i] < OH)
-        for (int c = 0; c < C; ++c)
+        for (int c = 0; c < C + CN; ++c)
           out[c * oplane + static_cast<size_t>(oy[i]) * OW + ox[i]] = 0.f;
     }
     return;
@@ -392,77 +423,81 @@ warp_staged_kernel(const float* __restrict__ src, float* __restrict__ out, int C
       if (valid[i]) o[static_cast<size_t>(oy[i]) * OW + ox[i]] = v;
     }
   }
+  if (CN == 0) return;
+  // a mixed launch's trailing planes: each output's nearest tap from global
+  // memory (its coordinates again, rather than registers held across the
+  // loop above)
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    if (!valid[i]) continue;
+    float xs, ys;
+    affine_map(m, static_cast<float>(ox[i]), static_cast<float>(oy[i]), xs, ys);
+    const int ix = to_index(tap_base<0>(xs), W), iy = to_index(tap_base<0>(ys), H);
+    float* o = out + static_cast<size_t>(oy[i]) * OW + ox[i];
+    for (int c = C; c < C + CN; ++c) o[c * oplane] = tap(src + c * plane, ix, iy, H, W);
+  }
 }
 
 template <int MODE, int kWarps>
-cudaError_t launch_staged(size_t smem, cudaStream_t stream, const float* src, float* out,
-                          int C, int H, int W, int OH, int OW, const Inverse& m, int SW, int SH,
-                          bool pairs) {
+cudaError_t launch_staged(size_t smem, cudaStream_t stream, dim3 grid, const float* src,
+                          float* out, int C, int CN, int H, int W, int OH, int OW,
+                          const Maps& maps, int SW, int SH, bool pairs) {
   auto kernel = warp_staged_kernel<MODE, kWarps>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            kStagedSmemBytes);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid((OW + kTileX - 1) / kTileX, (OH + kTileY - 1) / kTileY);
-  kernel<<<grid, 32 * kWarps, smem, stream>>>(src, out, C, H, W, OH, OW, m, SW, SH, pairs);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(src, out, C, CN, H, W, OH, OW, maps, SW, SH,
+                                              pairs);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch_staged_mode(bool wide, size_t smem, cudaStream_t stream, const float* src,
-                               float* out, int C, int H, int W, int OH, int OW,
-                               const Inverse& m, int SW, int SH, bool pairs) {
-  return wide ? launch_staged<MODE, 4>(smem, stream, src, out, C, H, W, OH, OW, m, SW, SH, pairs)
-              : launch_staged<MODE, 8>(smem, stream, src, out, C, H, W, OH, OW, m, SW, SH, pairs);
+cudaError_t launch_staged_mode(bool wide, size_t smem, cudaStream_t stream, dim3 grid,
+                               const float* src, float* out, int C, int CN, int H, int W,
+                               int OH, int OW, const Maps& maps, int SW, int SH, bool pairs) {
+  return wide ? launch_staged<MODE, 4>(smem, stream, grid, src, out, C, CN, H, W, OH, OW, maps,
+                                       SW, SH, pairs)
+              : launch_staged<MODE, 8>(smem, stream, grid, src, out, C, CN, H, W, OH, OW, maps,
+                                       SW, SH, pairs);
 }
 
-}  // namespace
-
-// src: (C, H, W) float32, out: (C, OH, OW) float32, both contiguous;
-// hinv: the inverse map's nine entries, row-major; mode 0/1/2.
-FRTM_EXPORT int frtm_warp_affine_f32(const float* src, float* out, int C,
-                                     int H, int W, int OH, int OW,
-                                     const float* hinv, int mode, int device,
-                                     cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  Inverse m;
-  for (int k = 0; k < 9; ++k) m.h[k] = hinv[k];
+cudaError_t launch_direct(cudaStream_t stream, const float* src, float* out, int C, int CN,
+                          int H, int W, int OH, int OW, const Maps& maps, int S, int mode) {
   dim3 block(kDirectX, kDirectY);
-  dim3 grid((OW + kDirectX - 1) / kDirectX, (OH + kDirectY - 1) / kDirectY);
+  dim3 grid((OW + kDirectX - 1) / kDirectX, (OH + kDirectY - 1) / kDirectY, S);
   if (mode == 0)
-    warp_direct_kernel<0><<<grid, block, 0, stream>>>(src, out, C, H, W, OH, OW, m);
+    warp_direct_kernel<0><<<grid, block, 0, stream>>>(src, out, C, CN, H, W, OH, OW, maps);
   else if (mode == 1)
-    warp_direct_kernel<1><<<grid, block, 0, stream>>>(src, out, C, H, W, OH, OW, m);
+    warp_direct_kernel<1><<<grid, block, 0, stream>>>(src, out, C, CN, H, W, OH, OW, maps);
   else if (mode == 2)
-    warp_direct_kernel<2><<<grid, block, 0, stream>>>(src, out, C, H, W, OH, OW, m);
+    warp_direct_kernel<2><<<grid, block, 0, stream>>>(src, out, C, CN, H, W, OH, OW, maps);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
-// The staged variant: as above, for an affine inverse (bottom row exactly
-// 0, 0, 1) whose 16x32-tile source boxes are at most box_h x (box_w - 2)
-// (box_w even, with two columns for pair alignment; box_w is the row pitch)
-// and whose C channels of that box fit in 96 KB. Refuses
+// The staged variant, for affine inverses (bottom row exactly 0, 0, 1)
+// whose 16x32-tile source boxes are at most box_h x (box_w - 2) (box_w
+// even, with two columns for pair alignment; box_w is the row pitch) and
+// whose C leading planes of that box fit in 96 KB. Refuses
 // (cudaErrorInvalidValue) anything else.
-FRTM_EXPORT int frtm_warp_affine_staged_f32(const float* src, float* out, int C, int H,
-                                            int W, int OH, int OW, const float* hinv,
-                                            int mode, int box_w, int box_h, int device,
-                                            cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  Inverse m;
-  for (int k = 0; k < 9; ++k) m.h[k] = hinv[k];
+cudaError_t launch_staged_all(cudaStream_t stream, int device, const float* src, float* out,
+                              int C, int CN, int H, int W, int OH, int OW, const Maps& maps,
+                              int S, int mode, int box_w, int box_h) {
   const size_t smem = sizeof(float) * static_cast<size_t>(C) * box_w * box_h;
-  if (m.h[6] != 0.f || m.h[7] != 0.f || m.h[8] != 1.f || box_w < 2 || box_w % 2 ||
-      box_h < 1 || C < 1 || smem > kStagedSmemBytes ||
+  for (int z = 0; z < S; ++z) {
+    const float* h = maps.h + 9 * z;
+    if (h[6] != 0.f || h[7] != 0.f || h[8] != 1.f) return cudaErrorInvalidValue;
+  }
+  if (box_w < 2 || box_w % 2 || box_h < 1 || smem > kStagedSmemBytes ||
       static_cast<long long>(H) * W >= (1LL << 31))
     return cudaErrorInvalidValue;
   const long long tiles_y = (OH + kTileY - 1) / kTileY;
-  const long long tiles = tiles_y * ((OW + kTileX - 1) / kTileX);
+  const long long tiles = S * tiles_y * ((OW + kTileX - 1) / kTileX);
   int sms;
+  cudaError_t err;
   if (tiles_y > 65535) return cudaErrorInvalidValue;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
@@ -470,14 +505,36 @@ FRTM_EXPORT int frtm_warp_affine_staged_f32(const float* src, float* out, int C,
   // many tiles (a full frame): 4 warps of 4 patches; few (a paste box): 8 of 2
   const bool wide = tiles >= 4LL * sms;
   const bool pairs = W % 2 == 0 && reinterpret_cast<size_t>(src) % 8 == 0;
+  const dim3 grid((OW + kTileX - 1) / kTileX, static_cast<unsigned>(tiles_y), S);
   if (mode == 0)
-    return launch_staged_mode<0>(wide, smem, stream, src, out, C, H, W, OH, OW, m, box_w,
-                                 box_h, pairs);
+    return launch_staged_mode<0>(wide, smem, stream, grid, src, out, C, CN, H, W, OH, OW, maps,
+                                 box_w, box_h, pairs);
   if (mode == 1)
-    return launch_staged_mode<1>(wide, smem, stream, src, out, C, H, W, OH, OW, m, box_w,
-                                 box_h, pairs);
+    return launch_staged_mode<1>(wide, smem, stream, grid, src, out, C, CN, H, W, OH, OW, maps,
+                                 box_w, box_h, pairs);
   if (mode == 2)
-    return launch_staged_mode<2>(wide, smem, stream, src, out, C, H, W, OH, OW, m, box_w,
-                                 box_h, pairs);
+    return launch_staged_mode<2>(wide, smem, stream, grid, src, out, C, CN, H, W, OH, OW, maps,
+                                 box_w, box_h, pairs);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// src: (C + CN, H, W) float32, out: (S, C + CN, OH, OW) float32, both
+// contiguous; hinv: S inverse maps, nine entries each, row-major; the C
+// leading planes sampled in mode 0/1/2 (nearest, bilinear, bicubic), the CN
+// trailing ones nearest. box_w = 0 takes the direct variant, else the staged
+// one with that box (see launch_staged_all).
+FRTM_EXPORT int frtm_warp_affine_maps_f32(const float* src, float* out, int C, int CN, int H,
+                                          int W, int OH, int OW, const float* hinv, int S,
+                                          int mode, int box_w, int box_h, int device,
+                                          cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (S < 1 || S > kMaxMaps || C < 1 || CN < 0) return cudaErrorInvalidValue;
+  Maps maps = {};
+  for (int k = 0; k < 9 * S; ++k) maps.h[k] = hinv[k];
+  if (box_w == 0) return launch_direct(stream, src, out, C, CN, H, W, OH, OW, maps, S, mode);
+  return launch_staged_all(stream, device, src, out, C, CN, H, W, OH, OW, maps, S, mode, box_w,
+                           box_h);
 }

@@ -9,6 +9,14 @@ bilinear / bicubic (Keys A=-0.75) taps; out-of-range taps contribute zero
 (cv2 BORDER_CONSTANT). Images are channel planes (C, H, W), the port's
 layout. Every float operation runs in the order the CUDA kernel uses, so on
 the card the two agree bit for bit.
+
+`warp_affine_batched_plain` is the plain version of every launch of the
+kernel: S maps at once (`warp_affine_plain` is its one-map case) and,
+optionally, trailing planes sampled nearest. It evaluates every map in the
+same tensor operations (their number does not grow with S), each element
+with the roundings of a warp by that map alone. `warp_perspective` and `remap` are the counterparts of
+frtm_tpu/ops/warp.py's: the first through kernel 3 on a CUDA tensor, the
+second plain on both devices (the JAX package resamples it in XLA).
 """
 import numpy as np
 import torch
@@ -93,19 +101,26 @@ def inverse_coefficients(H) -> np.ndarray:
     return _inverse3(H).reshape(9)
 
 
-def _inverse_map(hinv, out_h, out_w, device):
+def _grid(out_h, out_w, device):
     yo, xo = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=device),
                             torch.arange(out_w, dtype=torch.float32, device=device),
                             indexing="ij")
-    h = [float(v) for v in hinv]
-    xs = h[0] * xo + h[1] * yo + h[2]
-    ys = h[3] * xo + h[4] * yo + h[5]
-    w = h[6] * xo + h[7] * yo + h[8]
+    return xo, yo
+
+
+def _inverse_map(hinvs, out_h, out_w, device):
+    """The source coordinates of every output pixel under S inverse maps
+    ((S, 9)): two (S, OH, OW) tensors."""
+    xo, yo = _grid(out_h, out_w, device)
+    h = torch.from_numpy(np.asarray(hinvs, np.float32).reshape(-1, 9, 1, 1)).to(device)
+    xs = h[:, 0] * xo + h[:, 1] * yo + h[:, 2]
+    ys = h[:, 3] * xo + h[:, 4] * yo + h[:, 5]
+    w = h[:, 6] * xo + h[:, 7] * yo + h[:, 8]
     return xs / w, ys / w
 
 
 def _sample(src, ix, iy):
-    """src[:, iy, ix] with a zero for out-of-range taps: (C, OH, OW)."""
+    """src[:, iy, ix] with a zero for out-of-range taps: (C,) + ix.shape."""
     c, h, w = src.shape
     inb = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
     idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
@@ -125,7 +140,8 @@ def cubic_weight(x, a: float = -0.75):
 
 
 def _resample(src, xs, ys, mode):
-    """Sample (C, H, W) float32 src at float coords xs, ys (both (OH, OW))."""
+    """Sample (C, H, W) float32 src at float coords xs, ys (of one shape,
+    (OH, OW) or (S, OH, OW)): (C,) + xs.shape."""
     if mode == "nearest":
         ix = torch.floor(xs + 0.5).to(torch.int64)
         iy = torch.floor(ys + 0.5).to(torch.int64)
@@ -162,6 +178,50 @@ def _resample(src, xs, ys, mode):
 def warp_affine_plain(src: torch.Tensor, hinv, size, mode: str = "bicubic") -> torch.Tensor:
     """Warp (C, H, W) float32 planes by the inverse map `hinv`
     (inverse_coefficients of the forward matrix) to (C, size[0], size[1])."""
+    return warp_affine_batched_plain(src, np.asarray(hinv)[None], size, mode)[0]
+
+
+def warp_affine_batched_plain(src: torch.Tensor, hinvs, size, mode: str = "bicubic",
+                              nearest_from=None) -> torch.Tensor:
+    """Warp (C, H, W) float32 planes by S inverse maps `hinvs` ((S, 9)) to
+    (S, C, size[0], size[1]); the planes from `nearest_from` on are sampled
+    nearest, the ones before it in `mode`. Each output equals the warp by
+    its map alone, in its planes' mode, bit for bit."""
     out_h, out_w = int(size[0]), int(size[1])
-    xs, ys = _inverse_map(hinv, out_h, out_w, src.device)
-    return _resample(src, xs, ys, mode)
+    xs, ys = _inverse_map(hinvs, out_h, out_w, src.device)
+    k = src.shape[0] if nearest_from is None else int(nearest_from)
+    if not 0 <= k <= src.shape[0]:
+        raise ValueError(f"nearest_from {nearest_from} outside 0 .. {src.shape[0]}")
+    out = _resample(src[:k], xs, ys, mode)
+    if k < src.shape[0]:
+        out = torch.cat([out, _resample(src[k:], xs, ys, "nearest")])
+    return out.transpose(0, 1).contiguous()
+
+
+def warp_perspective(src: torch.Tensor, H, size, mode: str = "bicubic") -> torch.Tensor:
+    """Warp (C, H, W) planes by a forward 3x3 perspective matrix, with the
+    homogeneous divide that `warp_affine` also performs; the counterpart of
+    frtm_tpu/ops/warp.py::warp_perspective. Kernel 3 on a CUDA tensor (its
+    direct variant for a projective map), the plain version on a CPU one."""
+    H = np.asarray(H, np.float32)
+    if H.shape != (3, 3):
+        raise ValueError(f"perspective transform must be 3x3, got {H.shape}")
+    from .kernels.warp_affine import warp_affine
+    return warp_affine(src, H, size, mode)
+
+
+def remap(src: torch.Tensor, map_x, map_y, mode: str = "bilinear") -> torch.Tensor:
+    """Coordinate-map warp of (C, H, W) planes: out[:, y, x] = src sampled at
+    (map_x[y, x], map_y[y, x]), zero outside the source, in the source's
+    dtype (float32 or uint8, sampled in float32); the counterpart of
+    frtm_tpu/ops/warp.py::remap. Plain torch on either device.
+
+    :param map_x, map_y: (OH, OW) source coordinates (tensors or arrays)"""
+    if mode not in MODES:
+        raise ValueError(f"unknown warp mode: {mode}")
+    xs = torch.as_tensor(map_x, dtype=torch.float32).to(src.device)
+    ys = torch.as_tensor(map_y, dtype=torch.float32).to(src.device)
+    if xs.shape != ys.shape or xs.dim() != 2:
+        raise ValueError(f"maps must be two (OH, OW) arrays, got {tuple(xs.shape)} and "
+                         f"{tuple(ys.shape)}")
+    return _resample(src.float(), xs, ys, mode).to(src.dtype)

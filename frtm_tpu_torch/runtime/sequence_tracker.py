@@ -41,7 +41,14 @@ frames and its last window is short. Multilayer target models
 a grouped classification and the memory inserts, the per-layer score maps
 concatenated for the decoder, and one re-solve decision per object (its
 first layer's counter) for all its layers. Not ported yet: `mesh` and the
-sharded paths, the device augment backend.
+sharded paths.
+
+Two augment backends, as in the JAX class: "host" (models/augmenter.py, one
+spec after another, its batches made before the init or, in the pipelined
+run_dataset, while the previous sequence tracks) and "device"
+(models/device_augmenter.py, every spec of a round in one batch; each
+object is augmented inside the timed region from its start frame's copy on
+the card, and the dense init takes the batches as they are).
 
 With cfg.compute_dtype = "bfloat16", as in the JAX class: the whole-sequence
 pyramid is extracted in bfloat16 and kept in it (half the memory), the
@@ -65,6 +72,7 @@ from ..data.image import imwrite_indexed
 from ..device import resolve_device
 from ..models.aug_compose import compose_aug_batch, pack_bits, pack_compact_batch, unpack_bits
 from ..models.augmenter import ImageAugmenter
+from ..models.device_augmenter import DeviceAugmenter
 from ..models.discriminator import (DiscParams, DiscState, classify_objects, disc_init,
                                     init_disc_params, insert_sample, project_all,
                                     repeat_params, resolve_due)
@@ -157,13 +165,13 @@ class BatchedSequenceTracker:
         (0 = the whole window at once). aug_compact: take first-frame
         augment batches in the compact encoding and compose them before the
         init (models/aug_compose.py). Both default to off, as the JAX class
-        has them off the TPU."""
+        has them off the TPU; the device augment backend takes no compact
+        batches."""
         if merge_mode not in ("online", "deferred"):
             raise ValueError(f"merge_mode {merge_mode!r}: 'online' or 'deferred'")
         self.dtype = compute_dtype_of(cfg)
-        if augment_backend != "host":
-            raise NotImplementedError(f"augment backend {augment_backend!r} is not ported: "
-                                      "ROADMAP.md queue item 5")
+        if augment_backend not in ("host", "device"):
+            raise ValueError(f"augment_backend {augment_backend!r}: 'host' or 'device'")
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.disc_cfg = cfg.disc
@@ -172,7 +180,10 @@ class BatchedSequenceTracker:
         # the copies that compute (the modules themselves in float32), made once
         self.backbone_c = compute_copy(self.backbone, self.dtype)
         self.refiner_c = compute_copy(self.refiner, self.dtype)
-        self.augmenter = augmenter or ImageAugmenter(cfg.aug_params, dev)
+        self.augment_backend = augment_backend
+        self.augmenter = augmenter or (DeviceAugmenter(cfg.aug_params, dev)
+                                       if augment_backend == "device"
+                                       else ImageAugmenter(cfg.aug_params, dev))
         self.multilayer = bool(cfg.disc_layers)
         self.disc_cfgs = layer_configs(cfg)         # {layer: DiscConfig}, sorted
         self.disc_params0 = starting_params(cfg, self.disc_cfgs, disc_params0, dev,
@@ -182,7 +193,7 @@ class BatchedSequenceTracker:
         self.extract_chunk = extract_chunk
         self.merge_mode = merge_mode
         self.decode_chunk = decode_chunk
-        self.aug_compact = aug_compact
+        self.aug_compact = aug_compact and augment_backend != "device"
         self.profile = profile
         self._all_layers = tuple(sorted(set(cfg.refnet_layers) | set(self.disc_cfgs),
                                         reverse=True))
@@ -470,8 +481,9 @@ class BatchedSequenceTracker:
 
     def prepare_sequence(self, sequence, stream=None) -> dict:
         """The host-side preparation of a sequence, separable from tracking:
-        stack the frames, upload them, and run the first-frame augmentation.
-        The result feeds run_sequence(preloaded=).
+        stack the frames, upload them, and run the first-frame augmentation
+        (the host backend's; the device backend augments inside the timed
+        region). The result feeds run_sequence(preloaded=).
 
         stream: a CUDA stream to do the device's share on (uploads, the
         augmenter's warps, the bit-packing) when another thread calls this
@@ -483,7 +495,8 @@ class BatchedSequenceTracker:
             prep = {"images_np": images_np,
                     "frame0_dev": torch.from_numpy(images_np[0]).to(self.device),
                     "chunks": self._upload_chunks(images_np[1:]),
-                    "aug_batches": self._augment_objects(self._collect_objects(sequence)),
+                    "aug_batches": (None if self.augment_backend == "device" else
+                                    self._augment_objects(self._collect_objects(sequence))),
                     "ready": None}
             if stream is not None:
                 prep["ready"] = torch.cuda.Event()
@@ -516,8 +529,9 @@ class BatchedSequenceTracker:
         of (H, W) uint8 label images, fps).
 
         aug_batches: precomputed first-frame augment batches (from
-        _augment_objects, same object order); the timed region then excludes
-        augmentation. preloaded: a prepare_sequence() result. speedrun: one
+        _augment_objects, same object order; the host backend's only, the
+        device backend always augments in the timed region); the timed
+        region then excludes augmentation. preloaded: a prepare_sequence() result. speedrun: one
         untimed pass first (the convolution algorithm search, first
         launches). soft=True (merge_mode='deferred' only) returns the raw
         soft foreground volume (T, N, H, W) float32, ground truth inserted
@@ -608,7 +622,7 @@ class BatchedSequenceTracker:
             outputs, seq_fps = self.run_sequence(sequence, speedrun, preloaded=prep)
             fps_meter.update(seq_fps)
             n_frames += len(sequence)
-            tag = " (ex-augment)" if pipeline else ""
+            tag = " (ex-augment)" if pipeline and self.augment_backend != "device" else ""
             print(f"{sequence.name}: {seq_fps:.2f} fps{tag}")
             dst = out_path / sequence.name
             dst.mkdir(exist_ok=True)
@@ -645,15 +659,27 @@ class BatchedSequenceTracker:
         lut = torch.tensor([0] + [o[0] for o in objects], dtype=torch.int32, device=self.device)
 
         # The extract reads only frames that are already on the card, so it
-        # is enqueued before the host augment and runs under it.
+        # is enqueued before the augment and runs under the host's part of it.
         with timer.phase("extract"):
             feats_all = self._extract_sequence(chunks)
         self.last_feats_dtype = feats_all[next(iter(self.disc_cfgs))].dtype
-        if aug_batches is None:
+        if self.augment_backend == "device":
+            batches = []
+            for obj_id, start_idx, mask, image in objects:
+                rng = np.random.RandomState(0)  # per-object reseed, as the reference
+                with timer.phase("augment"):
+                    batches.append(self.augmenter.augment_first_frame(
+                        image, mask[..., None], rng,
+                        image_dev=self._frame_dev(start_idx, chunks)))
+        elif aug_batches is None:
             aug_batches = self._augment_objects(objects, timer)
         with timer.phase("disc_init"):
             f0 = [self._frame_dev(s, chunks) for s in start_frames]
-            if self.aug_compact:
+            if self.augment_backend == "device":
+                models = self._init_objects_dense(torch.stack([im for im, _ in batches]),
+                                                  torch.stack([lb for _, lb in batches]))
+                start_masks = torch.from_numpy(np.stack([o[2] for o in objects])).to(self.device)
+            elif self.aug_compact:
                 models, start_masks = self._init_objects_compact(f0, aug_batches)
             else:
                 models, start_masks = self._init_objects(

@@ -1,21 +1,31 @@
 """Checkpoint loading (frtm_tpu/utils/checkpoints.py): the reference's torch
-`.pth` files into the port's modules.
+`.pth` files and the JAX package's `.npz` models into the port's modules.
 
 A published FRTM checkpoint holds only `refiner.*` keys (the backbone is not
 part of it), so a full model is the refiner from the .pth plus a
 torchvision-format backbone state dict. The port's modules keep the
 reference's parameter names, so both are `load_state_dict` calls. The port's
-own format is a `.pth` as well; the JAX package's `.npz` pytree format has no
-counterpart here.
+own format is a `.pth` as well.
+
+`load_jax_model` reads the `{"arch", "refiner"}` trees that
+frtm_tpu/utils/checkpoints.py::save_pytree writes as `<name>.npz` (the
+flattened leaves, "0" .. "n-1") beside a `<name>.treedef` sidecar, and that
+frtm_tpu's evaluation CLIs read. The sidecar is a pickled jaxlib PyTreeDef:
+unpickling it would import JAX, so it is never read. The tree is rebuilt
+from the leaves instead: `jax.tree.flatten` visits dict keys in sorted order
+at every level, a str leaf (the arch) is a 0-d `<U` array, and the
+refiner's nesting is the one utils/convert.py::seg_network_from_jax reads.
 """
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..config import autodetect_arch
 from ..device import resolve_device
-from ..models.resnet import ResNet, resnet_out_channels
+from ..models.resnet import RESNET_SPECS, ResNet, resnet_out_channels
 from ..models.seg_network import LAYERS, SegNetwork
+from .convert import seg_network_from_jax
 
 _REFINER_PREFIX = "refiner."
 
@@ -62,3 +72,79 @@ def load_backbone(path_or_sd, arch: str, device=None) -> ResNet:
     net = ResNet(arch)
     net.load_state_dict(sd)
     return net.to(resolve_device(device)).eval()
+
+
+def _jax_refiner_shapes(refiner: SegNetwork) -> dict:
+    """frtm_tpu's refiner pytree for a SegNetwork of this shape, its leaves
+    the JAX shapes (HWIO convolution weights): the nesting
+    seg_network_from_jax reads."""
+    sd = refiner.state_dict()
+
+    def conv(name):
+        o, i, kh, kw = sd[name + ".weight"].shape
+        p = {"w": (kh, kw, i, o)}
+        if name + ".bias" in sd:
+            p["b"] = tuple(sd[name + ".bias"].shape)
+        return p
+
+    tree = {"tse": {}, "rrb1": {}, "rrb2": {}, "cab": {}}
+    for L in refiner.layers:
+        tree["tse"][L] = {j: conv(f"TSE.{L}.{k}") for k, j in (
+            ("reduce.0", "reduce1"), ("reduce.2", "reduce2"), ("transform.0", "transform1"),
+            ("transform.2", "transform2"), ("transform.4", "transform3"))}
+        for rrb, R in (("rrb1", "RRB1"), ("rrb2", "RRB2")):
+            p = {"conv1x1": conv(f"{R}.{L}.conv1x1"), "bb1": conv(f"{R}.{L}.bblock.0")}
+            if f"{R}.{L}.bblock.1.weight" in sd:
+                c = tuple(sd[f"{R}.{L}.bblock.1.weight"].shape)
+                p["bn"] = {"scale": c, "bias": c, "mean": c, "var": c}
+                p["bb2"] = conv(f"{R}.{L}.bblock.3")
+            else:
+                p["bb2"] = conv(f"{R}.{L}.bblock.2")
+            tree[rrb][L] = p
+        tree["cab"][L] = {"conv1": conv(f"CAB.{L}.convreluconv.0"),
+                          "conv2": conv(f"CAB.{L}.convreluconv.2")}
+    tree["up"] = {"conv1": conv("project.conv1"), "conv2": conv("project.conv2")}
+    return tree
+
+
+def _flatten_sorted(tree, prefix=()):
+    """[(path, leaf)] in `jax.tree.flatten`'s order: dict keys sorted."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in _flatten_sorted(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def load_jax_model(path, device=None):
+    """A frtm_tpu `.npz` model (save_pytree of {"arch", "refiner"}) -> (arch,
+    SegNetwork). Every leaf's shape is checked against the port's refiner
+    for that arch; a mismatch raises ValueError naming the first leaf that
+    differs. The `.treedef` sidecar is not read."""
+    path = Path(str(path).removesuffix(".npz") + ".npz")
+    with np.load(path, allow_pickle=False) as z:
+        leaves = [z[str(i)] for i in range(len(z.files))]
+    if not leaves or leaves[0].dtype.kind != "U" or leaves[0].ndim != 0:
+        raise ValueError(f"{path.name}: leaf 0 is not the arch name (a str); not a "
+                         "frtm_tpu {arch, refiner} model")
+    arch = str(leaves[0])
+    if arch not in RESNET_SPECS:
+        raise ValueError(f"{path.name}: unknown arch {arch!r}")
+    channels = resnet_out_channels(arch)
+    refiner = SegNetwork({L: channels[L] for L in LAYERS})
+    expected = _flatten_sorted({"arch": (), "refiner": _jax_refiner_shapes(refiner)})
+    for i, ((where, shape), leaf) in enumerate(zip(expected, leaves)):
+        if i and (tuple(leaf.shape) != shape or leaf.dtype.kind != "f"):
+            raise ValueError(f"{path.name}: leaf {i} ({'/'.join(where)}) is {leaf.dtype} "
+                             f"{tuple(leaf.shape)}; the port's {arch} refiner has float "
+                             f"{shape} there")
+    if len(leaves) != len(expected):
+        i = min(len(leaves), len(expected))
+        raise ValueError(f"{path.name}: {len(leaves)} leaves where the port's {arch} "
+                         f"refiner has {len(expected)}; leaf {i} is the first that differs")
+    tree = {}
+    for (where, _), leaf in zip(expected[1:], leaves[1:]):
+        node = tree
+        for k in where[1:-1]:
+            node = node.setdefault(k, {})
+        node[where[-1]] = leaf
+    refiner.load_state_dict(seg_network_from_jax(tree))
+    return arch, refiner.to(resolve_device(device)).eval()

@@ -7,11 +7,16 @@ that is meant to overlap host and device work (the fused tracker's
 extract-under-augment) uses `sync=False`: its phases then measure the
 host's enqueue time only, and per-phase device time comes from a second,
 synchronised pass.
+
+`trace(log_dir)` is the counterpart of frtm_tpu's `xla_trace`: a
+torch.profiler session around a block, written to `log_dir` as a
+Chrome / Perfetto trace.
 """
 import time
 import warnings
 from collections import defaultdict
 from contextlib import contextmanager
+from pathlib import Path
 
 import torch
 
@@ -97,3 +102,21 @@ def count_host_syncs(device):
             syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
             counter.count = len(syncs)
             counter.where = tuple(f"{w.filename}:{w.lineno}: {w.message}" for w in syncs)
+
+
+@contextmanager
+def trace(log_dir):
+    """Profile the block with torch.profiler and write its trace, viewable
+    in Perfetto or chrome://tracing, to <log_dir>/trace.json: the host's
+    operators, and the card's kernels where a CUDA device is available.
+    Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(log_dir / "trace.json"))

@@ -134,8 +134,8 @@ def build_variants(out_dir):
         log, _ = p.communicate()
         if p.returncode:
             raise SystemExit(f"nvcc failed for variant {name}:\n{log}")
-        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).frtm_warp_affine_staged_f32
-        fn.argtypes = _ARGTYPES + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).frtm_warp_affine_maps_f32
+        fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         libs[name] = (fn, [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                            if "registers" in ln or ("spill" in ln and " 0 bytes spill" not in ln)])
@@ -179,8 +179,8 @@ def main():
         plan = plan_warp(hinv, size, mode, src.shape[0])
         assert plan.variant == "staged", name
         out = torch.empty((src.shape[0],) + size, device="cuda")
-        args = (src.data_ptr(), out.data_ptr(), src.shape[0], src.shape[1], src.shape[2],
-                size[0], size[1], (ctypes.c_float * 9)(*hinv.tolist()), MODES.index(mode),
+        args = (src.data_ptr(), out.data_ptr(), src.shape[0], 0, src.shape[1], src.shape[2],
+                size[0], size[1], (ctypes.c_float * 9)(*hinv.tolist()), 1, MODES.index(mode),
                 plan.box[1], plan.box[0], 0, stream)
         cases.append((name, out, args, warp_affine_plain(src, hinv, size, mode)))
     order = list(libs)

@@ -29,7 +29,8 @@ from frtm_tpu_torch.ops.kernels import (LAUNCHES, VARIANTS, conv3x3_cout1,
                                         conv3x3_cout1_weight_grad,
                                         conv3x3_cout1_weight_grad_plain, pyr_up_bicubic,
                                         pyr_up_bicubic_backward, pyr_up_bicubic_backward_plain,
-                                        pyr_up_bicubic_plain, warp_affine)
+                                        pyr_up_bicubic_plain, warp_affine,
+                                        warp_affine_batched)
 from frtm_tpu_torch.ops.kernels.build import DTYPES
 from frtm_tpu_torch.ops.warp import inverse_coefficients, warp_affine_plain
 
@@ -248,11 +249,12 @@ from frtm_tpu_torch.ops.kernels import build
 from frtm_tpu_torch.ops.kernels.warp_affine import _ARGTYPES
 src = torch.rand(1, 64, 64, device="cuda")
 out = torch.empty(1, 32, 32, device="cuda")
-fn = build.library("warp_affine").frtm_warp_affine_staged_f32
-fn.argtypes = _ARGTYPES + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+fn = build.library("warp_affine").frtm_warp_affine_maps_f32
+fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
 identity = (ctypes.c_float * 9)(1, 0, 0, 0, 1, 0, 0, 0, 1)
 # a planned box of 2x2 against the identity's ~20x38 tile boxes
-assert fn(src.data_ptr(), out.data_ptr(), 1, 64, 64, 32, 32, identity, 2, 2, 2, 0, None) == 0
+assert fn(src.data_ptr(), out.data_ptr(), 1, 0, 64, 64, 32, 32, identity, 1, 2, 2, 2, 0,
+          None) == 0
 try:
     torch.cuda.synchronize()
     print("no error")
@@ -269,6 +271,107 @@ def test_staged_warp_fails_on_a_box_over_its_plan(gen):
     r = subprocess.run([sys.executable, "-c", _OVER_PLAN], cwd=root,
                        capture_output=True, text=True, timeout=600)
     assert "launch failed" in r.stdout, r.stdout + r.stderr
+
+
+# (source planes, nearest_from, maps, output size, variant) of the batched
+# and mixed launches: the augmenter's paste (RGBA + label, one map), its
+# batched rounds (4 and 19 maps; 33 take two launches), maps whose boxes
+# differ (the launch stages the largest), a batch with a projective map or
+# with a footprint over the budget (DIRECT for all), and mixed batches
+_BATCHES = {
+    "paste_mixed": (5, 4, [_affine(30, 1.3)], (200, 240), "staged"),
+    "paste_mixed_worst": (5, 4, [_affine(45, 0.5)], (200, 240), "staged"),
+    "round4": (3, None, [_affine(10 * k, 0.6 + 0.3 * k) for k in range(4)], (131, 97),
+               "staged_batched"),
+    "round19": (4, None, [_affine(-45 + 5 * k, 0.5 + 0.1 * k, flip=k % 3 == 0)
+                          for k in range(19)], (120, 150), "staged_batched"),
+    "two_launches": (1, None, [_affine(k, 1.0 + 0.01 * k) for k in range(33)], (37, 33),
+                     "staged_batched"),
+    "mixed_round": (5, 4, [_affine(20 * k, 1.5 - 0.2 * k) for k in range(5)], (64, 96),
+                    "staged_batched"),
+    "projective": (3, 2, [_affine(10, 1.0), _MATS["projective"]], (40, 90), "direct_batched"),
+    "over_budget": (3, None, [_affine(0, 1.0), _affine(45, 0.2)], (64, 96), "direct_batched"),
+}
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("case", sorted(_BATCHES))
+def test_batched_and_mixed_warps_are_bit_exact(gen, mode, case):
+    """Each map's output of a batched or mixed launch equals the one-map,
+    one-mode plain warp of its planes, bit for bit; the launches take the
+    named variant (one per 32 maps)."""
+    c, nearest_from, Ms, size, variant = _BATCHES[case]
+    src = (torch.rand(c, 240, 320, generator=gen) * 255).cuda()
+    if nearest_from is not None:
+        src[nearest_from:] = (src[nearest_from:] > 128).float()
+    k = c if nearest_from is None else nearest_from
+    batched = len(Ms) > 1
+    before, vbefore = LAUNCHES["warp_affine"], dict(VARIANTS["warp_affine"])
+    got = (warp_affine_batched(src, Ms, size, mode, nearest_from) if batched
+           else warp_affine(src, Ms[0], size, mode, nearest_from)[None])
+    n = -(-len(Ms) // 32)
+    assert LAUNCHES["warp_affine"] == before + n
+    assert VARIANTS["warp_affine"][variant] == vbefore[variant] + n
+    assert got.shape == (len(Ms), c) + size
+    for i, M in enumerate(Ms):
+        h = inverse_coefficients(M)
+        assert torch.equal(got[i, :k], warp_affine_plain(src[:k], h, size, mode)), i
+        assert torch.equal(got[i, k:], warp_affine_plain(src[k:], h, size, "nearest")), i
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "bicubic"])
+def test_warp_perspective_and_remap_match_plain(gen, mode):
+    """warp_perspective on the card (kernel 3, its direct variant for a
+    projective map) equals the plain warp bit for bit; remap, plain torch on
+    both devices, gives the CPU's bits on the card."""
+    from frtm_tpu_torch.ops.warp import remap, warp_perspective
+    src = (torch.rand(3, 120, 160, generator=gen) * 255).cuda()
+    P = _MATS["projective"]
+    before = dict(VARIANTS["warp_affine"])
+    got = warp_perspective(src, P, (100, 140), mode)
+    assert VARIANTS["warp_affine"]["direct"] == before["direct"] + 1
+    assert torch.equal(got, warp_affine_plain(src, inverse_coefficients(P), (100, 140), mode))
+    yy, xx = np.mgrid[0:90, 0:130].astype(np.float32)
+    map_x = xx * 1.3 - 3.7 + 2.0 * np.sin(yy / 3.0)
+    map_y = yy * 1.2 - 2.1 + 1.5 * np.cos(xx / 4.0)
+    assert torch.equal(remap(src, map_x, map_y, mode).cpu(),
+                       remap(src.cpu(), map_x, map_y, mode))
+
+
+@pytest.mark.parametrize("size", [(96, 128), (240, 427)])
+def test_device_augmenter_on_the_card_matches_the_cpu(gen, size):
+    """The device augmenter's batches on the card against the same call on
+    the CPU: every round's counts and the labels equal, the images at most
+    one grey level apart on under 0.1 % of the values (the blur's sums)."""
+    from frtm_tpu_torch.config import eval_aug_params
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.models import device_augmenter as tda
+    seq = make_moving_square_sequence(n_frames=2, size=size, square=size[0] // 4,
+                                      n_objects=2, seed=1)
+    mask = (seq.labels[0][..., 0] == 2).astype(np.float32)[..., None]
+    counts, inner = {}, tda.batch_augment
+    out = {}
+    for dev in ("cuda", "cpu"):
+        def spy(*args, dev=dev):
+            r = inner(*args)
+            counts.setdefault(dev, []).append(r[2].cpu().tolist())
+            return r
+        tda.batch_augment = spy
+        try:
+            before = dict(VARIANTS["warp_affine"])
+            out[dev] = tda.DeviceAugmenter(eval_aug_params(5), dev).augment_first_frame(
+                seq.images[0], mask, np.random.RandomState(0))
+        finally:
+            tda.batch_augment = inner
+        if dev == "cuda":
+            launched = {k: v - before[k] for k, v in VARIANTS["warp_affine"].items()}
+            assert launched == {"staged": 0, "direct": 0, "direct_batched": 0,
+                                "staged_batched": 3 * len(counts["cuda"])}
+    assert counts["cuda"] == counts["cpu"]
+    (ci, cl), (pi, pl) = out["cuda"], out["cpu"]
+    assert torch.equal(cl.cpu(), pl)
+    diff = (ci.cpu().float() - pi.float()).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 1e-3
 
 
 def test_warp_kernel_keeps_uint8_labels(gen):

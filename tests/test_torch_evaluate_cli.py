@@ -246,7 +246,7 @@ def test_cli_refuses_what_it_cannot_do(world, tmp_path, capsys):
     (tmp_path / "model.npz").write_bytes(b"")
     with pytest.raises(SystemExit) as e:
         evaluate.main(world.args(tmp_path / "out")[2:] + ["--model", str(tmp_path / "model.npz")])
-    assert "ROADMAP.md queue item 8" in str(e.value.code)
+    assert "not a reference-format .pth nor a frtm_tpu .npz model" in str(e.value.code)
     with pytest.raises(SystemExit):
         evaluate.main(["--help"])
     help_text = capsys.readouterr().out

@@ -198,8 +198,8 @@ def test_deferred_labels_and_one_frame_sequences(world):
 
 
 def test_what_is_not_ported_raises(world):
-    """Multilayer models and clamp_output are ported now (they construct);
-    the device augmenter still raises, as do names nobody knows."""
+    """Multilayer models, clamp_output and the device augment backend are
+    ported now (they construct); names nobody knows raise."""
     cfg, backbone, refiner = world
     for tracker in (BatchedSequenceTracker, Tracker):
         ml = tracker(replace(cfg, disc_layers=("layer4", "layer3")), backbone, refiner,
@@ -212,8 +212,10 @@ def test_what_is_not_ported_raises(world):
             tracker(replace(cfg, compute_dtype="float16"), backbone, refiner, device="cpu")
         assert tracker(replace(cfg, compute_dtype="bfloat16"), backbone, refiner,
                        device="cpu").dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        BatchedSequenceTracker(cfg, backbone, refiner, device="cpu", augment_backend="device")
+    assert BatchedSequenceTracker(cfg, backbone, refiner, device="cpu",
+                                  augment_backend="device").augment_backend == "device"
+    with pytest.raises(ValueError):
+        BatchedSequenceTracker(cfg, backbone, refiner, device="cpu", augment_backend="native")
     with pytest.raises(ValueError):
         BatchedSequenceTracker(cfg, backbone, refiner, device="cpu", merge_mode="late")
     with pytest.raises(ValueError):

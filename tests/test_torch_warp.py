@@ -210,7 +210,7 @@ def test_tile_boxes_hold_every_tap(mode):
     lo, n = _TAPS[mode]
     for M in augmenter_like(200, 7, hw=(H, W), projective=False):
         hinv = inverse_coefficients(M)
-        xs, ys = _inverse_map(hinv, 50, 70, "cpu")
+        xs, ys = (c[0] for c in _inverse_map(hinv[None], 50, 70, "cpu"))
         if mode == "nearest":
             xs, ys = xs + 0.5, ys + 0.5
         bx, by = torch.floor(xs).numpy() + lo, torch.floor(ys).numpy() + lo

@@ -180,7 +180,8 @@ def test_cli_matches_jax_deferred_tracker(world, monkeypatch, tmp_path, capsys):
 
 def test_cli_sequences_and_refusals(world, monkeypatch, tmp_path, capsys):
     """--sequences tracks a subset; a card that is absent, a missing model and
-    a .npz model are refused; the flags are the JAX script's."""
+    a .npz file that holds no model are refused; the flags are the JAX
+    script's."""
     monkeypatch.setattr(sequence_tracker, "init_disc_params", lambda *a, **k: world.p0)
     evaluate_ytvos.main(world.args(tmp_path / "sub", "--sequences", "seqB"))
     res = (tmp_path / "sub").resolve() / "ytvos2018valid_all_frames" / "Annotations"
@@ -192,7 +193,8 @@ def test_cli_sequences_and_refusals(world, monkeypatch, tmp_path, capsys):
         assert "no CUDA device is available" in str(e.value.code)
     (tmp_path / "model.npz").write_bytes(b"")
     for model, message in ((tmp_path / "no.pth", "not found"),
-                           (tmp_path / "model.npz", "ROADMAP.md queue item 8")):
+                           (tmp_path / "model.npz",
+                            "not a reference-format .pth nor a frtm_tpu .npz model")):
         args = world.args(tmp_path / "out")
         args[1] = str(model)
         with pytest.raises(SystemExit) as e:
