@@ -74,14 +74,37 @@ Phases, each printing one JSON line:
                 torch.profiler session per phase) with the peak memory inside
                 it. All objects' target models are solved together, so the
                 kernels at four objects may be at most 1.25x those at one;
+  6b'. sharded — the multi-sequence engine (ShardedSequenceTracker,
+                parallel/multi_sequence.py) in bfloat16 on 17-frame 480x854
+                sequences with two objects (seeds 0-3): groups of 1, 2 and 4
+                sequences, each sequence's labels against the fused
+                tracker's on it alone: within 0.5 % a frame at B = 1, and at
+                B = 2 and 4 within twice the fused tracker's own movement
+                under a 1e-6 nudge of its init filters, plus 0.5 % (whether
+                under 0.5 % is printed); per group one
+                decode a window, so 4 bf16 pyrup and 2 bf16 head-conv
+                launches a group at every width, 8 staged warps a sequence;
+                the kernels of the group's scan (a torch.profiler session) at
+                4 sequences at most 1.25x those at 1. Printed: aggregate fps
+                per width (three unsynchronised run_sequences passes after a
+                warm-up), group_init and group_scan seconds of a synchronised
+                pass, peak memory, the card. Then the CLI with --engine
+                sharded on 4 sequences x 9 frames, in this process and in two
+                processes on the card (RANK 0 and 1, WORLD_SIZE 2, LOCAL_RANK
+                0, a free port; `--multihost`, a gloo group): each child
+                tracks its round-robin share, the PNGs equal the one
+                process's byte for byte, only rank 0 scores, and a child that
+                exits non-zero fails the phase;
   6c. device_augment — the device augment backend: DeviceAugmenter on the
                 card against the same call on the CPU on a textured 480x854
                 frame (visibility counts of every round and labels equal,
                 images at most one grey level apart on under 0.1 % of the
                 values) and against the host augmenter on the card (the same);
-                one round at 4 and at 19 specs must launch the same kernels,
-                its warps all batched; then the fused tracker in bfloat16
-                (rn101, 480x854, 9 frames, two objects) with each backend:
+                one round at 4 and at 19 specs must launch the same kernels
+                (counted in a child process of its own: late in this
+                script torch.profiler loses events), its warps all batched;
+                then the fused tracker in bfloat16 (rn101, 480x854, 9
+                frames, two objects) with each backend:
                 fps of three passes, augment and disc_init seconds of a
                 synchronised pass, kernels, launches and peak memory of one
                 augment_first_frame, and the share of labels the two
@@ -607,7 +630,8 @@ def phase_kernels():
     # kernel 1: the decoder's two pyrup stages (exact: same op order), at
     # N=1, at N=8 (the fused tracker's decode window with one object) and at
     # N=16 (with two, the fused and eval phases' batch); then YouTube-VOS's
-    # two stages at 720x1280 with two lanes (the ytvos phase's decodes)
+    # two stages at 720x1280 with two lanes (the ytvos phase's decodes), and
+    # in bfloat16 at N=64 (the sharded phase's group of four)
     stages, stages16 = [], []
     for shape in [(1, 32, 120, 214), (1, 16, 240, 428), (8, 32, 120, 214), (8, 16, 240, 428),
                   (16, 32, 120, 214), (16, 16, 240, 428), (2, 32, 180, 320),
@@ -629,11 +653,25 @@ def phase_kernels():
             lambda x=xh: F.interpolate(x, scale_factor=2, mode="bicubic",
                                        align_corners=False),
             nbytes=2 * (x.numel() + n_out), flops=35 * n_out, tol=0.0))
+    # the multi-sequence engine's window in bfloat16: four sequences x 8
+    # frames x 2 objects, N = 64 (made on the card: 0.4 GB of values)
+    gc = torch.Generator(device="cuda").manual_seed(1)
+    for shape in [(64, 32, 120, 214), (64, 16, 240, 428)]:
+        xh = torch.randn(shape, generator=gc, device="cuda").to(torch.bfloat16)
+        n_out = 4 * xh.numel()
+        stages16.append(_compare(
+            "pyrup_bf16", list(shape), lambda x=xh: pyr_up_bicubic(x),
+            lambda x=xh: pyr_up_bicubic_plain(x),
+            lambda x=xh: F.interpolate(x, scale_factor=2, mode="bicubic",
+                                       align_corners=False),
+            nbytes=2 * (xh.numel() + n_out), flops=35 * n_out, tol=0.0))
+        del xh
     rows["pyrup"] = stages
     rows["pyrup_bf16"] = stages16
 
     # kernel 2: the head conv, (N, 16, 480, 854) -> 1, with bias, at N=1, 8,
-    # 16, and YouTube-VOS's (2, 16, 720, 1280); in bfloat16 within one ulp at
+    # 16, YouTube-VOS's (2, 16, 720, 1280) and, in bfloat16 only, N=64 (the
+    # sharded phase's group of four); in bfloat16 within one ulp at
     # the output's peak (a float32 sum that differs in its last bits can round
     # to the neighbouring value), with 99.99 % of values equal
     w = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
@@ -641,17 +679,20 @@ def phase_kernels():
     wh, bh = w.to(torch.bfloat16), b.to(torch.bfloat16)
     convs, convs16 = [], []
     for shape in [(1, 16, 480, 854), (8, 16, 480, 854), (16, 16, 480, 854),
-                  (2, 16, 720, 1280)]:
+                  (2, 16, 720, 1280), (64, 16, 480, 854)]:
         n, _, h, wd = shape
-        x = torch.relu(torch.randn(shape, generator=g)).cuda()
-        convs.append(_compare(
-            "conv3x3_cout1", list(shape), lambda x=x: conv3x3_cout1(x, w, b),
-            lambda x=x: conv3x3_cout1_plain(x, w, b),
-            lambda x=x: F.conv2d(x, w, b, padding=1),
-            nbytes=4 * (x.numel() + n * h * wd + w.numel() + 1),
-            flops=2 * 9 * x.numel(), tol=5e-5))
-        xh = x.to(torch.bfloat16)
-        del x
+        if n == 64:     # the multi-sequence engine's window, bfloat16 only
+            xh = torch.relu(torch.randn(shape, generator=gc, device="cuda")).to(torch.bfloat16)
+        else:
+            x = torch.relu(torch.randn(shape, generator=g)).cuda()
+            convs.append(_compare(
+                "conv3x3_cout1", list(shape), lambda x=x: conv3x3_cout1(x, w, b),
+                lambda x=x: conv3x3_cout1_plain(x, w, b),
+                lambda x=x: F.conv2d(x, w, b, padding=1),
+                nbytes=4 * (x.numel() + n * h * wd + w.numel() + 1),
+                flops=2 * 9 * x.numel(), tol=5e-5))
+            xh = x.to(torch.bfloat16)
+            del x
         row = _compare(
             "conv3x3_cout1_bf16", list(shape), lambda x=xh: conv3x3_cout1(x, wh, bh),
             lambda x=xh: conv3x3_cout1_plain(x, wh, bh),
@@ -1340,31 +1381,300 @@ def phase_init_scaling(cfg, backbone, refiner, card):
         fail(f"init_scaling: kernels at four objects over one grew by {grown}")
 
 
-def augment_call_readings(augmenter, image, mask, attempts=3):
-    """One augment_first_frame on the card: the kernels it ran (a
-    torch.profiler session), the port's kernel launches by variant, the
-    retry rounds, and the most memory it allocated over what was allocated
-    before it. A session that delivers no device event at all (torch.profiler
-    has been seen to lose a whole session's events while the launch counts
-    showed the call's kernels) is repeated, up to `attempts` calls;
-    `profiler_sessions` says how many it took."""
+
+# the sharded phase's synthetic sequences: seeds, and 480x854 with two squares
+SHARDED_SEEDS = (0, 1, 2, 3)
+
+
+def sharded_sequences(n_frames):
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    return [make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
+                                        n_objects=2, seed=s, name=f"seq{s}")
+            for s in SHARDED_SEEDS]
+
+
+def sharded_argv(workdir):
+    """The CLI's arguments for the sharded engine on the .pth files that
+    phase_sharded writes into `workdir`."""
+    return ["--model", str(workdir / "rn101_smoke.pth"), "--backbone",
+            str(workdir / "resnet101.pth"), "--dset", "dv2017val", "--dev", "cuda",
+            "--dtype", "bfloat16", "--engine", "sharded"]
+
+
+def sharded_child(workdir):
+    """One rank of the sharded phase's two processes (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR and MASTER_PORT in the environment): the CLI with
+    --multihost on the phase's 4-sequence x 9-frame dataset."""
+    import os
+    sys.path.insert(0, str(ROOT))
+    from frtm_tpu_torch import evaluate
+    workdir = Path(workdir)
+    dataset = SyntheticDataset("synthval", sharded_sequences(9),
+                               workdir / f"annotations{os.environ['RANK']}")
+    evaluate.main(sharded_argv(workdir) + ["--output", str(workdir / "two"), "--multihost"],
+                  dataset=dataset)
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def two_process_run(backbone, refiner):
+    """The CLI's --engine sharded on a 4-sequence x 9-frame dataset, in this
+    process and in two processes on this card that join a gloo group
+    through the environment: the PNGs must be equal byte for byte, each
+    process must track its round-robin share and only rank 0 score."""
+    import os
+    from frtm_tpu_torch import evaluate
+    with tempfile.TemporaryDirectory(prefix="frtm_sharded_") as tmp:
+        tmp = Path(tmp)
+        torch.save({"model": {"refiner." + k: v.detach().cpu()
+                              for k, v in refiner.state_dict().items()}, "epoch": 260},
+                   tmp / "rn101_smoke.pth")
+        torch.save({k: v.detach().cpu() for k, v in backbone.state_dict().items()},
+                   tmp / "resnet101.pth")
+        seqs = sharded_sequences(9)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            one = evaluate.main(sharded_argv(tmp) + ["--output", str(tmp / "one")],
+                                dataset=SyntheticDataset("synthval", seqs, tmp / "annotations"))
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                   WORLD_SIZE="2", LOCAL_RANK="0")
+        t0 = time.perf_counter()
+        children = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                      "--sharded-child", str(tmp)],
+                                     env=dict(env, RANK=str(rank)), stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                    for rank in range(2)]
+        try:
+            outs = [child.communicate(timeout=600)[0] for child in children]
+        finally:
+            for child in children:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        wall = time.perf_counter() - t0
+        for rank, (child, out) in enumerate(zip(children, outs)):
+            if child.returncode != 0:
+                fail(f"sharded: rank {rank} of two exited with {child.returncode}:\n{out[-3000:]}")
+        two = tmp / "two" / one["out_path"].name
+        differ = [f"{s.name}/{f}" for s in seqs for f in s.frame_names
+                  if (two / s.name / f"{f}.png").read_bytes()
+                  != (one["out_path"] / s.name / f"{f}.png").read_bytes()]
+        shares = [f"multihost: process {r}/2 tracking 2/4 sequences" in outs[r] for r in range(2)]
+        scored = ["Computing J-scores" in out for out in outs]
+        reports = [(two / f"evaluation-{m}.txt").read_text()
+                   == (one["out_path"] / f"evaluation-{m}.txt").read_text() for m in "JF"]
+        written = [sorted(line.split(":")[0] for line in out.splitlines()
+                          if line.endswith("frames written")) for out in outs]
+    result = {"pngs_differ": differ, "shares_as_round_robin": shares, "scored_by_rank": scored,
+              "reports_equal": reports, "written_by_rank": written, "wall_s": wall,
+              "one_process_fps": one["fps"]}
+    if differ or not all(shares) or scored != [True, False] or not all(reports) \
+            or written != [["seq0", "seq2"], ["seq1", "seq3"]]:
+        fail(f"sharded: two processes against one: {result}")
+    return result
+
+
+def phase_sharded(cfg, backbone, refiner, card):
+    """The multi-sequence engine (parallel/multi_sequence.py) at full width
+    in bfloat16: groups of 1, 2 and 4 sequences of 17 frames with two
+    objects against the fused tracker on each sequence alone; the kernels of
+    a group's scan at 4 sequences at most 1.25x those at 1, kernels 1 and 2
+    launched as often for a group as for one sequence, all bf16; aggregate
+    fps, synchronised phase seconds and peak memory; then the CLI's
+    --multihost in two processes. Returns the port's kernel launches of the
+    4-sequence group's run_sequences (the main path).
+
+    The labels' bound: at B = 1 the group runs the fused tracker's shapes,
+    and its labels must lie within 0.5 % a frame of the fused tracker's. At
+    B = 2 and 4 cuBLAS and cuDNN pick other kernels for the wider batches
+    (the init's solve of 2B lanes, the decode of 16B), whose last bits
+    differ, and these random weights' target models carry such a difference
+    into the labels as far as any other of their size: the bound is twice
+    the fused tracker's own label movement when its init filters move by
+    one part in 1e6 (the yardstick, measured here on every sequence), plus
+    0.5 % (scripts/torch_sharded_agreement.py takes the gap apart). Whether
+    every gap also lies under 0.5 % is printed."""
+    from dataclasses import replace
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.parallel import ShardedSequenceTracker, make_mesh
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    from frtm_tpu_torch.utils.profiling import PhaseTimer
+
+    bf16 = replace(cfg, compute_dtype="bfloat16")
+    n_frames, n_objects = 17, 2
+    windows = -(-(n_frames - 1) // cfg.disc.train_skipping)
+    seqs = sharded_sequences(n_frames)
+    fused = BatchedSequenceTracker(bf16, backbone, refiner, extract_chunk=16, device="cuda")
+    fused.run_sequence(seqs[0])                     # warm-up
+    alone = {s.name: fused.run_sequence(s)[0] for s in seqs}
+    init = fused._init_objects_dense
+
+    def nudged(images, labels):
+        params, state = init(images, labels)
+        return params._replace(filter=params.filter * (1 + 1e-6)), state
+
+    fused._init_objects_dense = nudged
+    yardstick = [max(float(np.mean(a != b)) for a, b in zip(fused.run_sequence(s)[0],
+                                                             alone[s.name])) for s in seqs]
+    del fused._init_objects_dense
+    limit = 2 * max(yardstick) + 5e-3
+    group = ShardedSequenceTracker(bf16, backbone, refiner, make_mesh(), extract_chunk=16,
+                                   device="cuda")
+    readings, launches_main = {}, None
+    for B in (1, 2, 4):
+        members = seqs[:B]
+        group.run_sequences(members)                # warm-up at this width
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = group.run_sequences(members)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(LAUNCHES)
+        instances = {k: dict(VARIANTS[k]) for k in ("pyrup", "conv3x3_cout1", "warp_affine")}
+        gaps = [max(float(np.mean(a != b)) for a, b in zip(out[s.name], alone[s.name]))
+                for s in members]
+        pixels = [min(int((lb == i).sum()) for lb in out[s.name][1:])
+                  for s in members for i in range(1, n_objects + 1)]
+        key = group._group_key_meta(members[0])
+        preps = [(s, group._prepare(s)) for s in members]
+        timer = PhaseTimer(sync=True, device="cuda")
+        group._run_group(preps, key, timer=timer)
+        with per_phase_readings(("group_scan",)) as scan:
+            group._run_group(preps, key)
+        del preps
+        fps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            group.run_sequences(members)
+            fps.append(B * n_frames / (time.perf_counter() - t0))
+        readings[B] = {"fps_aggregate": fps, "label_gap_vs_fused_alone": gaps,
+                       "phase_seconds": {k: v["total_s"] for k, v in timer.stats().items()},
+                       "kernels": {k: v["kernels"] for k, v in scan.items()},
+                       "peak_bytes_group": {k: v["peak_bytes"] for k, v in scan.items()},
+                       "max_memory_allocated": peak, "launches": launches,
+                       "instances": instances, "object_pixels_min": min(pixels)}
+        if B == 4:
+            launches_main = launches
+        if max(gaps) >= (5e-3 if B == 1 else limit):
+            fail(f"sharded: B = {B}: labels differ from the fused tracker's on "
+                 f"{max(gaps):.4%} of a frame (limit {5e-3 if B == 1 else limit:.4%})")
+        if min(pixels) == 0:
+            fail(f"sharded: B = {B}: an object is missing from a tracked frame")
+        if launches["pyrup"] != 2 * windows or launches["conv3x3_cout1"] != windows \
+                or instances["pyrup"]["f32"] or instances["conv3x3_cout1"]["f32"] \
+                or launches["warp_affine"] != 4 * n_objects * B \
+                or instances["warp_affine"]["staged"] != launches["warp_affine"]:
+            fail(f"sharded: B = {B}: expected {2 * windows} bf16 pyrup and {windows} bf16 "
+                 f"head-conv launches a group (one sequence's) and {4 * n_objects * B} staged "
+                 f"warps, got {launches}, {instances}")
+    ratio = readings[4]["kernels"]["group_scan"] / readings[1]["kernels"]["group_scan"]
+    two = two_process_run(backbone, refiner)
+    emit({"phase": "sharded", "arch": cfg.feature_extractor, "dtype": "bfloat16",
+          "size": [480, 854], "frames": n_frames, "objects": n_objects, "card": card,
+          "groups": readings, "label_gap_vs_fused_alone_max": max(
+              max(r["label_gap_vs_fused_alone"]) for r in readings.values()),
+          "label_gap_under_0.005": {B: max(r["label_gap_vs_fused_alone"]) < 5e-3
+                                    for B, r in readings.items()},
+          "yardstick_fused_label_movement_under_1e-6_init_nudge": yardstick,
+          "tolerance": {"labels_b1": 5e-3, "labels": limit},
+          "scan_kernels_4_over_1": ratio, "limit": 1.25,
+          "two_processes": two})
+    if ratio > 1.25:
+        fail(f"sharded: the group scan's kernels at four sequences are {ratio:.3f}x those at one")
+    return launches_main
+
+
+def augment_call_readings(augmenter, image, mask, sessions=3):
+    """One augment_first_frame on the card, made `sessions` times, each in a
+    torch.profiler session of its own: the kernels it ran, the port's kernel
+    launches by variant, the retry rounds, and the most memory it allocated
+    over what was allocated before it.
+
+    torch.profiler loses events. It once lost a whole session's; and late in
+    this script (never in a fresh process: 36 sessions read 128 kernels at 4
+    and at 19 specs, scripts/torch_augment_round_kernels.py) one round read
+    125, 126 or 128 kernels from one session to the next, with equal
+    launches (NVIDIA H100). Each session therefore starts with a marker
+    kernel (`torch.cuda._sleep`, not counted) and a synchronise before the
+    call, and the kernels are the sum over kernel names of the most
+    launches of that name a session saw: the card is idle when a session
+    starts, so a lost event can only lower a count. `kernels_per_session`
+    gives every session's total, `names_below_most` per session the names it
+    saw fewer of."""
+    from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
-    for session in range(1, attempts + 1):
+    by_session = []
+    for _ in range(sessions):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1 << 20)
+            torch.cuda.synchronize()
             out = augmenter.augment_first_frame(image, mask, np.random.RandomState(0))
             torch.cuda.synchronize()
-        kernels = sum(1 for ev in prof.events() if is_kernel(ev))
-        if kernels:
-            break
-    return out, {"kernels": kernels, "profiler_sessions": session,
+        by_session.append(Counter(ev.name for ev in prof.events()
+                                  if is_kernel(ev) and "spin_kernel" not in ev.name))
+    most = Counter()
+    for names in by_session:
+        most |= names
+    return out, {"kernels": sum(most.values()),
+                 "kernels_per_session": [sum(c.values()) for c in by_session],
+                 "names_below_most": [{k: most[k] - c[k] for k in most if c[k] < most[k]}
+                                      for c in by_session],
                  "launches": dict(LAUNCHES), "warp_variants": dict(VARIANTS["warp_affine"]),
                  "rounds": getattr(augmenter, "last_rounds", None),
                  "peak_bytes_over_base": torch.cuda.max_memory_allocated() - base}
+
+
+def augment_frame():
+    """The device_augment phase's first frame: a textured 480x854 frame and
+    a 120 px square mask."""
+    frame = textured_frame((480, 854), seed=4)
+    mask = np.zeros((480, 854, 1), np.float32)
+    mask[150:270, 300:420] = 1
+    return frame, mask
+
+
+def augment_round_child():
+    """The device_augment phase's launches of one augment round at 4 and at
+    19 specs (num_aug in the selections), each after a first call, measured
+    in a process of its own (augment_call_readings says why): prints
+    {specs: readings} as one JSON line."""
+    sys.path.insert(0, str(ROOT))
+    from frtm_tpu_torch.config import eval_config
+    from frtm_tpu_torch.device import resolve_device
+    from frtm_tpu_torch.models.device_augmenter import DeviceAugmenter
+    resolve_device("cuda")
+    aug_params = eval_config("resnet101").aug_params
+    frame, mask = augment_frame()
+    per_round = {}
+    for n in (5, 20):
+        p = dict(aug_params, fg_aug_params=dict(aug_params["fg_aug_params"], num_aug=n),
+                 bg_aug_params=dict(aug_params["bg_aug_params"], num_aug=n))
+        aug = DeviceAugmenter(p, "cuda")
+        aug.augment_first_frame(frame, mask, np.random.RandomState(0))   # first launches
+        _, per_round[n - 1] = augment_call_readings(aug, frame, mask)
+    print(json.dumps(per_round), flush=True)
+
+
+def augment_round_readings():
+    """augment_round_child's readings, from a child process: {4: ..., 19: ...}."""
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--augment-round-child"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           timeout=300)
+    if child.returncode != 0:
+        fail(f"device_augment: the one-round child exited with {child.returncode}:\n"
+             f"{child.stdout[-3000:]}")
+    return {int(k): v for k, v in json.loads(child.stdout.strip().splitlines()[-1]).items()}
 
 
 def augment_backend_readings(cfg, backbone, refiner, n_objects, n_frames=9, passes=3):
@@ -1422,9 +1732,7 @@ def phase_device_augment(cfg, backbone, refiner, card):
     from frtm_tpu_torch.models.augmenter import ImageAugmenter
 
     aug_params = cfg.aug_params
-    frame = textured_frame((480, 854), seed=4)
-    mask = np.zeros((480, 854, 1), np.float32)
-    mask[150:270, 300:420] = 1
+    frame, mask = augment_frame()
     counts, inner = {}, tda.batch_augment
 
     def spy_on(dev):
@@ -1458,14 +1766,7 @@ def phase_device_augment(cfg, backbone, refiner, card):
     card_vs_cpu, device_vs_host = gap(batches["cuda"], batches["cpu"]), \
         gap(batches["cuda"], batches["host"])
 
-    # one round's launches at 4 and at 19 specs (num_aug in the selections)
-    per_round = {}
-    for n in (5, 20):
-        p = dict(aug_params, fg_aug_params=dict(aug_params["fg_aug_params"], num_aug=n),
-                 bg_aug_params=dict(aug_params["bg_aug_params"], num_aug=n))
-        aug = tda.DeviceAugmenter(p, "cuda")
-        aug.augment_first_frame(frame, mask, np.random.RandomState(0))   # first launches
-        _, per_round[n] = augment_call_readings(aug, frame, mask)
+    per_round = augment_round_readings()
 
     bf16 = replace(cfg, compute_dtype="bfloat16")
     readings, labels = augment_backend_readings(bf16, backbone, refiner, n_objects=2)
@@ -1483,7 +1784,7 @@ def phase_device_augment(cfg, backbone, refiner, card):
           "size": [480, 854], "dtype": "bfloat16", "objects": 2, "frames": 9,
           "augment_counts_per_round": counts["cuda"], "card_vs_cpu": card_vs_cpu,
           "cpu_augment_s": cpu_seconds, "device_vs_host_augmenter": device_vs_host,
-          "round_at_4_specs": per_round[5], "round_at_19_specs": per_round[20],
+          "round_at_4_specs": per_round[4], "round_at_19_specs": per_round[19],
           "backends": readings, "tracker_label_agreement_device_vs_host": agreement,
           "host_tracker_label_movement_under_augment_gap": sensitivity,
           "tracker_label_gap_limit": gap_limit,
@@ -1498,7 +1799,7 @@ def phase_device_augment(cfg, backbone, refiner, card):
     if max(1 - a for a in agreement) > gap_limit:
         fail(f"device_augment: the backends' labels differ by up to "
              f"{max(1 - a for a in agreement)} of a frame, over {gap_limit}")
-    r4, r19 = per_round[5], per_round[20]
+    r4, r19 = per_round[4], per_round[19]
     if r4["rounds"] != 1 or r19["rounds"] != 1 or not r4["kernels"] \
             or r4["kernels"] != r19["kernels"] or r4["launches"] != r19["launches"]:
         fail(f"device_augment: one round at 4 and at 19 specs launched differently: {r4}, {r19}")
@@ -2261,7 +2562,8 @@ def phase_train(backbone, card):
 
 
 def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                 launches_ytvos, instances_ytvos, launches_train, launches_device, ptxas):
+                 launches_ytvos, instances_ytvos, launches_train, launches_device,
+                 launches_sharded, ptxas):
     """The contract line: one entry per kernel instance at its main-path
     shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
     host loop runs them, and at N = 16 in bfloat16, the eval path's window of
@@ -2273,7 +2575,9 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
     with the .npz model) and the YouTube-VOS CLI run for the bfloat16 ones,
     all of them for the one-map warp (its main row the host augmenter's
     mixed paste), and the device augment backend's timed passes for the
-    batched warp (its main row a round's backgrounds, S = 19).
+    batched warp (its main row a round's backgrounds, S = 19); the sharded
+    phase's group of four (run_sequences, bfloat16) adds to the bfloat16
+    instances and the one-map warp.
     Each entry carries ptxas's readings of its source's kernel functions,
     each bfloat16 entry its time over the float32 instance's (bf16_over_f32),
     and each entry whose row names them the variant its launch took and the
@@ -2295,15 +2599,20 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
             if in_eval else 0
         n_host, n_fused = (0, 0) if bf16 else (launches[kernel], launches_fused[kernel])
         n_train = 0 if bf16 else launches_train[kernel]
+        # the sharded phase runs only bfloat16 decodes
+        n_sharded = launches_sharded[kernel] if in_eval and (bf16 or kernel == "warp_affine") \
+            else 0
         n_device = 0
         if name == "warp_affine_batched":
             n_host = n_fused = n_train = 0
             n_device = launches_device[kernel]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": n_host + n_fused + n_eval + n_ytvos + n_train + n_device,
+                    "launches": n_host + n_fused + n_eval + n_ytvos + n_train + n_device
+                    + n_sharded,
                     "launches_host_loop": n_host, "launches_fused": n_fused,
                     "launches_eval": n_eval, "launches_ytvos": n_ytvos,
                     "launches_train": n_train, "launches_device_augment": n_device,
+                    "launches_sharded": n_sharded,
                     "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"],
@@ -2340,6 +2649,7 @@ def main():
     launches = phase_main(tracker, seq)
     launches_fused = phase_fused(cfg, tracker.backbone, tracker.refiner)
     phase_init_scaling(cfg, tracker.backbone, tracker.refiner, card)
+    launches_sharded = phase_sharded(cfg, tracker.backbone, tracker.refiner, card)
     launches_device, _ = phase_device_augment(cfg, tracker.backbone, tracker.refiner, card)
     launches_eval, instances_eval = phase_eval(cfg, tracker.backbone, tracker.refiner)
     launches_ytvos, instances_ytvos = phase_ytvos(tracker.backbone, tracker.refiner)
@@ -2349,7 +2659,8 @@ def main():
     launches_train = phase_train(backbone, card)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
-                      launches_ytvos, instances_ytvos, launches_train, launches_device, ptxas))
+                      launches_ytvos, instances_ytvos, launches_train, launches_device,
+                      launches_sharded, ptxas))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
@@ -2357,4 +2668,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--sharded-child"]:
+        sharded_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--augment-round-child"]:
+        augment_round_child()
+    else:
+        main()

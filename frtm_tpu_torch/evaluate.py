@@ -11,8 +11,12 @@ scores J and F into evaluation-J.txt and evaluation-F.txt beside them.
 
 It runs on the card (`--dev cuda`, the default) and exits with an error where
 there is none; `--dev cpu` must be asked for. `--dtype` defaults to bfloat16,
-`--engine` to the fused tracker. The multi-device modes (`--engine sharded`,
-`--spatial`, `--multihost`) are parsed and refused: they are not ported yet.
+`--engine` to the fused tracker. `--engine sharded` tracks groups of
+sequences in one pass each (parallel/multi_sequence.py). `--multihost` joins
+the processes that torchrun (or MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and
+LOCAL_RANK set by hand) starts, one per card: each tracks its round-robin
+share of the sequences, and rank 0 scores after a barrier. `--spatial` is
+parsed and refused: height sharding is not ported yet.
 """
 import argparse
 import sys
@@ -21,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-NOT_PORTED = ("{what} is not ported to frtm_tpu_torch yet: the multi-device modes are "
+NOT_PORTED = ("{what} is not ported to frtm_tpu_torch yet: height sharding is "
               "ROADMAP.md queue item 7")
 
 
@@ -51,14 +55,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", type=str, default="fused",
                     choices=["fused", "host", "sharded"],
                     help="fused = whole-sequence extract and windowed decode; host = "
-                         "frame-at-a-time reference-semantics loop; sharded = batch "
-                         "sequences across all devices (not ported yet)")
+                         "frame-at-a-time reference-semantics loop; sharded = groups of "
+                         "sequences tracked in one pass each")
     ap.add_argument("--spatial", type=int, default=0,
                     help="fused engine: shard each frame's height over N devices "
                          "(not ported yet)")
     ap.add_argument("--multihost", action="store_true",
-                    help="partition the dataset's sequences across processes "
-                         "(not ported yet)")
+                    help="partition the dataset's sequences across the processes of "
+                         "a torchrun launch (one per card); rank 0 scores")
     ap.add_argument("--pipeline", action="store_true",
                     help="fused engine: prepare the next sequence (decode, uploads, "
                          "augmentation) during the current one's tracking (faster "
@@ -115,12 +119,12 @@ def main(argv=None, dataset=None):
     """Run the evaluation. `dataset`: a dataset object to track and score in
     place of the one `--dset` names on disk (the flag still names the
     protocol: dv2016val runs with a warm-up pass). Returns the results
-    directory, the average fps, the J and F dataset means and the tracker."""
+    directory, the fps (the average per sequence; the sharded engine's
+    aggregate), the J and F dataset means (None on ranks other than 0) and
+    the tracker."""
     args = build_parser().parse_args(argv)
-    for flag, what in ((args.engine == "sharded", "--engine sharded"),
-                       (args.spatial, "--spatial"), (args.multihost, "--multihost")):
-        if flag:
-            sys.exit(NOT_PORTED.format(what=what))
+    if args.spatial:
+        sys.exit(NOT_PORTED.format(what="--spatial"))
     model_path, arch, refiner, backbone = load_models(args)
 
     from .config import eval_config
@@ -134,19 +138,52 @@ def main(argv=None, dataset=None):
     out_path = Path(args.output).expanduser().resolve() / ex_name
     out_path.mkdir(exist_ok=True, parents=True)
 
+    pid, n_proc, dset_run = 0, 1, dset
+    if args.multihost:
+        from .parallel.distributed import init_distributed, process_slice
+        pid, n_proc = init_distributed()
+        if n_proc > 1:
+            # sequences are independent: each process tracks its round-robin
+            # share and writes into the shared out_path
+            seqs = list(dset)
+            keep = set(process_slice(len(seqs), pid, n_proc))
+
+            class Share(list):
+                """This process's share, with the dataset's name."""
+                name = dset.name
+
+            dset_run = Share(s for i, s in enumerate(seqs) if i in keep)
+            print(f"multihost: process {pid}/{n_proc} tracking "
+                  f"{len(dset_run)}/{len(seqs)} sequences")
+
     speedrun = args.dset == "dv2016val"
     if args.engine == "host":
         if args.pipeline:
-            print("WARNING: --pipeline applies to the fused engine only; "
+            print("WARNING: --pipeline applies to the fused and sharded engines only; "
                   "ignored for --engine host.")
         tracker = Tracker(cfg, backbone, refiner, device=args.dev)
-        fps = tracker.run_dataset(dset, out_path, speedrun=speedrun, restart=args.restart)
+        fps = tracker.run_dataset(dset_run, out_path, speedrun=speedrun, restart=args.restart)
+    elif args.engine == "sharded":
+        from .parallel import ShardedSequenceTracker, local_mesh, make_mesh
+        # in a run of several processes each tracks its share on its own card
+        mesh = local_mesh() if n_proc > 1 else make_mesh()
+        tracker = ShardedSequenceTracker(cfg, backbone, refiner, mesh, extract_chunk=16,
+                                         device=args.dev)
+        fps = tracker.run_dataset(dset_run, out_path, speedrun=speedrun, restart=args.restart,
+                                  pipeline=args.pipeline)
     else:
         tracker = BatchedSequenceTracker(cfg, backbone, refiner, extract_chunk=16,
                                          aug_compact=args.aug_compact == "on",
                                          device=args.dev)
-        fps = tracker.run_dataset(dset, out_path, speedrun=speedrun, restart=args.restart,
+        fps = tracker.run_dataset(dset_run, out_path, speedrun=speedrun, restart=args.restart,
                                   pipeline=args.pipeline)
+
+    if n_proc > 1:
+        # every process has written its PNGs before rank 0 scores
+        from .parallel.distributed import barrier
+        barrier("frtm_eval_outputs_done")
+        if pid != 0:
+            return {"out_path": out_path, "fps": fps, "J": None, "F": None, "tracker": tracker}
 
     dset.all_annotations = True
     print("\nComputing J-scores")

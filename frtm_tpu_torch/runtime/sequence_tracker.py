@@ -40,8 +40,14 @@ frames and its last window is short. Multilayer target models
 (cfg.disc_layers) ride the same loop: per layer a projection of every frame,
 a grouped classification and the memory inserts, the per-layer score maps
 concatenated for the decoder, and one re-solve decision per object (its
-first layer's counter) for all its layers. Not ported yet: `mesh` and the
-sharded paths.
+first layer's counter) for all its layers.
+
+`_track` takes a sequence axis: B sequences' frames side by side,
+frame-major, and B x n lanes, sequence-major, each reading its own
+sequence's frames and merged with its own sequence's labels. The one-sequence
+loops (`_window_track`, `_scan_track`) run it at B = 1; the group engine
+(parallel/multi_sequence.py) runs B sequences in one pass, one decode a
+window for all of them. Not ported yet: `mesh` (height sharding).
 
 Two augment backends, as in the JAX class: "host" (models/augmenter.py, one
 spec after another, its batches made before the init or, in the pipelined
@@ -94,10 +100,21 @@ def merge_volume(fg: torch.Tensor, obj_ids_lut: torch.Tensor) -> torch.Tensor:
     return obj_ids_lut[idx].to(torch.uint8)
 
 
+def _lookup(lut: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """lut[idx]; a (B, M) table holds one row per sequence, and idx
+    (..., B, H, W) reads each sequence's own row."""
+    if lut.dim() == 1:
+        return lut[idx]
+    B, M = lut.shape
+    return lut.flatten()[idx + M * torch.arange(B, device=idx.device).view(B, 1, 1)]
+
+
 def merge_rows_and_label(rows: torch.Tensor, obj_ids_lut: torch.Tensor):
     """Soft aggregation and labelling in one pass: rows (..., N, H, W) of
     suppressed soft foreground masks -> (merged (..., N, H, W) exclusive
-    object rows, uint8 (..., H, W) label image).
+    object rows, uint8 (..., H, W) label image). obj_ids_lut: (N + 1,)
+    labels, background first, or one such row per sequence, (B, N + 1), with
+    rows (..., B, N, H, W).
 
     The winners are those of merge_soft_masks followed by masks_to_labels,
     with one softmax: the second step's argmax over the exclusive volume
@@ -116,7 +133,7 @@ def merge_rows_and_label(rows: torch.Tensor, obj_ids_lut: torch.Tensor):
         win = r1 > r0
         s1 = torch.sigmoid(r1 - r0)
         merged = (s1 * win.to(s1.dtype)).unsqueeze(-3)
-        label = torch.where(win & (s1 > 0.5), lut[1], lut[0])
+        label = _lookup(lut, (win & (s1 > 0.5)).long())
         return merged, label.to(torch.uint8)
     p = rows.clamp(1e-7, 1 - 1e-7)
     bg = (1.0 - p).amin(dim=-3)
@@ -133,8 +150,23 @@ def merge_rows_and_label(rows: torch.Tensor, obj_ids_lut: torch.Tensor):
     obj_wins = s_win > seg_bg             # strict: ties go to background
     lane = torch.arange(N, device=rows.device).view(N, 1, 1)
     merged = seg * ((lane == k.unsqueeze(-3)) & obj_wins.unsqueeze(-3)).to(seg.dtype)
-    label = torch.where(obj_wins & (s_win > 0.5), lut[1:][k], lut[0])
+    label = _lookup(lut, torch.where(obj_wins & (s_win > 0.5), k + 1, 0))
     return merged, label.to(torch.uint8)
+
+
+def project_sequences(features, project, n_seqs: int):
+    """Each sequence's lanes project its own frames, one 1x1 convolution a
+    sequence (project_all).
+
+    :param features: (T * B, Cin, h, w), frame-major: row t * B + b is
+                     frame t of sequence b
+    :param project: (B * n, c, Cin, 1, 1), sequence-major
+    :return: (T, B * n, c, h, w)
+    """
+    B = n_seqs
+    n = project.shape[0] // B
+    outs = [project_all(features[b::B].float(), project[b * n:(b + 1) * n]) for b in range(B)]
+    return outs[0] if B == 1 else torch.cat(outs, dim=1)
 
 
 # the target models of all objects, with the object axis: (DiscParams,
@@ -222,10 +254,11 @@ class BatchedSequenceTracker:
                 for c in chunks]
         return {L: torch.cat([o[L] for o in outs]) for L in outs[0]}
 
-    def _frame_dev(self, t: int, chunks) -> torch.Tensor:
-        """Frame t, (H, W, 3) uint8, from the preloaded buffers."""
+    def _frame_dev(self, t: int, chunks, frame0=None) -> torch.Tensor:
+        """Frame t, (H, W, 3) uint8, from the preloaded buffers (frame 0:
+        `frame0`, or the sequence that run_sequence tracks)."""
         if t == 0:
-            return self._frame0_dev
+            return self._frame0_dev if frame0 is None else frame0
         C = self.extract_chunk
         return chunks[(t - 1) // C][(t - 1) % C]
 
@@ -354,23 +387,33 @@ class BatchedSequenceTracker:
         return torch.sigmoid(logits[:, 0].float())
 
     def _track(self, feats_all, models: Models, start_frames, start_masks,
-               obj_ids_lut, im_size, window: int):
-        """Track frames 1..T' in windows of `window` frames: one batched
-        classify + decode of window x objects lanes, a merge per frame, per
-        tracked frame one memory insert of all lanes, then, when the host's
-        facts (which lanes are tracked, their frame counters) say that some
-        lane is due, one filter re-solve of all lanes, whose result each
-        lane takes where it is due on the device: tracked, on its own
-        cadence and with >= 10 foreground pixels, as the JAX `due`.
+               obj_ids_lut, im_size, window: int, n_seqs: int = 1):
+        """Track frames 1..T' of B sequences in windows of `window` frames:
+        one batched classify + decode of window x B x n lanes, a merge per
+        frame and sequence, per tracked frame one memory insert of all
+        lanes, then, when the host's facts (which lanes are tracked, their
+        frame counters) say that some lane is due, one filter re-solve of
+        all lanes, whose result each lane takes where it is due on the
+        device: tracked, on its own cadence and with >= 10 foreground
+        pixels, as the JAX `due`.
 
-        :param feats_all:    {layer: (T', c, h, w)} frames 1..T'
-        :param models:       the target models of all objects (Models); the
-                             states are updated in place
-        :param start_frames: per object, its start frame index (host ints)
+        Frames are frame-major: row t * B + b of a feature map is frame
+        t + 1 of sequence b. Lanes are sequence-major: lane b * n + k is
+        object k of sequence b and reads sequence b's frames. A lane whose
+        start frame lies past T' is never tracked (a sequence with fewer
+        than n objects pads so). B = n_seqs.
+
+        :param feats_all:    {layer: (T' * B, c, h, w)} frames 1..T' of each
+                             sequence
+        :param models:       the target models of all N = B x n lanes
+                             (Models); the states are updated in place
+        :param start_frames: per lane, its start frame index (host ints)
         :param start_masks:  (N, H, W) float32 ground-truth start masks
-        :param obj_ids_lut:  (N + 1,) int labels, background first
-        :return: ((T', H, W) uint8 labels (online) or (T', N, H, W) float32
-                 suppressed soft rows (deferred), the updated models)
+        :param obj_ids_lut:  (n + 1,) int labels, background first, or one
+                             such row per sequence, (B, n + 1)
+        :return: ((T' * B, H, W) uint8 labels (online), frame-major, or
+                 (T', N, H, W) float32 suppressed soft rows (deferred), the
+                 updated models)
         """
         cfg = self.disc_cfg
         cfgs = self.disc_cfgs
@@ -383,8 +426,11 @@ class BatchedSequenceTracker:
                                                          {cfg.layer: models[1]})
         # every layer follows the first layer's counter, as in the JAX scan
         counter = states[next(iter(cfgs))]
-        n_track = feats_all[next(iter(cfgs))].shape[0]
-        compressed_all = {L: project_all(feats_all[L].float(), params[L].project) for L in cfgs}
+        B = n_seqs
+        n_track = feats_all[next(iter(cfgs))].shape[0] // B
+        n = N // B
+        compressed_all = {L: project_sequences(feats_all[L], params[L].project, B)
+                          for L in cfgs}
         t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
         starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
         active_all = t_all > starts          # (T', N) tracked this frame
@@ -408,24 +454,28 @@ class BatchedSequenceTracker:
             for L, c in cft.items():
                 s = classify_objects(c, params[L].filter, clamp_output=cfgs[L].clamp_output)
                 scores.append(s.reshape(w * N, 1, *s.shape[-2:]).to(self.dtype))
-            # the object-independent TSE reductions run once per frame and
-            # are repeated, at 32 channels, across the object lanes
-            red = seg_network_reduce(self.refiner_c, {L: feats_all[L][i0:i1] for L in layers},
+            # the object-independent TSE reductions run once per frame of
+            # each sequence and are repeated, at 32 channels, across its lanes
+            red = seg_network_reduce(self.refiner_c,
+                                     {L: feats_all[L][i0 * B:i1 * B] for L in layers},
                                      layers)
-            if N > 1:
-                red = {L: (h.repeat_interleave(N, dim=0), hp.repeat_interleave(N, dim=0))
+            if n > 1:
+                red = {L: (h.repeat_interleave(n, dim=0), hp.repeat_interleave(n, dim=0))
                        for L, (h, hp) in red.items()}
             y = self._decode(scores if self.multilayer else scores[0], red, im_size)
-            y = y.view(w, N, *y.shape[-2:]) * active[..., None, None]
+            y = y.view(w, B, n, *y.shape[-2:]) * active.view(w, B, n, 1, 1)
             if entering:
                 # suppress tracked masks under this window's entering objects
-                sup = torch.prod(1.0 - start_masks[None] * fresh[..., None, None], dim=1)
-                y = y * sup[:, None]
-                rows = torch.where(fresh[..., None, None], start_masks[None], y) if online else y
+                masks = start_masks.view(B, n, *start_masks.shape[-2:])[None]
+                entry = fresh.view(w, B, n, 1, 1)
+                sup = torch.prod(1.0 - masks * entry, dim=2)
+                y = y * sup[:, :, None]
+                rows = torch.where(entry, masks, y) if online else y
             else:
                 rows = y
             merged, labels = merge_rows_and_label(rows, obj_ids_lut)
-            outs.append(labels if online else rows)
+            merged = merged.flatten(1, 2)
+            outs.append(labels.flatten(0, 1) if online else rows.flatten(1, 2))
 
             if not cfg.update_filters:
                 for state in states.values():
@@ -479,9 +529,18 @@ class BatchedSequenceTracker:
 
     # -- entry points -----------------------------------------------------------
 
-    def prepare_sequence(self, sequence, stream=None) -> dict:
+    def prepare_inputs(self, sequence) -> dict:
+        """Stack the frames and upload them (frame 0 and the extract's
+        chunks): the preload that the reference keeps off its fps clock."""
+        images_np = np.stack([sequence[t][0] for t in range(len(sequence))])
+        return {"images_np": images_np,
+                "frame0_dev": torch.from_numpy(images_np[0]).to(self.device),
+                "chunks": self._upload_chunks(images_np[1:])}
+
+    def prepare_sequence(self, sequence, stream=None, inputs=None) -> dict:
         """The host-side preparation of a sequence, separable from tracking:
-        stack the frames, upload them, and run the first-frame augmentation
+        stack the frames, upload them (or take `inputs`, a prepare_inputs()
+        result), collect the objects and run the first-frame augmentation
         (the host backend's; the device backend augments inside the timed
         region). The result feeds run_sequence(preloaded=).
 
@@ -490,14 +549,12 @@ class BatchedSequenceTracker:
         while the tracker's own stream is busy with the previous sequence.
         The result then carries an event, recorded when that work was
         enqueued, which run_sequence makes its stream wait for."""
-        images_np = np.stack([sequence[t][0] for t in range(len(sequence))])
         with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            prep = {"images_np": images_np,
-                    "frame0_dev": torch.from_numpy(images_np[0]).to(self.device),
-                    "chunks": self._upload_chunks(images_np[1:]),
-                    "aug_batches": (None if self.augment_backend == "device" else
-                                    self._augment_objects(self._collect_objects(sequence))),
-                    "ready": None}
+            prep = dict(inputs) if inputs is not None else self.prepare_inputs(sequence)
+            objects = self._collect_objects(sequence)
+            prep.update(objects=objects, ready=None,
+                        aug_batches=(None if self.augment_backend == "device" else
+                                     self._augment_objects(objects)))
             if stream is not None:
                 prep["ready"] = torch.cuda.Event()
                 prep["ready"].record(stream)
@@ -546,9 +603,9 @@ class BatchedSequenceTracker:
             if aug_batches is None:
                 aug_batches = preloaded["aug_batches"]
         else:
-            images_np = np.stack([sequence[t][0] for t in range(len(sequence))])
-            self._frame0_dev = torch.from_numpy(images_np[0]).to(self.device)
-            chunks = self._upload_chunks(images_np[1:])
+            inputs = self.prepare_inputs(sequence)
+            images_np, self._frame0_dev, chunks = (inputs["images_np"], inputs["frame0_dev"],
+                                                   inputs["chunks"])
 
         if speedrun:
             self._run(images_np, sequence, PhaseTimer(sync=False), chunks, soft=soft,

@@ -2,7 +2,9 @@
 process on the CPU: a fabricated reference-format .pth and torchvision-format
 backbone .pth, a miniature DAVIS tree (rn18, 96x128, 5 frames; one sequence
 with one object, one with two), through the fused engine with and without
---pipeline and the host engine, down to the PNGs and the J / F reports.
+--pipeline, the host engine, and the sharded engine and --multihost (a
+world of one process) against the fused engine's PNGs, down to the PNGs and
+the J / F reports.
 
 Held against frtm_tpu: its BatchedSequenceTracker.run_dataset, fed the same
 two .pth files through its own loaders, on the same tree. Two things are
@@ -230,16 +232,47 @@ def test_cli_restart_and_random_backbone(world, monkeypatch, tmp_path, capsys):
     assert not (res_dir / "seq1").exists()
 
 
+@pytest.fixture(scope="module")
+def fused_run(world, tmp_path_factory):
+    """The fused engine's run, the reference of the multi-device flags."""
+    with pytest.MonkeyPatch.context() as mp:
+        return _run(world, mp, tmp_path_factory.mktemp("fused") / "out")
+
+
+@pytest.mark.parametrize("extra", [["--engine", "sharded"],
+                                   ["--engine", "sharded", "--multihost"], ["--multihost"]])
+def test_cli_sharded_and_multihost_write_the_fused_pngs(world, fused_run, monkeypatch, tmp_path,
+                                                        capsys, extra):
+    """`--engine sharded` tracks each group of sequences in one pass (here
+    two groups of one: one and two objects), `--multihost` in a world of one
+    process changes nothing: the fused engine's PNGs, byte for byte (a group
+    whose sequences have as many objects as its width gives the fused
+    tracker's labels: test_torch_multi_sequence*.py), and its J and F."""
+    result = _run(world, monkeypatch, tmp_path / "out", *extra)
+    out = capsys.readouterr().out
+    assert ("Sharded dataset pass:" in out) == ("sharded" in extra)
+    assert "multihost: process" not in out
+    for seq in world.seqs:
+        for name in seq.frame_names:
+            png = f"{seq.name}/{name}.png"
+            assert (result["out_path"] / png).read_bytes() == \
+                (fused_run["out_path"] / png).read_bytes(), png
+    _check_reports(result["out_path"], result)
+    assert (result["J"], result["F"]) == (fused_run["J"], fused_run["F"])
+
+
 def test_cli_refuses_what_it_cannot_do(world, tmp_path, capsys):
     if not torch.cuda.is_available():
         args = [a if a != "cpu" else "cuda" for a in world.args(tmp_path / "out")]
         with pytest.raises(SystemExit) as e:
             evaluate.main(args)
         assert e.value.code not in (0, None) and "no CUDA device is available" in str(e.value.code)
-    for extra in (["--engine", "sharded"], ["--spatial", "4"], ["--multihost"]):
         with pytest.raises(SystemExit) as e:
-            evaluate.main(world.args(tmp_path / "out", *extra))
-        assert "ROADMAP.md queue item 7" in str(e.value.code)
+            evaluate.main(args + ["--engine", "sharded"])
+        assert "no CUDA device is available" in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        evaluate.main(world.args(tmp_path / "out", "--spatial", "4"))
+    assert "ROADMAP.md queue item 7" in str(e.value.code) and "--spatial" in str(e.value.code)
     with pytest.raises(SystemExit) as e:
         evaluate.main(world.args(tmp_path / "out")[2:] + ["--model", str(tmp_path / "no.pth")])
     assert "not found" in str(e.value.code)

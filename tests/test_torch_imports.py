@@ -51,7 +51,8 @@ def _dynamic_imports(tree):
 def test_the_walk_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"chip_smoke.py", "frtm_tpu_torch/evaluate.py", "frtm_tpu_torch/data/image.py",
-            "frtm_tpu_torch/ops/kernels/build.py"} <= names and len(names) > 30
+            "frtm_tpu_torch/ops/kernels/build.py", "frtm_tpu_torch/parallel/distributed.py",
+            "frtm_tpu_torch/parallel/multi_sequence.py"} <= names and len(names) > 30
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
