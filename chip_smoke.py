@@ -182,6 +182,36 @@ Phases, each printing one JSON line:
                 the cold start's augment, extract and disc_init seconds,
                 forward and backward seconds of a synchronised step, peak
                 memory.
+  10. dp_train — data-parallel training (parallel/train_step.py,
+                Trainer(mesh=), train --dp / --multihost) at full width:
+                rn101, 480x854, train_config, three frames a sample, a
+                global batch of 16 (the committed fixtures' DAVIS tree), in
+                child processes (`chip_smoke.py --dp-child`). A one-rank
+                NCCL world: two steps bit-equal to the meshless trainer
+                (losses and refiner), then one epoch of `train.main --dp
+                1`. Two gloo ranks on the one card (NCCL refuses two ranks
+                a card), 8 rows each, on the one-rank world's target
+                models: loss and accuracy within rtol 1e-4 of the one-rank
+                step, gradients within twice the one-rank step's own
+                movement under a 1e-6 nudge of every refiner weight plus
+                1e-3 of their peak, running statistics within 1e-5 of their
+                peak, the replicas bit-equal after two AMSGrad steps (the
+                second leaves rank 1 only padding); then one epoch of
+                `train.main --multihost` in both (its second batch leaves
+                rank 1 only padding): finite statistics, checkpoints and
+                stats.jsonl from rank 0 only, the ranks' refiners equal.
+                Launches a rank a step: 4 / 2 float32 forward, 4 pyrup_bwd
+                (v4), 2 head-conv dx and 2 dw (v2), none bf16. Printed:
+                step seconds a rank, all-reduce seconds (gradients,
+                BatchNorm), peak memory a rank, the card; two ranks sharing
+                one card over gloo are not a scaling figure, and two cards
+                over NCCL are not measured;
+  11. synthetic — scripts/torch_train_eval_synthetic.py --dev cuda at its
+                defaults with --compare-dtypes: trains rn18 on synthetic
+                scenes and tracks 3 held-out sequences; fails under a mean
+                J of SYNTHETIC_MIN_J (frtm_tpu's script's own J less 0.1).
+The kernels phase also holds the backward kernels at N = 8 (a rank's rows),
+and the native phase the three INTER_AREA paths of the loaders' resize.
 Then a {"kernels": [...]} line (one entry per kernel instance, the backward
 kernels included) and, last, the
 {"ok": true, "device": ...} line. Any failure exits non-zero before it.
@@ -575,10 +605,36 @@ def phase_native():
             or not np.array_equal(got, plain):
         fail(f"native: {name} (libpng, filters {entry['filters']}) does not read to its digest "
              "through both unfilters")
+    resizes = resize_checks()
     emit({"phase": "native", "build_seconds": build_s, "jpeg_backend": backend,
           "probe": native.PROBE, "telea": telea, "png_unfilter": png, "jpeg": jpegs,
-          "functions": functions, "tolerance": {"telea": 0, "png": 0,
-                                                "jpeg": "digest" if exact else "0.5 dB"}})
+          "resize": resizes, "functions": functions,
+          "tolerance": {"telea": 0, "png": 0, "jpeg": "digest" if exact else "0.5 dB",
+                        "resize": 0}})
+
+
+def resize_checks():
+    """The training loaders' INTER_AREA resizes to 480x854 in the host
+    library against their plain versions, equal on every value, in each of
+    OpenCV's three paths: general (720x1280), resizeAreaFast (960x1708, both
+    factors 2) and the linear path where an axis enlarges (240x427 both
+    axes, 360x1280 one up and one down); 3 channels and 1."""
+    from frtm_tpu_torch.data import resize_host as R
+    out = {}
+    for src_hw in ((720, 1280), (960, 1708), (240, 427), (360, 1280)):
+        path = R.area_path(src_hw, (480, 854))[0]
+        frame = textured_frame(src_hw, seed=5)
+        for image in (frame, np.ascontiguousarray(frame[..., 1])):
+            got, want = R.resize_area(image, (480, 854)), R.resize_area_plain(image, (480, 854))
+            key = f"{path} {src_hw[0]}x{src_hw[1]}x{image.shape[2] if image.ndim == 3 else 1}"
+            out[key] = {"equal": bool(np.array_equal(got, want)),
+                        "ms": host_ms(lambda image=image: R.resize_area(image, (480, 854))),
+                        "plain_ms": host_ms(lambda image=image: R.resize_area_plain(
+                            image, (480, 854)), repeats=2)}
+            if not out[key]["equal"]:
+                fail(f"native: resize_area {key} differs from the plain version on "
+                     f"{int((got != want).sum())} values")
+    return out
 
 
 def bf16_ulp(peak):
@@ -912,16 +968,14 @@ def warp_form_rows(g, rgba, lbl, Ts, Tw, launch_floor_ms):
 
 
 def backward_rows(g):
-    """The backward kernels at the training shapes (N = 16), each against its
-    plain backward (autograd of the plain forward on the card)."""
-    import torch.nn.functional as F
-    from frtm_tpu_torch.ops.kernels import (
-        VARIANTS, conv3x3_cout1_input_grad, conv3x3_cout1_input_grad_plain,
-        conv3x3_cout1_weight_grad, conv3x3_cout1_weight_grad_plain, pyr_up_bicubic_backward,
-        pyr_up_bicubic_backward_plain)
-    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import input_grad_plan, weight_grad_plan
+    """The backward kernels at the training shapes, each against its plain
+    backward (autograd of the plain forward on the card): N = 16, the
+    batch of one card, then N = 8, a rank's rows of the dp_train phase's
+    global batch of 16 split over two."""
+    from frtm_tpu_torch.ops.kernels import (VARIANTS, pyr_up_bicubic_backward,
+                                            pyr_up_bicubic_backward_plain)
     rows = {"pyrup_bwd": [], "conv3x3_cout1_dx": [], "conv3x3_cout1_dw": []}
-    for shape in [(16, 32, 120, 214), (16, 16, 240, 428)]:
+    for shape in [(16, 32, 120, 214), (16, 16, 240, 428), (8, 32, 120, 214), (8, 16, 240, 428)]:
         n, c, h, w = shape
         gy = torch.randn(n, c, 2 * h, 2 * w, generator=g).cuda()
         before = dict(VARIANTS["pyrup_bwd"])
@@ -937,10 +991,20 @@ def backward_rows(g):
             fail(f"pyrup_bwd {shape}: took {row['variant']}, not the 16-byte loads (v4)")
         rows["pyrup_bwd"].append(row)
         del gy
-    shape = (16, 16, 480, 854)
-    x = torch.relu(torch.randn(shape, generator=g)).cuda()
     wt = (torch.rand(1, 16, 3, 3, generator=g) * 0.2 - 0.1).cuda()
-    gy = (torch.randn(16, 1, 480, 854, generator=g) * 1e-3).cuda()
+    for shape in [(16, 16, 480, 854), (8, 16, 480, 854)]:
+        conv_backward_rows(rows, g, shape, wt)
+    return rows
+
+
+def conv_backward_rows(rows, g, shape, wt):
+    """The head conv's dx and its dw and db at `shape`, appended to rows."""
+    from frtm_tpu_torch.ops.kernels import (
+        VARIANTS, conv3x3_cout1_input_grad, conv3x3_cout1_input_grad_plain,
+        conv3x3_cout1_weight_grad, conv3x3_cout1_weight_grad_plain)
+    from frtm_tpu_torch.ops.kernels.conv3x3_cout1 import input_grad_plan, weight_grad_plan
+    x = torch.relu(torch.randn(shape, generator=g)).cuda()
+    gy = (torch.randn(shape[0], 1, *shape[2:], generator=g) * 1e-3).cuda()
     before = dict(VARIANTS["conv3x3_cout1_dx"])
     row = _compare(
         "conv3x3_cout1_dx", list(shape), lambda: conv3x3_cout1_input_grad(gy, wt, shape),
@@ -968,7 +1032,6 @@ def backward_rows(g):
         fail(f"conv3x3_cout1_dw {shape}: took {row['variant']}, not the 8-byte loads (v2)")
     row["rows"] = weight_grad_plan(*shape, x.device)
     rows["conv3x3_cout1_dw"].append(row)
-    return rows
 
 
 class plain_decoder:
@@ -1523,7 +1586,7 @@ def phase_sharded(cfg, backbone, refiner, card):
                                                              alone[s.name])) for s in seqs]
     del fused._init_objects_dense
     limit = 2 * max(yardstick) + 5e-3
-    group = ShardedSequenceTracker(bf16, backbone, refiner, make_mesh(), extract_chunk=16,
+    group = ShardedSequenceTracker(bf16, backbone, refiner, make_mesh(device="cuda"), extract_chunk=16,
                                    device="cuda")
     readings, launches_main = {}, None
     for B in (1, 2, 4):
@@ -2561,9 +2624,391 @@ def phase_train(backbone, card):
     return {k: first["launches"][k] + resumed["launches"][k] for k in TRAIN_KERNELS}
 
 
+# -- data-parallel training ---------------------------------------------------
+
+# the dp_train phase's two fixed steps on its global batch of 16: all rows
+# valid, then 2 real samples and 14 repeats, which leaves a second rank with
+# padding only
+DP_MASKS = (np.ones(16, np.float32), np.r_[np.ones(2), np.zeros(14)].astype(np.float32))
+
+
+def dp_batch(davis):
+    """The dp_train phase's global batch: the 16 samples of the DAVIS
+    training tree of write_training_trees (one sequence, two objects, 8
+    repeats) drawn with seeded generators; (images (3, 16, 480, 854, 3),
+    labels (3, 16, 480, 854, 1), specs)."""
+    import random
+    from frtm_tpu_torch.data.training_datasets import DAVISTrainingDataset, SampleSpec
+    dset = DAVISTrainingDataset(davis, epoch_repeats=8, sample_size=3,
+                                rng=np.random.RandomState(0), py_rng=random.Random(0))
+    items = [dset[i] for i in range(len(dset))]
+    images = np.stack([np.stack([it[0][t] for it in items]) for t in range(3)])
+    labels = np.stack([np.stack([it[1][t] for it in items]) for t in range(3)])
+    return images, labels, SampleSpec.from_encoded([it[2] for it in items])
+
+
+class GradRecorder:
+    """make_sharded_train_step's optimizer interface; records the gradients
+    it is given (after their all-reduce) and moves nothing."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.grads = None
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self, lr):
+        self.grads = [p.grad.detach().cpu().clone() for p in self.params]
+
+
+class CollectiveClock:
+    """While installed, every torch.distributed.all_reduce is timed with the
+    card synchronised before and after it: (elements, seconds) per call."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls, self.dist, self.all_reduce = [], dist, dist.all_reduce
+
+        def timed(t, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.all_reduce(t, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((t.numel(), time.perf_counter() - t0))
+            return out
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.all_reduce
+
+
+def cpu_state(module):
+    return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def median_logit(model, disc, images):
+    """The median logit of the refiner over frame 1 of the batch's first two
+    samples, with batch-statistics BatchNorm. A random refiner reads every
+    pixel as background, so the accuracy, an IoU, is 0 on every rank and
+    holds nothing; dp_child subtracts this from the head's bias, which
+    leaves about half the pixels foreground and the accuracy nonzero."""
+    from frtm_tpu_torch.models.discriminator import DiscParams
+    from frtm_tpu_torch.models.seg_network import seg_network_apply
+    from frtm_tpu_torch.runtime.trainer import classify_per_sample
+    layers = model.cfg.refnet_layers
+    frames = torch.as_tensor(images[1, :2]).cuda().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        feats = model.backbone.extract_features(frames, output_layers=model._all_layers)
+        scores = classify_per_sample(DiscParams(disc.project[:2], disc.filter[:2]),
+                                     feats[model.disc_cfg.layer])
+        logits, _ = seg_network_apply(model.refiner, scores, {L: feats[L] for L in layers},
+                                      tuple(frames.shape[-2:]), layers=layers, train_bn=True)
+    return float(logits.median())
+
+
+def dp_child(mode, workdir):
+    """One rank of the dp_train phase (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR and MASTER_PORT in the environment): "nccl", a world of one
+    rank over NCCL, or "gloo", two ranks on the one card (NCCL refuses two
+    ranks a card). On its rows of the fixed global batch: one step whose
+    gradients are recorded (its all-reduces timed), two AMSGrad steps
+    (DP_MASKS; launches of the first counted, each timed); the one-rank
+    world also runs the meshless trainer on the same batches, and solves the
+    target models and centres the refiner's head (median_logit), which the
+    two ranks then read. Then one epoch of
+    `train.main` (--dp 1, or --multihost). Writes dp_{mode}{rank}.pt."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from frtm_tpu_torch import train
+    from frtm_tpu_torch.device import resolve_device
+    from frtm_tpu_torch.models.discriminator import DiscParams
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.parallel import (batch_sharded, init_distributed, make_mesh,
+                                         make_sharded_train_step)
+    from frtm_tpu_torch.runtime.trainer import AMSGrad, TModelCache, Trainer, TrainerModel
+    workdir = Path(workdir)
+    resolve_device("cuda")
+    rank, size = init_distributed(backend="nccl" if mode == "nccl" else "gloo", device="cuda")
+    mesh = make_mesh(size, device="cuda")
+    cfg = train.train_config("resnet101")
+    model = TrainerModel(cfg, *build_models("resnet101", cfg, "cuda"), TModelCache(None, False),
+                         device="cuda")
+    images, labels, specs = dp_batch(workdir / "DAVIS")
+    if mode == "nccl":
+        disc, _ = model.build_disc_batch(images[0], labels[0], specs)
+        shift = -median_logit(model, disc, images)
+        torch.save({"project": disc.project.cpu(), "filter": disc.filter.cpu(),
+                    "head_shift": shift}, workdir / "dp_disc.pt")
+    else:
+        saved = torch.load(workdir / "dp_disc.pt")
+        disc = DiscParams(saved["project"].cuda(), saved["filter"].cuda())
+        shift = saved["head_shift"]
+    with torch.no_grad():
+        model.refiner.project.conv2.bias.add_(shift)
+    sd0 = {k: v.clone() for k, v in model.refiner.state_dict().items()}
+    rows = DiscParams(batch_sharded(mesh, disc.project), batch_sharded(mesh, disc.filter))
+    im_rows, lb_rows = batch_sharded(mesh, images, 1), batch_sharded(mesh, labels, 1)
+    masks = [batch_sharded(mesh, m) for m in DP_MASKS]
+    step = make_sharded_train_step(model, mesh)
+    out = {"rank": rank, "size": size, "rows": int(im_rows.shape[1])}
+
+    def recorded(scale=1.0):
+        model.refiner.load_state_dict(sd0)
+        if scale != 1.0:
+            with torch.no_grad():
+                for p in model.refiner.parameters():
+                    p.mul_(scale)
+        rec = GradRecorder(model.refiner.parameters())
+        with CollectiveClock() as clock:
+            stats = step(rows, im_rows, lb_rows, masks[0], rec, 1.0)
+        names = [n for n, _ in model.refiner.named_parameters()]
+        return {"stats": stats, "grads": dict(zip(names, rec.grads)),
+                "bn": {k: v for k, v in cpu_state(model.refiner).items()
+                       if k.endswith(("running_mean", "running_var"))},
+                "all_reduce_calls": clock.calls}
+
+    recorded()                                  # first launches, cuDNN's choices
+    out["recorded"] = recorded()
+    if mode == "nccl":
+        # the yardstick of the gradient bound: the one-rank step's own
+        # movement when every refiner weight moves by one part in 1e6
+        out["nudged"] = recorded(1 + 1e-6)
+    out["n_params"] = sum(p.numel() for p in model.refiner.parameters())
+
+    model.refiner.load_state_dict(sd0)
+    opt = AMSGrad(model.refiner.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"], out["step_seconds"] = [], []
+    for i, mask in enumerate(masks):
+        if i == 0:
+            reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["steps"].append(step(rows, im_rows, lb_rows, mask, opt, 1e-3))
+        torch.cuda.synchronize()
+        out["step_seconds"].append(time.perf_counter() - t0)
+        if i == 0:
+            out["launches_per_step"] = dict(LAUNCHES)
+            out["variants_per_step"] = {k: dict(v) for k, v in VARIANTS.items()}
+    out["peak_memory"] = torch.cuda.max_memory_allocated()
+    out["stepped"] = cpu_state(model.refiner)
+    if mode == "nccl":
+        model.refiner.load_state_dict(sd0)
+        opt = AMSGrad(model.refiner.parameters())
+        out["meshless_steps"] = [model.train_step(disc, images, labels, m, opt, 1e-3)
+                                 for m in DP_MASKS]
+        out["meshless_stepped"] = cpu_state(model.refiner)
+    del model, opt
+
+    saves, save = [], Trainer.save_checkpoint
+
+    def counted(self):
+        saves.append(self.epoch)
+        save(self)
+
+    Trainer.save_checkpoint = counted
+    argv = ["dp", "--ftext", "resnet101", "--dset", "all", "--dv2017", str(workdir / "DAVIS"),
+            "--yt2018", str(workdir / "ytvos2018"), "--workspace", str(workdir / f"ws_{mode}"),
+            "--dev", "cuda", "--batch-size", "16", "--max-epochs", "1"]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train.main(argv + (["--dp", "1"] if mode == "nccl" else ["--multihost"]))
+    torch.cuda.synchronize()
+    out["epoch"] = {"wall_s": time.perf_counter() - t0, "saves": saves,
+                    "launches": dict(LAUNCHES),
+                    "variants": {k: dict(v) for k, v in VARIANTS.items()},
+                    "refiner": cpu_state(trainer.model.refiner),
+                    "mesh_size": trainer.mesh.size, "rank_env": os.environ.get("RANK")}
+    torch.save(out, workdir / f"dp_{mode}{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_ranks(mode, n, workdir):
+    """Run n ranks of dp_child on this card; returns what each wrote."""
+    import os
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(n), LOCAL_RANK="0")
+    children = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-child", mode,
+                                  str(workdir)], env=dict(env, RANK=str(r)),
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(n)]
+    try:
+        outs = [child.communicate(timeout=600)[0] for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for rank, (child, text) in enumerate(zip(children, outs)):
+        if child.returncode != 0:
+            fail(f"dp_train ({mode}): rank {rank} of {n} exited with {child.returncode}:\n"
+                 f"{text[-3000:]}")
+    return [torch.load(workdir / f"dp_{mode}{r}.pt", weights_only=False) for r in range(n)]
+
+
+def grad_gap_of_peak(got, want):
+    """Worst gradient gap over the parameters, each a share of its peak; a
+    conv bias before a batch-statistics BatchNorm (exact gradient 0) against
+    the same conv's weight gradient."""
+    gaps = {}
+    for name, g in got.items():
+        peak = want[name.replace("bias", "weight") if name.endswith("bblock.0.bias") else name]
+        gaps[name] = float((g - want[name]).abs().max() / peak.abs().max())
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def rel_gap(got, want):
+    """|got - want| / |want|; 0 where both are 0, infinite where only want
+    is."""
+    if want == 0:
+        return 0.0 if got == 0 else math.inf
+    return abs(got - want) / abs(want)
+
+
+def all_reduce_seconds(calls, n_params):
+    """The timed all-reduces of one step: the gradients' flat buffer, the
+    BatchNorm statistics (per-channel sums with the count, squared
+    deviations, and their gradients), and the small rest (valid count,
+    loss and accuracy)."""
+    grads = [t for n, t in calls if n == n_params]
+    bn = [t for n, t in calls if 2 < n < n_params]
+    rest = [t for n, t in calls if n <= 2]
+    return {"gradients_s": sum(grads), "gradients_calls": len(grads),
+            "batchnorm_s": sum(bn), "batchnorm_calls": len(bn), "other_s": sum(rest),
+            "other_calls": len(rest)}
+
+
+def phase_dp_train(card):
+    """Data-parallel training (parallel/train_step.py, Trainer(mesh=), train
+    --dp / --multihost) at full width: rn101, 480x854, train_config, three
+    frames a sample, a global batch of 16, on trees made from the committed
+    fixtures. A one-rank NCCL world against the meshless trainer, bit for
+    bit, then one epoch of `train --dp 1`; two gloo ranks on this one card
+    (8 rows each) against the one-rank step, their replicas equal after
+    AMSGrad steps, then one epoch of `train --multihost` whose second batch
+    leaves rank 1 only padding. Returns the epochs' kernel launches, summed
+    over the three ranks."""
+    with tempfile.TemporaryDirectory(prefix="frtm_dp_") as tmp:
+        tmp = Path(tmp)
+        write_training_trees(tmp)
+        t0 = time.perf_counter()
+        one, = dp_ranks("nccl", 1, tmp)
+        wall_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = dp_ranks("gloo", 2, tmp)
+        wall_two = time.perf_counter() - t0
+        epoch_files = {mode: {
+            "checkpoints": sorted(p.name for p in (tmp / f"ws_{mode}" / "checkpoints" / "dp").iterdir()),
+            "stats": [json.loads(x) for x in open(tmp / f"ws_{mode}" / "logs" / "dp" / "stats.jsonl")]}
+            for mode in ("nccl", "gloo")}
+
+    ref = one["recorded"]
+    yardstick, _ = grad_gap_of_peak(one["nudged"]["grads"], ref["grads"])
+    grad_bound = 2 * yardstick + 1e-3
+    bit_equal = one["steps"] == one["meshless_steps"] and all(
+        torch.equal(v, one["meshless_stepped"][k]) for k, v in one["stepped"].items())
+    checks = {"one_rank_bit_equal_to_meshless": bit_equal,
+              "accuracy_nonzero": ref["stats"]["stats/accuracy"] > 0}
+    ranks = []
+    for r in two:
+        got = r["recorded"]
+        loss_gap = rel_gap(got["stats"]["stats/loss"], ref["stats"]["stats/loss"])
+        acc_gap = rel_gap(got["stats"]["stats/accuracy"], ref["stats"]["stats/accuracy"])
+        step_gaps = [rel_gap(a["stats/loss"], b["stats/loss"])
+                     for a, b in zip(r["steps"], one["steps"])]
+        grad_gap, worst = grad_gap_of_peak(got["grads"], ref["grads"])
+        bn_gap = max(float((got["bn"][k] - v).abs().max() / v.abs().max())
+                     for k, v in ref["bn"].items())
+        ranks.append({"rank": r["rank"], "rows": r["rows"], "loss_rel_gap": loss_gap,
+                      "accuracy_rel_gap": acc_gap, "amsgrad_step_loss_rel_gaps": step_gaps,
+                      "grad_gap_of_peak": grad_gap, "grad_gap_worst": worst,
+                      "running_stats_gap_of_peak": bn_gap, "steps": r["steps"],
+                      "step_seconds": r["step_seconds"],
+                      "all_reduce": all_reduce_seconds(got["all_reduce_calls"], r["n_params"]),
+                      "peak_memory": r["peak_memory"], "launches_per_step": r["launches_per_step"],
+                      "epoch_wall_s": r["epoch"]["wall_s"], "epoch_saves": r["epoch"]["saves"]})
+    checks["two_ranks_within_bounds"] = all(
+        x["loss_rel_gap"] <= 1e-4 and x["accuracy_rel_gap"] <= 1e-4
+        and max(x["amsgrad_step_loss_rel_gaps"]) <= 1e-4 and x["grad_gap_of_peak"] <= grad_bound
+        and x["running_stats_gap_of_peak"] <= 1e-5 for x in ranks)
+    checks["replicas_bit_equal_after_amsgrad"] = all(
+        torch.equal(v, two[1]["stepped"][k]) for k, v in two[0]["stepped"].items())
+    checks["replicas_bit_equal_after_epoch"] = all(
+        torch.equal(v, two[1]["epoch"]["refiner"][k]) for k, v in two[0]["epoch"]["refiner"].items())
+    per_step = {"pyrup": 4, "conv3x3_cout1": 2, "pyrup_bwd": 4, "conv3x3_cout1_dx": 2,
+                "conv3x3_cout1_dw": 2, "warp_affine": 0}
+    checks["launches_per_rank_per_step"] = all(
+        {k: r["launches_per_step"][k] for k in per_step} == per_step
+        and r["variants_per_step"]["pyrup"]["bf16"] == 0
+        and r["variants_per_step"]["conv3x3_cout1"]["bf16"] == 0
+        and r["variants_per_step"]["pyrup_bwd"]["v4"] == 4
+        and r["variants_per_step"]["conv3x3_cout1_dx"]["v2"] == 2
+        and r["variants_per_step"]["conv3x3_cout1_dw"]["v2"] == 2 for r in [one] + two)
+    stats = {mode: f["stats"] for mode, f in epoch_files.items()}
+    checks["epochs_written_by_rank_0"] = (
+        [r["epoch"]["saves"] for r in [one] + two] == [[1], [1], []]
+        and all(f["checkpoints"] == ["dp_ep0001.pth"] for f in epoch_files.values())
+        and all(len(st) == 1 and st[0]["epoch"] == 1 and np.isfinite(st[0]["stats/loss"])
+                and np.isfinite(st[0]["stats/accuracy"]) for st in stats.values())
+        and [r["epoch"]["mesh_size"] for r in [one] + two] == [1, 2, 2])
+    checks["epoch_kernels_launched"] = all(
+        all(r["epoch"]["launches"][k] > 0 for k in TRAIN_KERNELS if k != "warp_affine")
+        and r["epoch"]["variants"]["pyrup"]["bf16"] == 0
+        and r["epoch"]["variants"]["pyrup_bwd"]["v4"] == r["epoch"]["launches"]["pyrup_bwd"]
+        for r in [one] + two) and one["epoch"]["launches"]["warp_affine"] > 0 \
+        and sum(r["epoch"]["launches"]["warp_affine"] for r in two) > 0
+    line = {"phase": "dp_train", "card": card, "arch": "resnet101", "size": [480, 854],
+            "global_batch": 16, "frames_per_sample": 3,
+            "label": "two ranks sharing one card over gloo: not a scaling figure; two cards over "
+                     "NCCL are not measured",
+            "checks": checks,
+            "one_rank_nccl": {"steps": one["steps"], "step_seconds": one["step_seconds"],
+                              "all_reduce": all_reduce_seconds(ref["all_reduce_calls"],
+                                                               one["n_params"]),
+                              "peak_memory": one["peak_memory"],
+                              "launches_per_step": one["launches_per_step"],
+                              "epoch_wall_s": one["epoch"]["wall_s"], "wall_s": wall_one},
+            "two_ranks_gloo": ranks, "wall_s_two_ranks": wall_two,
+            "gradient_yardstick_1e-6_nudge": yardstick, "epochs": stats,
+            "tolerance": {"loss_rtol": 1e-4, "accuracy_rtol": 1e-4,
+                          "grad_of_peak": grad_bound, "running_stats_of_peak": 1e-5}}
+    emit(line)
+    if not all(checks.values()):
+        fail(f"dp_train: {[k for k, v in checks.items() if not v]}")
+    return {k: sum(r["epoch"]["launches"][k] for r in [one] + two) for k in TRAIN_KERNELS}
+
+
+# the synthetic phase's J floor: frtm_tpu's scripts/train_eval_synthetic.py
+# --platform cpu at the same arguments read a mean J of 0.892 (PERF.md), less 0.1
+SYNTHETIC_MIN_J = 0.792
+
+
+def phase_synthetic(card):
+    """scripts/torch_train_eval_synthetic.py --dev cuda at its defaults (rn18,
+    8 epochs of 48 samples at 120x160, batch 8, 3 held-out sequences) with
+    --compare-dtypes, in a process of its own; it fails under
+    SYNTHETIC_MIN_J."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_train_eval_synthetic.py"),
+                          "--dev", "cuda", "--compare-dtypes", "--min-j", str(SYNTHETIC_MIN_J)],
+                         capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if res.returncode != 0:
+        fail(f"synthetic: exit {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    summary = json.loads(res.stdout.splitlines()[-1])
+    emit({"phase": "synthetic", "card": card, "wall_s": time.perf_counter() - t0, **summary})
+
+
 def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                  launches_ytvos, instances_ytvos, launches_train, launches_device,
-                 launches_sharded, ptxas):
+                 launches_sharded, launches_dp, ptxas):
     """The contract line: one entry per kernel instance at its main-path
     shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
     host loop runs them, and at N = 16 in bfloat16, the eval path's window of
@@ -2577,7 +3022,9 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
     mixed paste), and the device augment backend's timed passes for the
     batched warp (its main row a round's backgrounds, S = 19); the sharded
     phase's group of four (run_sequences, bfloat16) adds to the bfloat16
-    instances and the one-map warp.
+    instances and the one-map warp, and the dp_train phase's epochs (three
+    ranks, float32) to the float32 instances, the backward kernels and the
+    one-map warp.
     Each entry carries ptxas's readings of its source's kernel functions,
     each bfloat16 entry its time over the float32 instance's (bf16_over_f32),
     and each entry whose row names them the variant its launch took and the
@@ -2599,20 +3046,21 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
             if in_eval else 0
         n_host, n_fused = (0, 0) if bf16 else (launches[kernel], launches_fused[kernel])
         n_train = 0 if bf16 else launches_train[kernel]
+        n_dp = 0 if bf16 else launches_dp[kernel]
         # the sharded phase runs only bfloat16 decodes
         n_sharded = launches_sharded[kernel] if in_eval and (bf16 or kernel == "warp_affine") \
             else 0
         n_device = 0
         if name == "warp_affine_batched":
-            n_host = n_fused = n_train = 0
+            n_host = n_fused = n_train = n_dp = 0
             n_device = launches_device[kernel]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": n_host + n_fused + n_eval + n_ytvos + n_train + n_device
-                    + n_sharded,
+                    + n_sharded + n_dp,
                     "launches_host_loop": n_host, "launches_fused": n_fused,
                     "launches_eval": n_eval, "launches_ytvos": n_ytvos,
                     "launches_train": n_train, "launches_device_augment": n_device,
-                    "launches_sharded": n_sharded,
+                    "launches_sharded": n_sharded, "launches_dp_train": n_dp,
                     "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"],
@@ -2657,10 +3105,14 @@ def main():
     del tracker
     phase_small()
     launches_train = phase_train(backbone, card)
+    del backbone
+    torch.cuda.empty_cache()
+    launches_dp = phase_dp_train(card)
+    phase_synthetic(card)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                       launches_ytvos, instances_ytvos, launches_train, launches_device,
-                      launches_sharded, ptxas))
+                      launches_sharded, launches_dp, ptxas))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
@@ -2670,6 +3122,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-child"]:
         sharded_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--dp-child"]:
+        dp_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--augment-round-child"]:
         augment_round_child()
     else:

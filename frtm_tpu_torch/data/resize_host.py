@@ -8,13 +8,23 @@ library (utils/native.py, C++); the `*_plain` functions beside them are the
 same arithmetic in numpy, which the tests hold the C++ to, value for value.
 
 * Nearest: source index floor(x * (src / dst)) in double, clamped.
-* Area, when both axes shrink (the loaders' case: YouTube-VOS 720x1280 to
-  480x854): OpenCV's general path. Per axis a table of (destination, source,
-  weight) entries, the weights float32 from double fractions of a cell; per
-  source row the weighted columns summed in float32 in table order, the rows
-  summed the same way, rounded half to even and saturated. Where both scale
-  factors are whole numbers OpenCV takes another path (resizeAreaFast), which
-  is not ported and raises, as does area resizing that enlarges an axis.
+* Area (INTER_AREA), OpenCV's three paths, chosen as OpenCV chooses them from
+  the scale factors src / dst (double):
+  - both axes shrink (the loaders' case: YouTube-VOS 720x1280 to 480x854)
+    by factors not both whole: the general path. Per axis a table of
+    (destination, source, weight) entries, the weights float32 from double
+    fractions of a cell; per source row the weighted columns summed in
+    float32 in table order, the rows summed the same way, rounded half to
+    even and saturated;
+  - both factors whole numbers (resizeAreaFast; 960x1708 to 480x854): the
+    integer sum of each cell, times the float32 1 / area, rounded half to
+    even; at 2x2 with 1, 3 or 4 channels (sum + 2) >> 2;
+  - an axis enlarges (a frame under 480x854): OpenCV's bilinear path with
+    area weights on both axes. Per axis a source index floor(d * scale) and
+    a fraction, both from (d + 1) - (s + 1) * dst / src, in 11-bit fixed
+    point; the horizontal pass sums in integers, the vertical one as
+    OpenCV's uint8 path does, ((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >>
+    16), plus 2, over 4.
 * Cubic: OpenCV's weights, Keys cubic (A = -0.75) computed in float32 from
   the float32 source coordinate, the edge replicated; the two passes sum the
   four taps in float32, horizontal first, and round half to even. OpenCV's
@@ -91,17 +101,18 @@ def area_table(ssize, dsize, scale):
     return tab
 
 
-def area_shape_check(src_hw, size):
-    """Raise where OpenCV would not take the general area path."""
-    sy, sx = (area_scale(src_hw[0], size[0]), area_scale(src_hw[1], size[1]))
+def area_path(src_hw, size):
+    """OpenCV's choice of INTER_AREA path: ("general", (sy, sx)) with the
+    double scale factors, ("fast", (iy, ix)) with the whole ones, or
+    ("linear", None) where an axis enlarges."""
+    sy, sx = area_scale(src_hw[0], size[0]), area_scale(src_hw[1], size[1])
     if sx < 1 or sy < 1:
-        raise NotImplementedError(f"resize_area: {src_hw} to {tuple(size)} enlarges an axis "
-                                  "(OpenCV's bilinear-style area path is not ported)")
-    if abs(sx - round(sx)) < np.finfo(np.float64).eps and \
-            abs(sy - round(sy)) < np.finfo(np.float64).eps:
-        raise NotImplementedError(f"resize_area: {src_hw} to {tuple(size)} has whole scale "
-                                  "factors (OpenCV's resizeAreaFast path is not ported)")
-    return sy, sx
+        return "linear", None
+    iy, ix = round(sy), round(sx)       # cvRound: half to even, as round()
+    eps = np.finfo(np.float64).eps
+    if abs(sx - ix) < eps and abs(sy - iy) < eps:
+        return "fast", (iy, ix)
+    return "general", (sy, sx)
 
 
 def _padded(tab, dsize):
@@ -122,23 +133,79 @@ def _padded(tab, dsize):
 
 
 def resize_area_plain(image, size):
-    """cv2.resize(image, (W, H), interpolation=INTER_AREA) where both axes
-    shrink by a factor that is not a whole number on both; size = (H, W)."""
+    """cv2.resize(image, (W, H), interpolation=INTER_AREA); size = (H, W)."""
     image = _check(image, size, "resize_area")
     if image.shape[:2] == tuple(size):
         return image.copy()
-    sy, sx = area_shape_check(image.shape[:2], size)
-    src = _planes(image).astype(np.float32)
-    xs, xw = _padded(area_table(image.shape[1], size[1], sx), size[1])
-    ys, yw = _padded(area_table(image.shape[0], size[0], sy), size[0])
+    path, factors = area_path(image.shape[:2], size)
+    if path == "fast":
+        out = _area_fast(_planes(image), size, *factors)
+    elif path == "linear":
+        out = _area_linear(_planes(image), size)
+    else:
+        out = _area_general(_planes(image), size, *factors)
+    return out if image.ndim == 3 else out[..., 0]
+
+
+def _area_general(planes, size, sy, sx):
+    """The general path: both axes shrink, by factors not both whole."""
+    src = planes.astype(np.float32)
+    xs, xw = _padded(area_table(planes.shape[1], size[1], sx), size[1])
+    ys, yw = _padded(area_table(planes.shape[0], size[0], sy), size[0])
     buf = np.zeros((src.shape[0], size[1], src.shape[2]), np.float32)
     for m in range(xs.shape[1]):
         buf = buf + src[:, xs[:, m]] * xw[:, m][None, :, None]
     acc = np.zeros((size[0], size[1], src.shape[2]), np.float32)
     for m in range(ys.shape[1]):
         acc = acc + yw[:, m][:, None, None] * buf[ys[:, m]]
-    out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
-    return out if image.ndim == 3 else out[..., 0]
+    return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+
+
+def _area_fast(planes, size, iy, ix):
+    """resizeAreaFast: whole factors iy, ix (size * factor is the source's)."""
+    dh, dw = size
+    s = np.zeros((dh, dw, planes.shape[2]), np.int64)
+    for i in range(iy):
+        for j in range(ix):
+            s += planes[i:dh * iy:iy, j:dw * ix:ix]
+    if iy == 2 and ix == 2 and planes.shape[2] in (1, 3, 4):
+        return ((s + 2) >> 2).astype(np.uint8)
+    scale = np.float32(1) / np.float32(iy * ix)
+    return np.clip(np.rint(s.astype(np.float32) * scale), 0, 255).astype(np.uint8)
+
+
+INTER_RESIZE_COEF_SCALE = np.float32(2048)     # OpenCV's 11-bit weights
+
+
+def area_linear_table(ssize, dsize):
+    """OpenCV's area-mode linear table of an axis: source index and the two
+    fixed-point weights per destination index, before the edge rule."""
+    inv = dsize / ssize
+    scale = 1.0 / inv
+    src = np.array([math.floor(d * scale) for d in range(dsize)], np.int64)
+    fx = np.array([np.float32((d + 1) - (s + 1) * inv) for d, s in enumerate(src)], np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx)).astype(np.float32)
+    w0 = np.rint((np.float32(1) - fx) * INTER_RESIZE_COEF_SCALE).astype(np.int64)
+    w1 = np.rint(fx * INTER_RESIZE_COEF_SCALE).astype(np.int64)
+    return src, w0, w1
+
+
+def _area_linear(planes, size):
+    """INTER_AREA where an axis enlarges: OpenCV's linear path with its area
+    weights on both axes. A column whose index reaches the last source
+    column takes it alone (weights 2048, 0); rows read the index and the
+    next one, clamped to the last row."""
+    H, W, _ = planes.shape
+    src = planes.astype(np.int64)
+    xs, a0, a1 = area_linear_table(W, size[1])
+    edge = xs >= W - 1
+    xs, a0, a1 = np.where(edge, W - 1, xs), np.where(edge, 2048, a0), np.where(edge, 0, a1)
+    hbuf = src[:, xs] * a0[:, None] + src[:, np.minimum(xs + 1, W - 1)] * a1[:, None]
+    ys, b0, b1 = area_linear_table(H, size[0])
+    s0, s1 = hbuf[np.minimum(ys, H - 1)], hbuf[np.minimum(ys + 1, H - 1)]
+    out = (((b0[:, None, None] * (s0 >> 4)) >> 16)
+           + ((b1[:, None, None] * (s1 >> 4)) >> 16) + 2) >> 2
+    return out.astype(np.uint8)
 
 
 # -- cubic ------------------------------------------------------------------
@@ -208,7 +275,6 @@ def resize_area(image, size):
     image = _check(image, size, "resize_area")
     if image.shape[:2] == tuple(size):
         return image.copy()
-    area_shape_check(image.shape[:2], size)
     return native.resize_u8("area", _planes(image), size).reshape(tuple(size) + image.shape[2:])
 
 

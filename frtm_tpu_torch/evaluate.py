@@ -141,7 +141,7 @@ def main(argv=None, dataset=None):
     pid, n_proc, dset_run = 0, 1, dset
     if args.multihost:
         from .parallel.distributed import init_distributed, process_slice
-        pid, n_proc = init_distributed()
+        pid, n_proc = init_distributed(device=args.dev)
         if n_proc > 1:
             # sequences are independent: each process tracks its round-robin
             # share and writes into the shared out_path
@@ -166,7 +166,7 @@ def main(argv=None, dataset=None):
     elif args.engine == "sharded":
         from .parallel import ShardedSequenceTracker, local_mesh, make_mesh
         # in a run of several processes each tracks its share on its own card
-        mesh = local_mesh() if n_proc > 1 else make_mesh()
+        mesh = local_mesh(args.dev) if n_proc > 1 else make_mesh(device=args.dev)
         tracker = ShardedSequenceTracker(cfg, backbone, refiner, mesh, extract_chunk=16,
                                          device=args.dev)
         fps = tracker.run_dataset(dset_run, out_path, speedrun=speedrun, restart=args.restart,

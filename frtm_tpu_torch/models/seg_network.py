@@ -58,14 +58,15 @@ class RRB(nn.Module):
             self.bblock = nn.Sequential(_conv(oc, oc, 3), nn.ReLU(),
                                         _conv(oc, oc, 3, bias=False))
 
-    def forward(self, x, bn_updates=None, key=None):
+    def forward(self, x, bn_updates=None, key=None, bn_group=None):
         """With a bn_updates dict (training), the BatchNorm uses batch
-        statistics and its new running statistics go to bn_updates[key]."""
+        statistics (the global batch's over the process group `bn_group`)
+        and its new running statistics go to bn_updates[key]."""
         h = self.conv1x1(x)
         if bn_updates is None or len(self.bblock) == 3:
             return relu(h + self.bblock(h))
         conv, bn, act, conv2 = self.bblock
-        b, bn_updates[key] = bn(conv(h), train_bn=True)
+        b, bn_updates[key] = bn(conv(h), train_bn=True, group=bn_group)
         return relu(h + conv2(act(b)))
 
 
@@ -130,7 +131,7 @@ def seg_network_reduce(net: SegNetwork, features, layers=LAYERS):
 
 
 def seg_network_apply(net: SegNetwork, scores, features, image_size, layers=LAYERS,
-                      reduced=None, upsampler="pyrup", train_bn: bool = False):
+                      reduced=None, upsampler="pyrup", train_bn: bool = False, bn_group=None):
     """Refine coarse scores into full-resolution mask logits.
 
     :param scores:     (N, 1, h, w) coarse target-model scores, or a list of
@@ -141,18 +142,22 @@ def seg_network_apply(net: SegNetwork, scores, features, image_size, layers=LAYE
     :param upsampler:  the head, 'pyrup' or 'bicubic'
     :param train_bn:   training: record gradients and normalise the RRB
                        BatchNorms with batch statistics
+    :param bn_group:   with train_bn, a torch.distributed process group over
+                       whose ranks the batch statistics are taken (data-
+                       parallel training; None: this process's batch)
     :return: (N, 1, H, W) logits; with train_bn, (logits, bn_updates), where
              bn_updates maps (rrb name, layer) -> (running mean, running var)
     """
     if train_bn:
         bn_updates = {}
         return _apply(net, scores, features, image_size, layers, reduced, upsampler,
-                      bn_updates), bn_updates
+                      bn_updates, bn_group), bn_updates
     with torch.no_grad():
         return _apply(net, scores, features, image_size, layers, reduced, upsampler, None)
 
 
-def _apply(net, scores, features, image_size, layers, reduced, upsampler, bn_updates):
+def _apply(net, scores, features, image_size, layers, reduced, upsampler, bn_updates,
+           bn_group=None):
     score_list = scores if isinstance(scores, (list, tuple)) else [scores]
     x = None
     for i, L in enumerate(layers):
@@ -163,9 +168,9 @@ def _apply(net, scores, features, image_size, layers, reduced, upsampler, bn_upd
         h = net.TSE[L].transform(adaptive_cat((h0, s), ref_index=0))
         if x is not None:
             hpool = x
-        h = net.RRB1[L](h, bn_updates, ("RRB1", L))
+        h = net.RRB1[L](h, bn_updates, ("RRB1", L), bn_group)
         h = net.CAB[L](hpool, h, deepest=(i == 0))
-        x = net.RRB2[L](h, bn_updates, ("RRB2", L))
+        x = net.RRB2[L](h, bn_updates, ("RRB2", L), bn_group)
     return net.project(x, image_size, upsampler)
 
 

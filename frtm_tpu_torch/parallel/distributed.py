@@ -7,13 +7,19 @@ own card, with no collective inside the loop; the only traffic is one
 `barrier` before rank 0 scores. The port's idiom is one process per card, so
 a process's "local devices" are its one card (`local_mesh`).
 
+Training scales by splitting each global batch by rows (`batch_rows`): every
+process materialises only its rows, which the train step uploads to its
+card; no global array exists, so the JAX package's global_batch has no
+counterpart. parallel/train_step.py all-reduces the BatchNorm statistics and
+the gradients.
+
 `init_distributed` reads torchrun's variables (MASTER_ADDR and MASTER_PORT,
 WORLD_SIZE, RANK, LOCAL_RANK) where the JAX package reads
-JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID. Inference
-joins a `gloo` group: its only traffic is a barrier, and NCCL refuses two
-ranks on one card, which is how one card runs the multi-process path.
-Data-parallel training will take `nccl` (ROADMAP.md queue item 7, with
-`global_batch`).
+JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID. Its backend
+is `gloo` by default: inference's only traffic is a barrier, and NCCL
+refuses two ranks on one card, which is how one card runs the multi-process
+paths. Training on cards joins `nccl` (`train --multihost` / `--dp` on
+`--dev cuda`); gloo also takes CUDA tensors, staging them through the host.
 """
 import datetime
 import os
@@ -34,8 +40,8 @@ def _env_int(name) -> Optional[int]:
 
 
 def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None,
-                     timeout_s: float = DEFAULT_TIMEOUT_S) -> Tuple[int, int]:
+                     process_id: Optional[int] = None, timeout_s: float = DEFAULT_TIMEOUT_S,
+                     backend: str = "gloo", device=None) -> Tuple[int, int]:
     """Join the process group of a multi-process run. Returns (rank, world
     size).
 
@@ -52,8 +58,11 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
     (TPU_WORKER_HOSTNAMES): no pod runtime describes the card's machine, so
     nothing is guessed.
 
-    On a machine with CUDA the process's card becomes cuda:LOCAL_RANK (0
-    where LOCAL_RANK is not set): one process per card."""
+    device: the device this process computes on ("cuda", "cpu", a
+    torch.device; None: the card where CUDA is available). Where it is a
+    card, the process's card becomes cuda:LOCAL_RANK (0 where LOCAL_RANK is
+    not set): one process per card. A CPU run touches no card. backend:
+    "gloo" or "nccl" (cards only, one rank a card)."""
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     if coordinator is None and os.environ.get("MASTER_ADDR"):
@@ -65,10 +74,10 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
     if coordinator is None or num_processes is None or process_id is None:
         raise ValueError("a multi-process run needs its coordinator, world size and rank: "
                          f"got {coordinator!r}, {num_processes!r}, {process_id!r}")
-    if torch.cuda.is_available():
+    if torch.cuda.is_available() if device is None else torch.device(device).type == "cuda":
         torch.cuda.set_device(_env_int("LOCAL_RANK") or 0)
     init_method = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-    dist.init_process_group("gloo", init_method=init_method, world_size=num_processes,
+    dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
                             rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
     return dist.get_rank(), dist.get_world_size()
 
@@ -102,15 +111,16 @@ def batch_rows(batch_size, process_id=None, num_processes=None):
     return pid * b, (pid + 1) * b
 
 
-def global_mesh():
-    """The mesh of every process of the run (training)."""
-    return make_mesh()
+def global_mesh(device=None):
+    """The mesh of every process of the run (training), on this process's
+    device (mesh.this_device)."""
+    return make_mesh(device=device)
 
 
-def local_mesh():
-    """This process alone on its card (inference: each process tracks its
+def local_mesh(device=None):
+    """This process alone on its device (inference: each process tracks its
     own sequences; nothing spans processes)."""
-    return Mesh(group=None, rank=0, size=1, device=this_device())
+    return Mesh(group=None, rank=0, size=1, device=this_device(device))
 
 
 def barrier(name: str):

@@ -15,14 +15,21 @@ The decoder's kernels 1 and 2 run forward and backward on the card
 autodiff of its XLA decoder). Everything before the decoder runs under
 `torch.no_grad`.
 
-What the JAX trainer has and this one does not: the data-parallel mesh and
-multi-process training (ROADMAP.md queue item 7; `Trainer(mesh=...)`
-raises), and the power-of-two bucket of cache misses, which only bounds the
-number of XLA programs. A batch's misses are solved together here, as the
-JAX trainer's vmapped program solves them: one `disc_init` (the one the
-tracker runs) with a lane per miss.
+`Trainer(mesh=...)` trains data-parallel over the mesh's processes, one per
+card (parallel/train_step.py): each process materialises only its rows of
+every global batch, solves their target models, and takes the step with the
+BatchNorm statistics and the gradients all-reduced; only rank 0 writes
+checkpoints and statistics.
+
+What the JAX trainer has and this one does not: the power-of-two bucket of
+cache misses, which only bounds the number of XLA programs. A batch's misses
+are solved together here, as the JAX trainer's vmapped program solves them:
+one `disc_init` (the one the tracker runs) with a lane per miss.
 """
+import contextlib
 import json
+import os
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -38,6 +45,9 @@ from ..models.augmenter import ImageAugmenter
 from ..models.discriminator import DiscParams, disc_init, init_disc_params, repeat_params
 from ..models.resnet import ResNet
 from ..models.seg_network import SegNetwork, apply_bn_updates, seg_network_apply
+from ..ops.collectives import all_reduce_grads, all_reduce_sum
+from ..parallel.distributed import barrier, batch_rows, process_count, process_index
+from ..parallel.mesh import replicated
 from ..utils.convert import disc_params_from_jax, disc_params_to_jax
 from ..utils.meters import AverageMeter
 from ..utils.prefetch import prefetch_iter
@@ -110,7 +120,9 @@ class TModelCache:
     layer), `{seq}/{frame0:05d}.{obj}.{layer}.npz`, holding `project`
     (1, 1, Cin, c) and `filter` (3, 3, c, 1) in the JAX package's HWIO
     layout, so that either package reads the other's cache. Corrupt files
-    read as misses."""
+    read as misses. A file is written under a temporary name in its
+    directory and renamed into place, so that processes solving the same
+    target model never leave, or read, a partly written file."""
 
     def __init__(self, path, enable=True, read_only=False):
         self.path = Path(path) if path else None
@@ -140,7 +152,14 @@ class TModelCache:
         f = self._fname(spec, layer)
         f.parent.mkdir(exist_ok=True, parents=True)
         project, filt = disc_params_to_jax(params)
-        np.savez(f, project=project, filter=filt)
+        fd, tmp = tempfile.mkstemp(prefix=f".{f.name}.", suffix=".tmp", dir=f.parent)
+        try:
+            with os.fdopen(fd, "wb") as fh:
+                np.savez(fh, project=project, filter=filt)
+            os.replace(tmp, f)
+        except BaseException:
+            os.unlink(tmp)
+            raise
 
 
 def classify_per_sample(disc_batch: DiscParams, ft):
@@ -235,20 +254,27 @@ class TrainerModel:
         return torch.cat([self.backbone.extract_features(frames[s:s + chunk], output_layers=[L])[L]
                           for s in range(0, frames.shape[0], chunk)])
 
-    def loss(self, disc_batch: DiscParams, images, labels, mask):
+    def loss(self, disc_batch: DiscParams, images, labels, mask, bn_group=None, n_valid=None):
         """The forward over train frames 1 .. T-1 with gradients recorded.
         images (T, B, H, W, 3), labels (T, B, H, W, 1) (numpy or tensors),
         mask (B,) float sample validity. Writes each frame's new BN running
         statistics into the refiner as it goes (they chain across the
         frames, as in the JAX step). Returns (summed per-frame loss with its
-        graph, accuracy)."""
+        graph, accuracy).
+
+        Data-parallel (parallel/train_step.py): the rows are this rank's,
+        bn_group the process group over which the BatchNorm statistics are
+        taken, and n_valid the global batch's number of valid samples (at
+        least 1), which both results divide by; each rank's results are
+        then its share of the global batch's."""
         dev = self.device
         images = torch.as_tensor(images).to(dev).permute(0, 1, 4, 2, 3)
         labels = torch.as_tensor(labels).to(dev).permute(0, 1, 4, 2, 3).float()
         mask = torch.as_tensor(mask, dtype=torch.float32).to(dev)
         T = images.shape[0]
         im_size = tuple(images.shape[-2:])
-        n_valid = torch.clamp_min(mask.sum(), 1.0)
+        if n_valid is None:
+            n_valid = torch.clamp_min(mask.sum(), 1.0)
         layers = self.cfg.refnet_layers
         total = 0.0
         accs = []
@@ -258,7 +284,8 @@ class TrainerModel:
                 scores = classify_per_sample(disc_batch, feats[self.disc_cfg.layer])
             logits, bn_updates = seg_network_apply(self.refiner, scores,
                                                    {L: feats[L] for L in layers}, im_size,
-                                                   layers=layers, train_bn=True)
+                                                   layers=layers, train_bn=True,
+                                                   bn_group=bn_group)
             apply_bn_updates(self.refiner, bn_updates)
             pred = torch.sigmoid(logits)
             y = labels[t]
@@ -270,17 +297,30 @@ class TrainerModel:
         acc = torch.stack(accs).sum() / (n_valid * (T - 1))
         return total, acc
 
-    def train_step(self, disc_batch, images, labels, mask, optimizer: AMSGrad, lr: float):
-        """One optimizer step; returns {"stats/loss", "stats/accuracy"}."""
+    def train_step(self, disc_batch, images, labels, mask, optimizer: AMSGrad, lr: float,
+                   group=None):
+        """One optimizer step; returns {"stats/loss", "stats/accuracy"}.
+
+        group: a torch.distributed process group whose ranks each hold rows
+        of one global batch (data-parallel training, parallel/train_step.py).
+        The BatchNorm statistics, the valid count, the gradients (one
+        all-reduce of a flat buffer, before the step) and the returned stats
+        are then the global batch's. None is this process alone."""
         optimizer.zero_grad()
         with self.timer.phase("forward"):
-            total, acc = self.loss(disc_batch, images, labels, mask)
+            mask = torch.as_tensor(mask, dtype=torch.float32).to(self.device)
+            n_valid = torch.clamp_min(all_reduce_sum(mask.sum(), group), 1.0)
+            total, acc = self.loss(disc_batch, images, labels, mask, bn_group=group,
+                                   n_valid=n_valid)
         with self.timer.phase("backward"):
             total.backward()
+            if group is not None:
+                all_reduce_grads(optimizer.params, group)
         with self.timer.phase("step"):
             optimizer.step(lr)
+        stats = all_reduce_sum(torch.stack([total.detach(), acc.detach()]), group)
         T = len(images)
-        return {"stats/loss": float(total.detach()) / (T - 1), "stats/accuracy": float(acc)}
+        return {"stats/loss": float(stats[0]) / (T - 1), "stats/accuracy": float(stats[1])}
 
 
 class Trainer:
@@ -289,18 +329,20 @@ class Trainer:
 
     :param datasets: factories, each called once per epoch for fresh samples
     :param rng: the np.random.RandomState that orders each epoch's batches
-        (the JAX trainer draws from the global generator)
+        in a run of one process (the JAX trainer draws from the global
+        generator); a run of several orders epoch e by RandomState(e), so
+        that every process draws the same global batches
     :param prefetch: assemble the next batch on a background thread while
         the card runs the current step (utils/prefetch.py)
+    :param mesh: a parallel.Mesh: train data-parallel over its processes
+        (parallel/train_step.py), each feeding its rows of every batch;
+        required where more than one process runs
     """
 
     def __init__(self, name, model: TrainerModel, datasets, checkpoints_path, log_path,
                  max_epochs=260, batch_size=16, lr=1e-3, lr_step=127, lr_gamma=0.1,
                  weight_decay=1e-5, load_latest=True, save_interval=1, mesh=None,
                  prefetch=True, rng=None):
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...): data-parallel and multi-process "
-                                      "training are ROADMAP.md queue item 7")
         self.name = name
         self.model = model
         self.datasets = datasets
@@ -318,6 +360,17 @@ class Trainer:
         self.prefetch = prefetch
         self.rng = rng if rng is not None else np.random.RandomState()
         self.stats = defaultdict(AverageMeter)
+        self.mesh = mesh
+        # several processes run this loop over the same global batches; each
+        # materialises only its rows (parallel/distributed.py)
+        self._n_proc = process_count() if mesh is None else mesh.size
+        self._pid = process_index() if mesh is None else mesh.rank
+        if self._n_proc > 1 and mesh is None:
+            raise ValueError("multi-process training requires a global mesh "
+                             "(Trainer(mesh=global_mesh()))")
+        self._group = None if mesh is None else mesh.group
+        if mesh is not None:
+            replicated(mesh, model.refiner)
         self.optimizer = AMSGrad(model.refiner.parameters(), weight_decay)
         if load_latest:
             ckpts = sorted(self.checkpoints_path.glob(f"{name}_ep*.pth"))
@@ -331,6 +384,7 @@ class Trainer:
     # -- checkpointing ------------------------------------------------------
 
     def save_checkpoint(self):
+        """Rank 0 writes (the refiner is replicated); train() calls it there."""
         torch.save({"name": self.name, "epoch": self.epoch,
                     "refiner": self.model.refiner.state_dict(),
                     "optimizer": self.optimizer.state_dict()},
@@ -342,27 +396,37 @@ class Trainer:
         self.epoch = int(ckpt["epoch"])
         self.model.refiner.load_state_dict(ckpt["refiner"])
         self.optimizer.load_state_dict(ckpt["optimizer"])
+        if self.mesh is not None:
+            replicated(self.mesh, self.model.refiner)
         print("Starting epoch", self.epoch + 1)
 
     # -- training loop ------------------------------------------------------
 
     def _batches(self, dataset):
-        """Yields (images, labels, specs, mask). The last partial batch is
-        padded to batch_size by repeating its samples cyclically, with mask
-        0 on the repeats (the reference trains on the remainder)."""
-        order = self.rng.permutation(len(dataset))
+        """Yields (images, labels, specs, mask) of this process's rows. The
+        last partial batch is padded to batch_size by repeating its samples
+        cyclically, with mask 0 on the repeats (the reference trains on the
+        remainder). With several processes every one draws the epoch-seeded
+        order, RandomState(epoch), and materialises only its contiguous rows
+        (batch_rows) and its slice of the mask."""
+        if self._n_proc > 1:
+            order = np.random.RandomState(self.epoch).permutation(len(dataset))
+            lo, hi = batch_rows(self.batch_size, self._pid, self._n_proc)
+        else:
+            order = self.rng.permutation(len(dataset))
+            lo, hi = 0, self.batch_size
         for start in range(0, len(order), self.batch_size):
             idx = list(order[start:start + self.batch_size])
             n_real = len(idx)
             idx += [idx[i % n_real] for i in range(self.batch_size - n_real)]
-            samples = [dataset[int(i)] for i in idx]
+            samples = [dataset[int(i)] for i in idx[lo:hi]]
             T = len(samples[0][0])
             images = np.stack([np.stack([s[0][t] for s in samples]) for t in range(T)])
             labels = np.stack([np.stack([s[1][t] for s in samples]) for t in range(T)])
             specs = SampleSpec.from_encoded([s[2] for s in samples])
             mask = np.zeros(self.batch_size, np.float32)
             mask[:n_real] = 1.0
-            yield images, labels, specs, mask
+            yield images, labels, specs, mask[lo:hi]
 
     def _prefetched(self, it):
         """One-ahead batch assembly on a background thread; only the worker
@@ -370,8 +434,10 @@ class Trainer:
         return prefetch_iter(it, enabled=self.prefetch)
 
     def _tb_writer(self):
-        """A TensorBoard writer where tensorboard imports; stats.jsonl is the
-        primary log."""
+        """A TensorBoard writer where tensorboard imports, on rank 0 only;
+        stats.jsonl is the primary log."""
+        if self._pid != 0:
+            return None
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -380,7 +446,9 @@ class Trainer:
 
     def train(self):
         tb = self._tb_writer()
-        with open(self.log_path / "stats.jsonl", "a") as log_file:
+        # one writer per run: rank 0
+        with (open(self.log_path / "stats.jsonl", "a") if self._pid == 0
+              else contextlib.nullcontext()) as log_file:
             for epoch in range(self.epoch + 1, self.max_epochs + 1):
                 self.epoch = epoch
                 self.stats = defaultdict(AverageMeter)
@@ -393,7 +461,7 @@ class Trainer:
                     t0 = time.time() if t0 is None else t0
                     disc_batch, hits = self.model.build_disc_batch(images[0], labels[0], specs)
                     stats = self.model.train_step(disc_batch, images, labels, mask,
-                                                  self.optimizer, self._lr())
+                                                  self.optimizer, self._lr(), self._group)
                     runtime.update(time.time() - t0)
                     t0 = time.time()
                     stats["stats/fcache_hits"] = hits
@@ -405,11 +473,15 @@ class Trainer:
                           f"({self.batch_size / max(runtime.avg, 1e-9):.2f}), "
                           + ", ".join(f"{k.split('/')[-1]}={m.val:.5f} ({m.avg:.5f})"
                                       for k, m in self.stats.items()))
-                if self.epoch % self.save_interval == 0:
-                    self.save_checkpoint()
-                print(json.dumps({"epoch": self.epoch,
-                                  **{k: m.avg for k, m in self.stats.items()}}),
-                      file=log_file, flush=True)
+                if self._pid == 0:
+                    if self.epoch % self.save_interval == 0:
+                        self.save_checkpoint()
+                    print(json.dumps({"epoch": self.epoch,
+                                      **{k: m.avg for k, m in self.stats.items()}}),
+                          file=log_file, flush=True)
+                if self._n_proc > 1:
+                    # every rank may load what rank 0 just wrote
+                    barrier(f"{self.name} epoch {self.epoch} written")
                 if tb is not None:
                     for k, m in self.stats.items():
                         tb.add_scalar(k, m.avg, self.epoch)

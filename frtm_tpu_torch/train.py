@@ -15,19 +15,29 @@ repeats and 4000 YouTube-VOS samples per epoch. Checkpoints go to
 statistics go to <workspace>/logs/<name>/stats.jsonl.
 
 It runs on the card (`--dev cuda`, the default) and exits with an error where
-there is none; `--dev cpu` must be asked for. `--dp` and `--multihost` are
-parsed and refused: they are not ported yet.
+there is none; `--dev cpu` must be asked for.
+
+Data-parallel training, one process per card (runtime/trainer.py,
+parallel/train_step.py), takes a global batch of --batch-size split by rows:
+    python -m frtm_tpu_torch.train sess01 --dp 4 ...
+        spawns 4 processes on this machine (rank r on cuda:r over NCCL, or
+        on the CPU over gloo under --dev cpu), which meet through a file;
+    torchrun --nproc-per-node 4 -m frtm_tpu_torch.train sess01 --multihost ...
+        joins torchrun's world (NCCL on --dev cuda, gloo on --dev cpu); a
+        --dp given beside it must equal the world's size.
+Each process draws its own epoch samples, as each JAX process does; only
+rank 0 writes checkpoints and statistics.
 """
 import argparse
+import os
 import random
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
-
-NOT_PORTED = ("{what} is not ported to frtm_tpu_torch yet: data-parallel and multi-host "
-              "training are ROADMAP.md queue item 7")
+import torch.distributed as dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,9 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--max-epochs", type=int, default=260)
     ap.add_argument("--dp", type=int, default=0,
-                    help="data-parallel over N devices (not ported yet)")
+                    help="data-parallel over N devices, one process each (0 = one process)")
     ap.add_argument("--multihost", action="store_true",
-                    help="train over every host's devices (not ported yet)")
+                    help="join torchrun's world (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, "
+                         "LOCAL_RANK) and train data-parallel over every process; each feeds "
+                         "its own batch rows. One process where no world is declared.")
     return ap
 
 
@@ -70,15 +82,63 @@ def train_config(arch: str):
                          aug_params=train_aug_params(15))
 
 
+def _dp_worker(rank, argv, n, rendezvous, backend, device):
+    """Rank `rank` of the `n` processes that `--dp n` spawns."""
+    from .parallel.distributed import init_distributed
+    os.environ["LOCAL_RANK"] = str(rank)        # its card, where it runs on one: cuda:rank
+    init_distributed(f"file://{rendezvous}", n, rank, backend=backend, device=device)
+    try:
+        main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(n, argv, backend, device):
+    """--dp n where no world is declared: n processes on this machine, which
+    meet through a file in a temporary directory; returns when all end and
+    raises where one fails."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="frtm_dp_") as tmp:
+        mp.start_processes(_dp_worker,
+                           args=(argv, n, os.path.join(tmp, "rendezvous"), backend, device),
+                           nprocs=n, join=True, start_method="spawn")
+
+
 def main(argv=None):
-    """Run the training; returns the Trainer."""
-    args = build_parser().parse_args(argv)
-    for flag, what in ((args.dp, "--dp"), (args.multihost, "--multihost")):
-        if flag:
-            sys.exit(NOT_PORTED.format(what=what))
+    """Run the training; returns the Trainer, or None in a process that
+    spawned the --dp processes."""
+    ap = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = ap.parse_args(argv)
     if args.dev == "cuda" and not torch.cuda.is_available():
         sys.exit("--dev cuda: no CUDA device is available (torch.cuda.is_available() is "
                  "false); nothing runs on the CPU unless --dev cpu asks for it")
+    if args.dp < 0:
+        ap.error(f"--dp {args.dp}: the number of processes")
+    if args.dp and args.batch_size % args.dp:
+        ap.error(f"--batch-size {args.batch_size} must be divisible by --dp {args.dp}")
+    backend = "nccl" if args.dev == "cuda" else "gloo"
+    declared = dist.is_initialized() or bool(os.environ.get("WORLD_SIZE"))
+    if args.dp and not declared:
+        if args.dev == "cuda" and args.dp > torch.cuda.device_count():
+            ap.error(f"--dp {args.dp}: this machine has {torch.cuda.device_count()} CUDA "
+                     "device(s), one process each")
+        _spawn(args.dp, argv, backend, args.dev)
+        return None
+
+    from .parallel.distributed import global_mesh, init_distributed
+    pid, n_proc = 0, 1
+    if args.multihost or args.dp:
+        pid, n_proc = init_distributed(backend=backend, device=args.dev)
+    if args.dp and args.dp != n_proc:
+        ap.error(f"--dp {args.dp} in a world of {n_proc} processes: they must be equal")
+    mesh = None
+    if n_proc > 1 or args.dp:
+        if args.batch_size % n_proc:
+            ap.error(f"--batch-size {args.batch_size} must be divisible by the {n_proc} "
+                     "processes")
+        mesh = global_mesh(device=args.dev)
+        print(f"multihost: process {pid}/{n_proc} on {mesh.device}")
 
     from .data.training_datasets import (DAVISTrainingDataset, SyntheticTrainingDataset,
                                          YouTubeVOSTrainingDataset)
@@ -119,7 +179,7 @@ def main(argv=None):
 
     trainer = Trainer(args.name, model, datasets, checkpoints_path=ws / "checkpoints",
                       log_path=ws / "logs", max_epochs=args.max_epochs,
-                      batch_size=args.batch_size, rng=rng)
+                      batch_size=args.batch_size, rng=rng, mesh=mesh)
     trainer.train()
     return trainer
 

@@ -28,7 +28,7 @@
 //     IDCTs agree. The batch call decodes same-size files on a pool of
 //     threads.
 //   * resize_u8: cv2.resize of uint8 images for the training loaders,
-//     nearest, area (both axes shrinking) and cubic, the arithmetic of
+//     nearest, area (OpenCV's three INTER_AREA paths) and cubic, the arithmetic of
 //     frtm_tpu_torch/data/resize_host.py's plain versions step by step and
 //     equal to them on every value (float where they are float32, double
 //     where they are double, no contraction).
@@ -41,6 +41,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <limits>
 #include <queue>
 #include <string>
 #include <thread>
@@ -706,9 +707,11 @@ inline uint8_t round_u8(float v) {
     return static_cast<uint8_t>(r < 0.f ? 0.f : (r > 255.f ? 255.f : r));
 }
 
-void resize_area(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8_t* dst) {
-    const std::vector<AreaEntry> xt = area_table(W, dw, 1.0 / (static_cast<double>(dw) / W));
-    const std::vector<AreaEntry> yt = area_table(H, dh, 1.0 / (static_cast<double>(dh) / H));
+// INTER_AREA's general path: both axes shrink, by factors not both whole.
+void resize_area_general(const uint8_t* src, int H, int W, int C, int dh, int dw, double sy,
+                         double sx, uint8_t* dst) {
+    const std::vector<AreaEntry> xt = area_table(W, dw, sx);
+    const std::vector<AreaEntry> yt = area_table(H, dh, sy);
     std::vector<float> buf(static_cast<size_t>(dw) * C), acc(static_cast<size_t>(dw) * C);
     size_t j = 0;
     for (int dy = 0; dy < dh; ++dy) {
@@ -725,6 +728,98 @@ void resize_area(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8_
         uint8_t* out = dst + static_cast<size_t>(dy) * dw * C;
         for (size_t i = 0; i < acc.size(); ++i) out[i] = round_u8(acc[i]);
     }
+}
+
+// OpenCV's resizeAreaFast: whole factors iy, ix. The integer sum of each
+// cell times the float 1 / area, rounded half to even; at 2x2 with 1, 3 or
+// 4 channels (sum + 2) >> 2.
+void resize_area_fast(const uint8_t* src, int W, int C, int dh, int dw, int iy, int ix,
+                      uint8_t* dst) {
+    const bool pairs = iy == 2 && ix == 2 && (C == 1 || C == 3 || C == 4);
+    const float scale = 1.f / static_cast<float>(iy * ix);
+    for (int dy = 0; dy < dh; ++dy)
+        for (int dx = 0; dx < dw; ++dx)
+            for (int c = 0; c < C; ++c) {
+                int sum = 0;
+                for (int i = 0; i < iy; ++i) {
+                    const uint8_t* row = src + (static_cast<size_t>(dy) * iy + i) * W * C;
+                    for (int j = 0; j < ix; ++j) sum += row[(dx * ix + j) * C + c];
+                }
+                dst[(static_cast<size_t>(dy) * dw + dx) * C + c] =
+                    pairs ? static_cast<uint8_t>((sum + 2) >> 2)
+                          : round_u8(static_cast<float>(sum) * scale);
+            }
+}
+
+// OpenCV's area-mode linear table of an axis: per destination index the
+// source index floor(d * scale) and the 11-bit weights of the fraction
+// (d + 1) - (s + 1) * dsize / ssize, before the edge rule.
+void area_linear_table(int ssize, int dsize, std::vector<int>* s, std::vector<int>* w0,
+                       std::vector<int>* w1) {
+    const double inv = static_cast<double>(dsize) / ssize;
+    const double scale = 1.0 / inv;
+    s->resize(dsize);
+    w0->resize(dsize);
+    w1->resize(dsize);
+    for (int d = 0; d < dsize; ++d) {
+        const int sx = static_cast<int>(std::floor(d * scale));
+        float fx = static_cast<float>((d + 1) - (sx + 1) * inv);
+        fx = fx <= 0 ? 0.f : fx - static_cast<float>(std::floor(fx));
+        (*s)[d] = sx;
+        (*w0)[d] = static_cast<int>(std::nearbyint((1.f - fx) * 2048.f));
+        (*w1)[d] = static_cast<int>(std::nearbyint(fx * 2048.f));
+    }
+}
+
+// INTER_AREA where an axis enlarges: OpenCV's linear path with the area
+// weights on both axes, in its uint8 fixed point. A column whose index
+// reaches the last source column takes it alone; rows read the index and
+// the next one, clamped to the last row.
+void resize_area_linear(const uint8_t* src, int H, int W, int C, int dh, int dw,
+                        uint8_t* dst) {
+    std::vector<int> xs, a0, a1, ys, b0, b1;
+    area_linear_table(W, dw, &xs, &a0, &a1);
+    area_linear_table(H, dh, &ys, &b0, &b1);
+    for (int dx = 0; dx < dw; ++dx)
+        if (xs[dx] >= W - 1) {
+            xs[dx] = W - 1;
+            a0[dx] = 2048;
+            a1[dx] = 0;
+        }
+    std::vector<int> r0(static_cast<size_t>(dw) * C), r1(static_cast<size_t>(dw) * C);
+    auto horizontal = [&](int y, std::vector<int>* out) {
+        const uint8_t* row = src + static_cast<size_t>(y) * W * C;
+        for (int dx = 0; dx < dw; ++dx) {
+            const int x0 = xs[dx], x1 = std::min(xs[dx] + 1, W - 1);
+            for (int c = 0; c < C; ++c)
+                (*out)[dx * C + c] = row[x0 * C + c] * a0[dx] + row[x1 * C + c] * a1[dx];
+        }
+    };
+    for (int dy = 0; dy < dh; ++dy) {
+        horizontal(std::min(ys[dy], H - 1), &r0);
+        horizontal(std::min(ys[dy] + 1, H - 1), &r1);
+        uint8_t* out = dst + static_cast<size_t>(dy) * dw * C;
+        for (size_t i = 0; i < r0.size(); ++i)
+            out[i] = static_cast<uint8_t>((((b0[dy] * (r0[i] >> 4)) >> 16) +
+                                           ((b1[dy] * (r1[i] >> 4)) >> 16) + 2) >> 2);
+    }
+}
+
+// cv2.resize's INTER_AREA: the path OpenCV chooses from the double scale
+// factors src / dst.
+void resize_area(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8_t* dst) {
+    const double sx = 1.0 / (static_cast<double>(dw) / W);
+    const double sy = 1.0 / (static_cast<double>(dh) / H);
+    if (sx < 1 || sy < 1) {
+        resize_area_linear(src, H, W, C, dh, dw, dst);
+        return;
+    }
+    const double ix = std::nearbyint(sx), iy = std::nearbyint(sy);   // cvRound
+    const double eps = std::numeric_limits<double>::epsilon();
+    if (std::fabs(sx - ix) < eps && std::fabs(sy - iy) < eps)
+        resize_area_fast(src, W, C, dh, dw, static_cast<int>(iy), static_cast<int>(ix), dst);
+    else
+        resize_area_general(src, H, W, C, dh, dw, sy, sx, dst);
 }
 
 void resize_nearest(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8_t* dst) {
@@ -900,15 +995,14 @@ FRTM_EXPORT int inpaint_telea_u8c3(const uint8_t* img, const uint8_t* mask, int 
 // rows of (1 filter byte + stride bytes); out gets (height, stride).
 // Returns 0, -1 for a size mismatch, or -(2 + y) for an unknown filter type
 // in row y.
-// src (H, W, C) -> dst (dh, dw, C), uint8; mode 0 nearest, 1 area (both
-// axes shrinking: the caller checks), 2 cubic. Returns 0, or -1 for bad sizes.
+// src (H, W, C) -> dst (dh, dw, C), uint8; mode 0 nearest, 1 area, 2 cubic.
+// Returns 0, or -1 for bad sizes.
 FRTM_EXPORT int resize_u8(const uint8_t* src, int H, int W, int C, int dh, int dw, int mode,
                           uint8_t* dst) {
     if (H <= 0 || W <= 0 || C <= 0 || dh <= 0 || dw <= 0) return -1;
     if (mode == 0) {
         resize_nearest(src, H, W, C, dh, dw, dst);
     } else if (mode == 1) {
-        if (dh > H || dw > W) return -1;
         resize_area(src, H, W, C, dh, dw, dst);
     } else if (mode == 2) {
         resize_cubic(src, H, W, C, dh, dw, dst);

@@ -207,7 +207,7 @@ _RESIZE_MODES = {"nearest": 0, "area": 1, "cubic": 2}
 
 def resize_u8(mode: str, image: np.ndarray, size) -> np.ndarray:
     """(H, W, C) uint8 -> (dh, dw, C) uint8 by cv2's `mode` ('nearest',
-    'area' with both axes shrinking, or 'cubic'); data/resize_host.py checks
+    'area' or 'cubic'); data/resize_host.py checks
     the shapes and holds the plain versions."""
     image = np.ascontiguousarray(image)
     if image.dtype != np.uint8 or image.ndim != 3:

@@ -20,8 +20,8 @@ import torch.distributed as dist
 from frtm_tpu.parallel import distributed as jax_dist
 from frtm_tpu_torch import evaluate
 from frtm_tpu_torch.data.image import imread
-from frtm_tpu_torch.parallel import (barrier, batch_rows, init_distributed, local_mesh,
-                                     make_mesh, process_slice)
+from frtm_tpu_torch.parallel import (barrier, batch_rows, global_mesh, init_distributed,
+                                     local_mesh, make_mesh, process_slice)
 from test_torch_evaluate_cli import make_davis_tree
 from test_torch_multi_sequence_port import World, sequence
 
@@ -80,11 +80,22 @@ def test_process_slice_and_batch_rows_match_frtm_tpu(n_items, n_proc):
 
 
 def test_meshes_of_a_world_of_one(no_torchrun):
-    for mesh in (make_mesh(), make_mesh(1), local_mesh()):
+    for mesh in (make_mesh(device="cpu"), make_mesh(1, device="cpu"), local_mesh("cpu")):
         assert (mesh.group, mesh.rank, mesh.size) == (None, 0, 1)
-        assert mesh.device.type == ("cuda" if torch.cuda.is_available() else "cpu")
+        assert mesh.device == torch.device("cpu")
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
-        make_mesh(2)
+        make_mesh(2, device="cpu")
+
+
+def test_meshes_default_to_the_card(no_torchrun):
+    """Without an argument a mesh is on this process's card, and a machine
+    without one raises: the CPU only where it is asked for."""
+    if torch.cuda.is_available():
+        assert make_mesh().device == torch.device("cuda", torch.cuda.current_device())
+        return
+    for make in (make_mesh, local_mesh, global_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_two_processes_write_one_process_pngs(no_torchrun, tmp_path, capsys):

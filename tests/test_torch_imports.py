@@ -1,6 +1,7 @@
 """The port's import rule, read from the sources with `ast`: no module of
 frtm_tpu_torch, not chip_smoke.py and none of the scripts that run on the
-card (scripts/bench_torch_*.py, scripts/torch_demo_synthetic.py) imports
+card (scripts/bench_torch_*.py, scripts/torch_demo_synthetic.py,
+scripts/torch_train_eval_synthetic.py) imports
 jax, cv2, PIL or anything of frtm_tpu, with no exception: JPEG and PNG go
 through the port's own host library and codec. The machine with the card
 has none of these packages."""
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = (sorted((ROOT / "frtm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
            + sorted((ROOT / "scripts").glob("bench_torch_*.py"))
-           + [ROOT / "scripts" / "torch_demo_synthetic.py"])
+           + [ROOT / "scripts" / "torch_demo_synthetic.py",
+              ROOT / "scripts" / "torch_train_eval_synthetic.py"])
 FORBIDDEN = {"jax", "jaxlib", "flax", "cv2", "PIL", "frtm_tpu"}
 
 

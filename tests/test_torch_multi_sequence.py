@@ -110,7 +110,7 @@ class World:
                                       merge_mode=merge_mode, **self.port_kwargs())
 
     def sharded(self, merge_mode="online", cfg=None, **kw):
-        return ShardedSequenceTracker(cfg or self.tcfg, *self.port_models(), make_mesh(),
+        return ShardedSequenceTracker(cfg or self.tcfg, *self.port_models(), make_mesh(device="cpu"),
                                       extract_chunk=4, length_bucket=4, merge_mode=merge_mode,
                                       **self.port_kwargs(), **kw)
 

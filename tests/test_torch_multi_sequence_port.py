@@ -82,7 +82,7 @@ class World:
 
     def sharded(self, merge_mode="online", layers=(), mesh=None, **kw):
         return ShardedSequenceTracker(self.cfgs[layers], self.backbone, self.refiners[layers],
-                                      mesh or make_mesh(), extract_chunk=4, length_bucket=4,
+                                      mesh or make_mesh(device="cpu"), extract_chunk=4, length_bucket=4,
                                       merge_mode=merge_mode, device="cpu", **kw)
 
 

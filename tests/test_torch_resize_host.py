@@ -1,6 +1,7 @@
 """The port's cv2-free resizers (data/resize_host.py) against cv2.resize on
 the shapes the training loaders meet, and the host library's C++ against the
-plain numpy versions. Nearest and area are bit-equal to cv2; cubic is held to
+plain numpy versions. Nearest and area (all three of OpenCV's INTER_AREA
+paths) are bit-equal to cv2; cubic is held to
 one grey level, with the share of unequal values bounded (OpenCV's uint8
 cubic sums in a fixed point the port does not reproduce; measured 0.04-0.12 %
 of values on random images)."""
@@ -65,12 +66,42 @@ def test_equal_sizes_copy_and_unported_paths_raise(rng):
         out = fn(im, (48, 64))
         np.testing.assert_array_equal(out, im)
         assert out is not im and not np.shares_memory(out, im)
-    # cv2 takes other area paths where an axis enlarges or both factors are
-    # whole numbers; the port raises there rather than differ quietly
+    # cv2's two other area paths, where an axis enlarges and where both
+    # factors are whole numbers, raised before they were ported; now both
+    # give cv2's values (the tests below cover them)
     for fn in (R.resize_area, R.resize_area_plain):
-        with pytest.raises(NotImplementedError):
-            fn(im, (60, 60))
-        with pytest.raises(NotImplementedError):
-            fn(im, (24, 32))
+        for size in ((60, 60), (24, 32)):
+            np.testing.assert_array_equal(fn(im, size), cv2.resize(im, size[::-1],
+                                                                   interpolation=cv2.INTER_AREA))
     with pytest.raises(ValueError):
         R.resize_area(im.astype(np.float32), (24, 30))
+
+
+# (source, destination) of OpenCV's resizeAreaFast (both factors whole): 2 and
+# 3 on both axes, 1 on one, 2x2 at the loaders' 960x1708
+AREA_FAST = [((96, 128), (48, 64)), ((99, 129), (33, 43)), ((90, 120), (90, 40)),
+             ((90, 120), (45, 40)), ((960, 1708), (480, 854))]
+# where an axis enlarges: both (DAVIS frames under 480x854), or one up and
+# one down in either order
+AREA_ENLARGE = [((48, 64), (96, 128)), ((240, 427), (480, 854)), ((300, 500), (480, 854)),
+                ((37, 53), (120, 121)), ((37, 53), (20, 121)), ((37, 53), (120, 31)),
+                ((500, 900), (480, 1708))]
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("src,dst", AREA_FAST + AREA_ENLARGE)
+def test_other_area_paths_equal_cv2(rng, src, dst, channels):
+    """OpenCV's resizeAreaFast and its linear path with area weights: the
+    plain version equal to cv2.resize(INTER_AREA) on every value, the C++
+    equal to the plain version; 2-D images too."""
+    path = R.area_path(src, dst)[0]
+    assert path == ("fast" if (src, dst) in AREA_FAST else "linear")
+    im = _image(rng, src, channels)
+    want = cv2.resize(im, dst[::-1], interpolation=cv2.INTER_AREA).reshape(*dst, channels)
+    plain = R.resize_area_plain(im, dst)
+    np.testing.assert_array_equal(plain, want)
+    np.testing.assert_array_equal(R.resize_area(im, dst), plain)
+    if channels == 1:
+        grey = im[..., 0].copy()
+        np.testing.assert_array_equal(R.resize_area(grey, dst), want[..., 0])
+        np.testing.assert_array_equal(R.resize_area_plain(grey, dst), want[..., 0])

@@ -33,6 +33,7 @@ from frtm_tpu_torch.data.training_datasets import SampleSpec, SyntheticTrainingD
 from frtm_tpu_torch.models.discriminator import DiscParams
 from frtm_tpu_torch.models.resnet import ResNet
 from frtm_tpu_torch.models.seg_network import SegNetwork
+from frtm_tpu_torch.parallel import Mesh
 from frtm_tpu_torch.runtime.trainer import (AMSGrad, TModelCache, Trainer, TrainerModel,
                                             iou_accuracy)
 from frtm_tpu_torch.utils.convert import (disc_params_from_jax, disc_params_to_jax,
@@ -327,15 +328,21 @@ def test_steplr_and_refusals(weights, tmp_path):
     for epoch, lr in ((1, 1e-3), (127, 1e-3), (128, 1e-4), (255, 1e-5)):
         tr.epoch = epoch
         assert abs(tr._lr() - lr) < 1e-15
-    with pytest.raises(NotImplementedError, match="queue item 7"):
-        Trainer("t3", port_model(weights), [], tmp_path / "c", tmp_path / "l", mesh=object())
+    # a mesh is taken now (tests/test_torch_dp_train.py trains over one); a
+    # world of one rank without a group runs the meshless step's code
+    lone = Mesh(group=None, rank=0, size=1, device=torch.device("cpu"))
+    tr = Trainer("t3", port_model(weights), [], tmp_path / "c", tmp_path / "l", mesh=lone,
+                 load_latest=False)
+    assert tr.mesh is lone and tr._n_proc == 1
 
 
 def test_train_entry_point_surface(tmp_path):
     from frtm_tpu_torch import train
-    for extra in (["--dp", "2"], ["--multihost"]):
-        with pytest.raises(SystemExit, match="queue item 7"):
-            train.main(["x", "--dev", "cpu", *extra])
+    help_text = train.build_parser().format_help()
+    assert "--dp" in help_text and "--multihost" in help_text
+    # --dp 2 with a global batch that 2 does not divide: the reference's error
+    with pytest.raises(SystemExit):
+        train.main(["x", "--dev", "cpu", "--dp", "2", "--batch-size", "3"])
     # without --dev cpu it asks for the card, which this machine lacks
     res = subprocess.run([sys.executable, "-m", "frtm_tpu_torch.train", "x", "--dset",
                           "synthetic", "--workspace", str(tmp_path)], cwd=ROOT,
