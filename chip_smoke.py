@@ -210,6 +210,38 @@ Phases, each printing one JSON line:
                 defaults with --compare-dtypes: trains rn18 on synthetic
                 scenes and tracks 3 held-out sequences; fails under a mean
                 J of SYNTHETIC_MIN_J (frtm_tpu's script's own J less 0.1).
+  12. spatial — height sharding (parallel/spatial.py, ops/halo.py, the
+                fused tracker's mesh=, evaluate --spatial) at full width:
+                rn101 at 480x854, a 17-frame synthetic sequence with two
+                objects, in child processes (`chip_smoke.py
+                --spatial-child`). A one-rank NCCL world: the bfloat16
+                tracker on make_spatial_mesh(1) bit-equal to the tracker
+                without a mesh, its scan waiting 0 times. Two gloo ranks on
+                the one card (n_spatial = 2): the float32 pyramid within
+                1e-5 of each level's peak of the unsharded one, the
+                bfloat16 pyramid within the unsharded bfloat16 pyramid's own
+                gap to float32 (root mean square over a level), kernels 1
+                and 2 in bfloat16 at the shard-and-halo shapes of the
+                decoder's head against their plain versions (each launch,
+                and the rank's rows against the whole input's), the float32
+                frame step within 1e-5, the bfloat16 one within twice its
+                yardstick (its movement when its pyramid takes noise drawn
+                from the frame's measured sharded pyramid difference); the
+                bfloat16 and float32 trackers' labels within twice a
+                yardstick plus 0.5 % of the unsharded tracker's (the
+                yardstick: its own movement under seeded noise drawn from
+                the sharded pyramid's per-level difference), the ranks' filters
+                bit-equal, the init filters the unsharded tracker's; each
+                rank launching kernels 1 and 2 as often as the unsharded
+                tracker, all bfloat16. Then `python -m frtm_tpu_torch.evaluate
+                --spatial 2 --multihost --dist-backend gloo` in two
+                processes on the committed DAVIS tree: PNGs within the
+                bfloat16 bound of the
+                one-process CLI's, the reports from rank 0. Printed: halo
+                exchanges, gathers and all-reduces per frame with their
+                bytes and synchronised seconds, the frame step's seconds at
+                one and two ranks, peak memory a rank, the card; two ranks
+                sharing one card over gloo are not a scaling figure.
 The kernels phase also holds the backward kernels at N = 8 (a rank's rows),
 and the native phase the three INTER_AREA paths of the loaders' resize.
 Then a {"kernels": [...]} line (one entry per kernel instance, the backward
@@ -1036,17 +1068,18 @@ def conv_backward_rows(rows, g, shape, wt):
 
 class plain_decoder:
     """Within the block, the decoder calls the plain versions of kernels 1
-    and 2 (on CUDA tensors too) — for the decode comparison only."""
+    and 2 (on CUDA tensors too; ops/halo.py is where it calls them) — for
+    the decode comparison only."""
 
     def __enter__(self):
-        from frtm_tpu_torch.models import seg_network as sn
+        from frtm_tpu_torch.ops import halo
         from frtm_tpu_torch.ops.kernels import conv3x3_cout1_plain, pyr_up_bicubic_plain
-        self.saved = sn.pyr_up_bicubic, sn.conv3x3_cout1
-        sn.pyr_up_bicubic, sn.conv3x3_cout1 = pyr_up_bicubic_plain, conv3x3_cout1_plain
+        self.saved = halo.pyrup_kernel, halo.head_kernel
+        halo.pyrup_kernel, halo.head_kernel = pyr_up_bicubic_plain, conv3x3_cout1_plain
 
     def __exit__(self, *exc):
-        from frtm_tpu_torch.models import seg_network as sn
-        sn.pyr_up_bicubic, sn.conv3x3_cout1 = self.saved
+        from frtm_tpu_torch.ops import halo
+        halo.pyrup_kernel, halo.head_kernel = self.saved
 
 
 def build_models(arch, cfg, device):
@@ -3006,9 +3039,533 @@ def phase_synthetic(card):
     emit({"phase": "synthetic", "card": card, "wall_s": time.perf_counter() - t0, **summary})
 
 
+# the spatial phase's sequence: 17 frames at 480x854 with two squares
+SPATIAL_SEED = 5
+
+
+def spatial_sequence():
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    return make_moving_square_sequence(n_frames=17, size=(480, 854), square=120, n_objects=2,
+                                       seed=SPATIAL_SEED, name="spatial")
+
+
+class HaloClock:
+    """While installed, every exchange, gather and all-reduce of ops/halo.py
+    is timed with the card synchronised before and after it: seconds per
+    kind."""
+
+    KINDS = {"exchange_rows": "exchange", "gather_rows": "gather",
+             "all_reduce_sum": "all_reduce"}
+
+    def __enter__(self):
+        from frtm_tpu_torch.ops import halo
+        self.halo, self.saved, self.seconds = halo, {}, {k: 0.0 for k in self.KINDS.values()}
+        for name, kind in self.KINDS.items():
+            fn = self.saved[name] = getattr(halo, name)
+
+            def timed(*args, fn=fn, kind=kind, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds[kind] += time.perf_counter() - t0
+                return out
+
+            setattr(halo, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.halo, name, fn)
+
+
+def recording_inits(tracker):
+    """Wrap the tracker's init so that it records its filters, cloned at once
+    (the loop updates the models in place)."""
+    inits = []
+    init = tracker._init_objects_dense
+
+    def recorded(images, labels):
+        models = init(images, labels)
+        inits.append(models[0].filter.detach().clone())
+        return models
+
+    tracker._init_objects_dense = recorded
+    return inits
+
+
+def empirical_noise(diff, shape, generator):
+    """Noise of `shape` whose distribution is that of the flat tensor `diff`
+    (a level's measured differences): its values drawn with replacement."""
+    return diff[torch.randint(diff.numel(), shape, generator=generator, device=diff.device)]
+
+
+def nudge_pyramid(tracker, diffs):
+    """Make the tracker's sequence pyramid move, at every level, by seeded
+    noise drawn from diffs[level], the sharded pyramid's measured difference
+    at that level (the yardstick of the spatial phase's label bound)."""
+    extract = tracker._extract_sequence
+
+    def nudged(chunks):
+        feats = extract(chunks)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        return {L: (f.float() + empirical_noise(diffs[L].to(f.device), f.shape, g)).to(f.dtype)
+                for L, f in feats.items()}
+
+    tracker._extract_sequence = nudged
+
+
+def shard_kernel_checks(mesh, n=16):
+    """Kernels 1 and 2 in bfloat16 through ops/halo.py on this rank's rows of
+    the decoder's head at 480x854, N = n (a window of eight frames and two
+    objects), on inputs made from a seed (equal on every rank): every launch
+    against the plain version on the rows it was given (a shard and its
+    halo), and the rank's result against the plain version on the whole
+    input, cropped to the rank's rows. Kernel 1 exactly, as the kernels
+    phase holds it; kernel 2 within one bfloat16 ulp at the plain output's
+    peak, as the decode phase holds it."""
+    from frtm_tpu_torch.ops import halo
+    from frtm_tpu_torch.ops.kernels import conv3x3_cout1_plain, pyr_up_bicubic_plain
+    launches, saved = [], (halo.pyrup_kernel, halo.head_kernel)
+
+    def recorded(name, kernel, plain, exact):
+        def run(x, *args):
+            y, want = kernel(x, *args), plain(x, *args)
+            tol = 0.0 if exact else bf16_ulp(float(want.float().abs().max()))
+            launches.append({"kernel": name, "shape": list(x.shape), "tolerance": tol,
+                             "max_abs_err": float((y.float() - want.float()).abs().max())})
+            return y
+        return run
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = (torch.rand(1, 16, 3, 3, generator=g, device="cuda") * 0.2 - 0.1).to(torch.bfloat16)
+    b = (torch.rand(1, generator=g, device="cuda") * 0.2 - 0.1).to(torch.bfloat16)
+    results = []
+    halo.pyrup_kernel = recorded("pyrup_bf16", saved[0], pyr_up_bicubic_plain, True)
+    halo.head_kernel = recorded("conv3x3_cout1_bf16", saved[1], conv3x3_cout1_plain, False)
+    try:
+        for name, shape in (("pyrup_bf16", (n, 32, 120, 214)), ("pyrup_bf16", (n, 16, 240, 428)),
+                            ("conv3x3_cout1_bf16", (n, 16, 480, 854))):
+            x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+            H = shape[2]
+            rows = halo.take_rows(x, H, mesh)
+            if name == "pyrup_bf16":
+                got, want, H_out = (halo.pyr_up_bicubic(rows, H, mesh),
+                                    pyr_up_bicubic_plain(x), 2 * H)
+                tol = 0.0
+            else:
+                x = torch.relu(x)
+                rows = halo.take_rows(x, H, mesh)
+                got, want, H_out = (halo.conv3x3_cout1(rows, w, b, H, mesh),
+                                    conv3x3_cout1_plain(x, w, b), H)
+                tol = bf16_ulp(float(want.float().abs().max()))
+            want = halo.take_rows(want, H_out, mesh)
+            results.append({"kernel": name, "input": list(shape), "rows": list(rows.shape),
+                            "output_rows": list(got.shape), "tolerance": tol,
+                            "max_abs_err": float((got.float() - want.float()).abs().max())
+                            if got.shape == want.shape else float("inf")})
+            del x, rows, got, want
+    finally:
+        halo.pyrup_kernel, halo.head_kernel = saved
+    return {"launches": launches, "sharded_against_whole": results}
+
+
+def rms(t):
+    return float(t.double().square().mean().sqrt())
+
+
+def spatial_child(mode, workdir):
+    """One rank of the spatial phase (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR and MASTER_PORT in the environment). "nccl": a world of one
+    rank, the bfloat16 fused tracker with make_spatial_mesh(1) against the
+    tracker without a mesh. "gloo": one of two ranks sharing the card
+    (n_spatial = 2): the float32 and bfloat16 pyramids against their
+    unsharded selves, kernels 1 and 2 at the decoder head's shard shapes,
+    the frame steps against their unsharded selves (the bfloat16 one with
+    its yardstick), the frame step's seconds at one and two ranks, then per
+    type the unsharded tracker (its labels, init
+    filters, launches and, nudged by noise drawn from the sharded pyramid's
+    per-level difference, the yardstick) and the sharded one (labels, filters,
+    launches of a run that augments for itself, traffic, exchange seconds,
+    peak memory). Writes spatial_{mode}{rank}.pt."""
+    import torch.distributed as dist
+    from dataclasses import replace
+    sys.path.insert(0, str(ROOT))
+    from frtm_tpu_torch.config import eval_config
+    from frtm_tpu_torch.device import resolve_device
+    from frtm_tpu_torch.models.discriminator import DiscParams
+    from frtm_tpu_torch.models.resnet import level_heights
+    from frtm_tpu_torch.ops import halo
+    from frtm_tpu_torch.ops.conv import compute_copy
+    from frtm_tpu_torch.ops.kernels import LAUNCHES, VARIANTS, reset_launches
+    from frtm_tpu_torch.parallel import (init_distributed, local_mesh, make_spatial_frame_step,
+                                         make_spatial_mesh)
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    workdir = Path(workdir)
+    resolve_device("cuda")
+    rank, size = init_distributed(backend="nccl" if mode == "nccl" else "gloo", device="cuda")
+    mesh = make_spatial_mesh(size, device="cuda")
+    cfg = eval_config("resnet101")
+    backbone, refiner = build_models("resnet101", cfg, "cuda")
+    saved = torch.load(workdir / "spatial_models.pt")
+    backbone.load_state_dict(saved["backbone"])
+    refiner.load_state_dict(saved["refiner"])
+    batches = [(a.cuda(), b.cuda()) for a, b in saved["aug_batches"]]
+    seq = spatial_sequence()
+    out = {"rank": rank, "size": size}
+
+    def tracker(dtype, m=None, **kw):
+        return BatchedSequenceTracker(replace(cfg, compute_dtype=dtype), backbone, refiner,
+                                      extract_chunk=16, device="cuda", mesh=m, **kw)
+
+    if mode == "nccl":
+        plain, meshed = tracker("bfloat16", profile=True), tracker("bfloat16", mesh, profile=True)
+        plain.run_sequence(seq, aug_batches=batches)            # first launches
+        a, _ = plain.run_sequence(seq, aug_batches=batches)
+        b, _ = meshed.run_sequence(seq, aug_batches=batches)
+        out.update(labels_equal=all(np.array_equal(x, y) for x, y in zip(a, b)),
+                   filters_equal=torch.equal(plain.last_models[0].filter,
+                                             meshed.last_models[0].filter),
+                   scan_host_syncs=meshed.last_phase_stats["scan"]["host_syncs"],
+                   mesh_group=mesh.group is None, mesh_size=mesh.size)
+        torch.save(out, workdir / f"spatial_{mode}{rank}.pt")
+        dist.destroy_process_group()
+        return
+
+    layers = ("layer5", "layer4", "layer3", "layer2")
+    heights = level_heights(480)
+    frames = torch.from_numpy(np.stack(seq.images[1:9])).cuda().permute(0, 3, 1, 2)
+    nets = {"float32": backbone, "bfloat16": compute_copy(backbone, torch.bfloat16)}
+    pyr, diffs = {}, {}
+    for dtype, net in nets.items():
+        t = getattr(torch, dtype)
+        ref = net.extract_features(frames, output_layers=layers, out_dtype=t)
+        got = net.extract_features(frames, output_layers=layers, out_dtype=t, mesh=mesh)
+        got = {L: halo.gather_rows(v, heights[L], mesh) for L, v in got.items()}
+        d = {L: (got[L].float() - ref[L].float()).flatten() for L in layers}
+        # the measured per-level differences, kept on the host (out of the
+        # trackers' peak memory): the label yardstick's noise is drawn from them
+        diffs[dtype] = {L: v.cpu() for L, v in d.items()}
+        pyr[dtype] = {"ref": ref, "diff": {L: float(d[L].abs().max()) for L in layers},
+                      "diff_rms": {L: rms(d[L]) for L in layers},
+                      "diff_nonzero_share": {L: float(d[L].ne(0).float().mean()) for L in layers},
+                      "peak": {L: float(ref[L].float().abs().max()) for L in layers}}
+        del got, d
+    gap = {L: pyr["bfloat16"]["ref"][L].float() - pyr["float32"]["ref"][L] for L in layers}
+    pyr["bfloat16"]["gap_to_float32"] = {L: float(g.abs().max()) for L, g in gap.items()}
+    pyr["bfloat16"]["gap_to_float32_rms"] = {L: rms(g) for L, g in gap.items()}
+    del gap
+    out["pyramid"] = {d: {k: v for k, v in p.items() if k != "ref"} for d, p in pyr.items()}
+    out["pyramid_shards"] = {L: hi - lo for L in layers
+                             for lo, hi in [halo.row_span(heights[L], mesh)]}
+    del pyr
+    out["shard_kernels"] = shard_kernel_checks(mesh)
+
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        plain = tracker(dtype)
+        inits_plain = recording_inits(plain)
+        plain.run_sequence(seq, aug_batches=batches)            # first launches
+        reset_launches()
+        labels_plain, _ = plain.run_sequence(seq, aug_batches=batches)
+        launches_plain = dict(LAUNCHES)
+        nudge_pyramid(plain, diffs.pop(dtype))
+        nudged, _ = plain.run_sequence(seq, aug_batches=batches)
+        yardstick = max(float(np.mean(a != b)) for a, b in zip(nudged, labels_plain))
+        sharded = tracker(dtype, mesh)
+        inits_sharded = recording_inits(sharded)
+        sharded.run_sequence(seq, aug_batches=batches)          # first launches
+        torch.cuda.synchronize()
+        reset_launches()
+        mesh.traffic.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        labels, _ = sharded.run_sequence(seq)                   # the path: it augments
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"labels": np.stack(labels), "labels_plain": np.stack(labels_plain),
+               "yardstick": yardstick, "launches": dict(LAUNCHES),
+               "variants": {k: dict(VARIANTS[k]) for k in ("pyrup", "conv3x3_cout1",
+                                                           "warp_affine")},
+               "launches_plain": launches_plain, "traffic": dict(mesh.traffic),
+               "peak_memory": torch.cuda.max_memory_allocated(), "wall_s": wall,
+               "filters": sharded.last_models[0].filter.cpu(),
+               "init_filters_equal_unsharded": all(torch.equal(a, inits_plain[0])
+                                                   for a in inits_sharded)}
+        with HaloClock() as clock:
+            sharded.run_sequence(seq, aug_batches=batches)
+        run["halo_seconds_synchronised"] = clock.seconds
+        runs[dtype] = run
+        if dtype == "float32":
+            p = plain.last_models[0]
+            disc = DiscParams(p.project[:1].contiguous(), p.filter[:1].contiguous())
+        del plain, sharded
+    out["trackers"] = runs
+
+    frame = frames[:1]
+    steps, seconds = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t = getattr(torch, dtype)
+        for tag, m in (("one_rank", local_mesh("cuda")), ("two_ranks", mesh)):
+            step = make_spatial_frame_step(cfg, m, t)
+            steps[(dtype, tag)] = step(backbone, refiner, disc, frame)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(backbone, refiner, disc, frame)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            seconds[f"{dtype}_{tag}"] = statistics.median(times)
+    mesh.traffic.clear()
+    make_spatial_frame_step(cfg, mesh, torch.bfloat16)(backbone, refiner, disc, frame)
+    out["frame_step"] = {
+        "max_abs_err_float32": float((steps[("float32", "two_ranks")]
+                                      - steps[("float32", "one_rank")]).abs().max()),
+        "max_abs_err_bfloat16": float((steps[("bfloat16", "two_ranks")]
+                                       - steps[("bfloat16", "one_rank")]).abs().max()),
+        "seconds_per_frame": seconds, "traffic_bfloat16": dict(mesh.traffic),
+        **frame_step_yardstick(cfg, mesh, nets["bfloat16"], backbone, refiner, disc, frame,
+                               steps[("bfloat16", "one_rank")], layers, heights)}
+    torch.save(out, workdir / f"spatial_{mode}{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def frame_step_yardstick(cfg, mesh, net16, backbone, refiner, disc, frame, base, layers,
+                         heights):
+    """The bfloat16 frame step's yardstick: how far the unsharded step's
+    probabilities (`base`) move when its pyramid moves by noise drawn from
+    this frame's measured sharded-minus-unsharded bfloat16 pyramid
+    difference (three seeded draws, the largest max abs movement). Also what
+    the sharded pyramid alone moves them by (the unsharded decoder on it):
+    the rest of the sharded step's difference is the decoder's."""
+    from frtm_tpu_torch.ops import halo
+    from frtm_tpu_torch.parallel import local_mesh, make_spatial_frame_step
+    from frtm_tpu_torch.parallel import spatial
+    t = torch.bfloat16
+    ref = net16.extract_features(frame, output_layers=layers, out_dtype=t)
+    got = {L: halo.gather_rows(v, heights[L], mesh) for L, v in
+           net16.extract_features(frame, output_layers=layers, out_dtype=t, mesh=mesh).items()}
+    diff = {L: (got[L].float() - ref[L].float()).flatten() for L in layers}
+    step, pyramid = make_spatial_frame_step(cfg, local_mesh("cuda"), t), spatial._sharded_pyramid
+
+    def moved(change):
+        def changed(*args):
+            x, feats, hts = pyramid(*args)
+            return x, change(feats), hts
+        spatial._sharded_pyramid = changed
+        try:
+            return float((step(backbone, refiner, disc, frame) - base).abs().max())
+        finally:
+            spatial._sharded_pyramid = pyramid
+
+    draws = []
+    for seed in range(3):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        draws.append(moved(lambda feats: {
+            L: (f.float() + empirical_noise(diff[L], f.shape, g)).to(f.dtype)
+            for L, f in feats.items()}))
+    return {"yardstick_bfloat16": max(draws), "yardstick_draws_bfloat16": draws,
+            "sharded_pyramid_alone_bfloat16": moved(lambda feats: {L: got[L] for L in feats}),
+            "pyramid_diff_max_bfloat16": {L: float(d.abs().max()) for L, d in diff.items()},
+            "pyramid_diff_rms_bfloat16": {L: rms(d) for L, d in diff.items()}}
+
+
+def spatial_ranks(mode, n, workdir, args=None, timeout=600):
+    """n processes on this card (LOCAL_RANK 0 for all), joined through the
+    environment: `chip_smoke.py --spatial-child mode workdir` or, with
+    `args`, `python -m frtm_tpu_torch.evaluate args`. Returns their output."""
+    import os
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(n), LOCAL_RANK="0")
+    cmd = ([sys.executable, "-m", "frtm_tpu_torch.evaluate", *args] if args else
+           [sys.executable, str(ROOT / "chip_smoke.py"), "--spatial-child", mode, str(workdir)])
+    children = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)), cwd=ROOT,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(n)]
+    try:
+        outs = [child.communicate(timeout=timeout)[0] for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for rank, (child, text) in enumerate(zip(children, outs)):
+        if child.returncode != 0:
+            fail(f"spatial ({mode}): rank {rank} of {n} exited with {child.returncode}:\n"
+                 f"{text[-3000:]}")
+    return outs
+
+
+def phase_spatial(cfg, backbone, refiner, card):
+    """Height sharding (parallel/spatial.py, ops/halo.py, the fused
+    tracker's mesh=, evaluate --spatial) at full width: rn101 at 480x854, a
+    17-frame synthetic sequence with two objects, in child processes
+    (`chip_smoke.py --spatial-child`). (a) A one-rank NCCL world: the
+    tracker on make_spatial_mesh(1) bit-equal to the tracker without a mesh
+    (labels, filters), its scan waiting for the card 0 times. (b) Two gloo
+    ranks sharing this card: the float32 pyramid within 1e-5 of each level's
+    peak of the unsharded one, the bfloat16 pyramid no further (root mean
+    square over a level) from the unsharded bfloat16 one than that lies
+    from float32; kernels 1 and 2 in bfloat16 at the decoder head's shard
+    shapes against their plain versions (shard_kernel_checks); the float32
+    frame step within 1e-5, the bfloat16 one within twice its yardstick
+    (frame_step_yardstick); the bfloat16 and float32 trackers' labels
+    within twice a yardstick plus 0.5 % of the unsharded tracker's, frame by
+    frame (the yardstick: the unsharded tracker's own label movement when
+    its pyramid moves by seeded noise drawn from the sharded pyramid's
+    measured per-level difference; the bound is set from it before the
+    labels are read); the ranks'
+    filters bit-equal, the init filters bit-equal to the unsharded
+    tracker's; each rank's kernel 1 and 2 launches those of the unsharded
+    tracker, all bfloat16. (c) `python -m frtm_tpu_torch.evaluate --spatial
+    2 --multihost --dist-backend gloo` in two processes on the committed
+    DAVIS tree: PNGs within
+    the bfloat16 bound of the one-process CLI's, the reports from rank 0.
+    Returns the sharded bfloat16 runs' launches, summed over the ranks."""
+    from frtm_tpu_torch import evaluate
+    from frtm_tpu_torch.data.image import imread
+    from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+    from dataclasses import replace
+    t_phase = time.perf_counter()
+    seq = spatial_sequence()
+    windows = -(-(len(seq) - 1) // cfg.disc.train_skipping)
+    with tempfile.TemporaryDirectory(prefix="frtm_spatial_") as tmp:
+        tmp = Path(tmp)
+        maker = BatchedSequenceTracker(replace(cfg, compute_dtype="bfloat16"), backbone,
+                                       refiner, extract_chunk=16, device="cuda")
+        batches = maker._augment_objects(maker._collect_objects(seq))
+        del maker
+        torch.save({"backbone": {k: v.cpu() for k, v in backbone.state_dict().items()},
+                    "refiner": {k: v.cpu() for k, v in refiner.state_dict().items()},
+                    "aug_batches": [(a.cpu(), b.cpu()) for a, b in batches]},
+                   tmp / "spatial_models.pt")
+        t0 = time.perf_counter()
+        spatial_ranks("nccl", 1, tmp)
+        one = torch.load(tmp / "spatial_nccl0.pt")
+        wall_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spatial_ranks("gloo", 2, tmp)
+        two = [torch.load(tmp / f"spatial_gloo{r}.pt", weights_only=False) for r in range(2)]
+        wall_two = time.perf_counter() - t0
+
+        # the label bounds, set from the yardsticks before any label is read
+        bounds = {d: 2 * max(r["trackers"][d]["yardstick"] for r in two) + 5e-3
+                  for d in ("bfloat16", "float32")}
+        checks = {"one_rank_nccl_bit_equal": one["labels_equal"] and one["filters_equal"]
+                  and one["mesh_group"] and one["mesh_size"] == 1,
+                  "one_rank_scan_host_syncs_0": one["scan_host_syncs"] == 0}
+        p = two[0]["pyramid"]
+        checks["pyramid_float32_within_1e-5_of_peak"] = all(
+            r["pyramid"]["float32"]["diff"][L] <= 1e-5 * r["pyramid"]["float32"]["peak"][L]
+            for r in two for L in p["float32"]["diff"])
+        # distances of whole levels (root mean square): the sharded bf16
+        # pyramid's few last-bit flips against the rounding of every value
+        # that bf16 itself makes; their largest single values meet at about
+        # two ulps (PERF.md, height sharding), so a max norm compares rounding noise
+        # with rounding noise
+        checks["pyramid_bfloat16_within_its_float32_gap"] = all(
+            r["pyramid"]["bfloat16"]["diff_rms"][L]
+            <= r["pyramid"]["bfloat16"]["gap_to_float32_rms"][L]
+            for r in two for L in p["bfloat16"]["diff"])
+        checks["frame_step_float32_within_1e-5"] = all(
+            r["frame_step"]["max_abs_err_float32"] <= 1e-5 for r in two)
+        checks["frame_step_bfloat16_within_twice_its_yardstick"] = all(
+            r["frame_step"]["max_abs_err_bfloat16"] <= 2 * r["frame_step"]["yardstick_bfloat16"]
+            for r in two)
+        sk = [r["shard_kernels"] for r in two]
+        checks["shard_kernels_bf16_against_plain"] = all(
+            len(k["launches"]) == 3 and len(k["sharded_against_whole"]) == 3
+            and all(c["max_abs_err"] <= c["tolerance"]
+                    for c in k["launches"] + k["sharded_against_whole"]) for k in sk)
+        gaps = {d: [[float(np.mean(a != b)) for a, b in zip(r["trackers"][d]["labels"],
+                                                             r["trackers"][d]["labels_plain"])]
+                    for r in two] for d in bounds}
+        checks["tracker_labels_within_bound"] = all(max(max(g) for g in gaps[d]) <= bounds[d]
+                                                    for d in bounds)
+        checks["ranks_labels_equal"] = all(np.array_equal(two[0]["trackers"][d]["labels"],
+                                                          two[1]["trackers"][d]["labels"])
+                                           for d in bounds)
+        checks["ranks_filters_bit_equal"] = all(torch.equal(two[0]["trackers"][d]["filters"],
+                                                            two[1]["trackers"][d]["filters"])
+                                                for d in bounds)
+        checks["init_filters_bit_equal_unsharded"] = all(
+            r["trackers"][d]["init_filters_equal_unsharded"] for r in two for d in bounds)
+        expected = {"pyrup": 2 * windows, "conv3x3_cout1": windows}
+        checks["launches_as_unsharded_all_bf16"] = all(
+            {k: r["trackers"]["bfloat16"]["launches"][k] for k in expected} == expected
+            and {k: r["trackers"]["bfloat16"]["launches_plain"][k] for k in expected} == expected
+            and r["trackers"]["bfloat16"]["variants"]["pyrup"] == {"f32": 0, "bf16": 2 * windows}
+            and r["trackers"]["bfloat16"]["variants"]["conv3x3_cout1"] == {"f32": 0,
+                                                                         "bf16": windows}
+            and r["trackers"]["bfloat16"]["launches"]["warp_affine"] > 0 for r in two)
+
+        # (c) the CLI, one process and two
+        torch.save({"model": {"refiner." + k: v.detach().cpu()
+                              for k, v in refiner.state_dict().items()}, "epoch": 260},
+                   tmp / "rn101_smoke.pth")
+        torch.save({k: v.detach().cpu() for k, v in backbone.state_dict().items()},
+                   tmp / "resnet101.pth")
+        argv = ["--model", str(tmp / "rn101_smoke.pth"), "--backbone", str(tmp / "resnet101.pth"),
+                "--dset", "dv2017val", "--davis", str(FIXTURES / "davis"), "--dev", "cuda",
+                "--dtype", "bfloat16", "--engine", "fused"]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli_one = evaluate.main(argv + ["--output", str(tmp / "one")])
+        t0 = time.perf_counter()
+        # gloo: the two processes share this card, which NCCL refuses
+        outs = spatial_ranks("cli", 2, tmp, argv + ["--output", str(tmp / "two"), "--spatial",
+                                                    "2", "--multihost", "--dist-backend", "gloo"])
+        wall_cli = time.perf_counter() - t0
+        res_two = tmp / "two" / cli_one["out_path"].name
+        cli_gaps = [float(np.mean(imread(res_two / "blobs" / f.name)[..., 0]
+                                  != imread(f)[..., 0]))
+                    for f in sorted((cli_one["out_path"] / "blobs").glob("*.png"))]
+        checks["cli_pngs_within_bound"] = len(cli_gaps) == 9 and max(cli_gaps) <= bounds["bfloat16"]
+        checks["cli_reports_by_rank_0"] = (
+            all((res_two / f"evaluation-{m}.txt").exists() for m in "JF")
+            and "Computing J-scores" in outs[0] and "Computing J-scores" not in outs[1])
+
+    frames = len(seq)
+    b16 = [r["trackers"]["bfloat16"] for r in two]
+    line = {"phase": "spatial", "card": card, "arch": cfg.feature_extractor, "size": [480, 854],
+            "frames": frames, "objects": 2, "n_spatial": 2,
+            "label": "two ranks sharing one card over gloo (staged through the host): not a "
+                     "scaling figure; two cards over NCCL are not measured",
+            "checks": checks, "tolerance": {"labels": bounds, "pyramid_float32_of_peak": 1e-5,
+                                            "frame_step_float32": 1e-5},
+            "yardsticks": {d: [r["trackers"][d]["yardstick"] for r in two] for d in bounds},
+            "label_gaps_max": {d: max(max(g) for g in gaps[d]) for d in bounds},
+            "label_gaps_under_0.005": {d: max(max(g) for g in gaps[d]) < 5e-3 for d in bounds},
+            "pyramid": two[0]["pyramid"], "shard_rows": two[0]["pyramid_shards"],
+            "shard_kernels": sk,
+            "frame_step": [r["frame_step"] for r in two],
+            "per_frame_bfloat16": {
+                "exchanges": [r["traffic"].get("exchange", 0) / frames for r in b16],
+                "exchange_bytes": [r["traffic"].get("exchange_bytes", 0) / frames for r in b16],
+                "gathers": [r["traffic"].get("gather", 0) / frames for r in b16],
+                "gather_bytes": [r["traffic"].get("gather_bytes", 0) / frames for r in b16],
+                "all_reduces": [r["traffic"].get("all_reduce", 0) / frames for r in b16],
+                "seconds_synchronised": [{k: v / frames for k, v in
+                                          r["halo_seconds_synchronised"].items()} for r in b16]},
+            "tracker_wall_s": {d: [r["trackers"][d]["wall_s"] for r in two] for d in bounds},
+            "peak_memory_per_rank": {d: [r["trackers"][d]["peak_memory"] for r in two]
+                                     for d in bounds},
+            "launches_per_rank_bfloat16": [r["launches"] for r in b16],
+            "cli": {"label_gaps": cli_gaps, "wall_s_two_processes": wall_cli,
+                    "one_process_fps": cli_one["fps"]},
+            "wall_s": {"one_rank_nccl": wall_one, "two_ranks_gloo": wall_two,
+                       "phase": time.perf_counter() - t_phase}}
+    emit(line)
+    if not all(checks.values()):
+        fail(f"spatial: {[k for k, v in checks.items() if not v]}")
+    return {k: sum(r["launches"][k] for r in b16) for k in FORWARD_KERNELS}
+
+
 def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                  launches_ytvos, instances_ytvos, launches_train, launches_device,
-                 launches_sharded, launches_dp, ptxas):
+                 launches_sharded, launches_dp, launches_spatial, ptxas):
     """The contract line: one entry per kernel instance at its main-path
     shape (pyrup stage 2 and the head conv at N = 1 in float32, where the
     host loop runs them, and at N = 16 in bfloat16, the eval path's window of
@@ -3022,9 +3579,11 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
     mixed paste), and the device augment backend's timed passes for the
     batched warp (its main row a round's backgrounds, S = 19); the sharded
     phase's group of four (run_sequences, bfloat16) adds to the bfloat16
-    instances and the one-map warp, and the dp_train phase's epochs (three
+    instances and the one-map warp, the dp_train phase's epochs (three
     ranks, float32) to the float32 instances, the backward kernels and the
-    one-map warp.
+    one-map warp, and the spatial phase's height-sharded bfloat16 trackers
+    (two ranks, each on its rows) to the bfloat16 instances and the one-map
+    warp.
     Each entry carries ptxas's readings of its source's kernel functions,
     each bfloat16 entry its time over the float32 instance's (bf16_over_f32),
     and each entry whose row names them the variant its launch took and the
@@ -3050,17 +3609,20 @@ def kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
         # the sharded phase runs only bfloat16 decodes
         n_sharded = launches_sharded[kernel] if in_eval and (bf16 or kernel == "warp_affine") \
             else 0
+        n_spatial = launches_spatial[kernel] if in_eval and (bf16 or kernel == "warp_affine") \
+            else 0
         n_device = 0
         if name == "warp_affine_batched":
-            n_host = n_fused = n_train = n_dp = 0
+            n_host = n_fused = n_train = n_dp = n_spatial = 0
             n_device = launches_device[kernel]
         out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                     "launches": n_host + n_fused + n_eval + n_ytvos + n_train + n_device
-                    + n_sharded + n_dp,
+                    + n_sharded + n_dp + n_spatial,
                     "launches_host_loop": n_host, "launches_fused": n_fused,
                     "launches_eval": n_eval, "launches_ytvos": n_ytvos,
                     "launches_train": n_train, "launches_device_augment": n_device,
                     "launches_sharded": n_sharded, "launches_dp_train": n_dp,
+                    "launches_spatial": n_spatial,
                     "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"],
@@ -3101,6 +3663,7 @@ def main():
     launches_device, _ = phase_device_augment(cfg, tracker.backbone, tracker.refiner, card)
     launches_eval, instances_eval = phase_eval(cfg, tracker.backbone, tracker.refiner)
     launches_ytvos, instances_ytvos = phase_ytvos(tracker.backbone, tracker.refiner)
+    launches_spatial = phase_spatial(cfg, tracker.backbone, tracker.refiner, card)
     backbone = tracker.backbone
     del tracker
     phase_small()
@@ -3112,7 +3675,7 @@ def main():
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit(kernels_line(rows, launches, launches_fused, launches_eval, instances_eval,
                       launches_ytvos, instances_ytvos, launches_train, launches_device,
-                      launches_sharded, launches_dp, ptxas))
+                      launches_sharded, launches_dp, launches_spatial, ptxas))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
@@ -3122,6 +3685,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-child"]:
         sharded_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--spatial-child"]:
+        spatial_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--dp-child"]:
         dp_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--augment-round-child"]:

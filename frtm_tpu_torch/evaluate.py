@@ -15,8 +15,14 @@ there is none; `--dev cpu` must be asked for. `--dtype` defaults to bfloat16,
 sequences in one pass each (parallel/multi_sequence.py). `--multihost` joins
 the processes that torchrun (or MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and
 LOCAL_RANK set by hand) starts, one per card: each tracks its round-robin
-share of the sequences, and rank 0 scores after a barrier. `--spatial` is
-parsed and refused: height sharding is not ported yet.
+share of the sequences, and rank 0 scores after a barrier. `--spatial N`
+(fused engine) shards each frame's height over N processes
+(parallel/spatial.py): with `--multihost` the world's consecutive blocks of N
+ranks each track their round-robin share of the sequences, one frame split
+over the block; rank 0 of each block writes its PNGs. Without `--multihost`
+only N = 1 runs (one process drives one card). On cards `--spatial` joins
+NCCL, so the exchanges stay on the cards; `--dist-backend gloo` runs them
+through the host, as ranks that share one card must.
 """
 import argparse
 import sys
@@ -24,9 +30,6 @@ import zipfile
 from pathlib import Path
 
 import torch
-
-NOT_PORTED = ("{what} is not ported to frtm_tpu_torch yet: height sharding is "
-              "ROADMAP.md queue item 7")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,11 +61,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "frame-at-a-time reference-semantics loop; sharded = groups of "
                          "sequences tracked in one pass each")
     ap.add_argument("--spatial", type=int, default=0,
-                    help="fused engine: shard each frame's height over N devices "
-                         "(not ported yet)")
+                    help="fused engine: shard each frame's height over N processes, one "
+                         "per card (needs --multihost and a world that N divides)")
     ap.add_argument("--multihost", action="store_true",
                     help="partition the dataset's sequences across the processes of "
                          "a torchrun launch (one per card); rank 0 scores")
+    ap.add_argument("--dist-backend", choices=("auto", "nccl", "gloo"), default="auto",
+                    help="--multihost: torch.distributed's backend. auto = nccl for "
+                         "--spatial N > 1 on cards (its halo exchanges go card to card), "
+                         "gloo otherwise (the other engines' only traffic is a barrier); "
+                         "gloo where ranks share a card, which NCCL refuses")
     ap.add_argument("--pipeline", action="store_true",
                     help="fused engine: prepare the next sequence (decode, uploads, "
                          "augmentation) during the current one's tracking (faster "
@@ -123,8 +131,9 @@ def main(argv=None, dataset=None):
     aggregate), the J and F dataset means (None on ranks other than 0) and
     the tracker."""
     args = build_parser().parse_args(argv)
-    if args.spatial:
-        sys.exit(NOT_PORTED.format(what="--spatial"))
+    if args.spatial > 1 and not args.multihost and args.engine == "fused":
+        sys.exit(f"--spatial {args.spatial} needs --multihost: one process per card, "
+                 f"{args.spatial} processes a frame")
     model_path, arch, refiner, backbone = load_models(args)
 
     from .config import eval_config
@@ -136,17 +145,28 @@ def main(argv=None, dataset=None):
     dset = open_dataset(args) if dataset is None else dataset
     ex_name = dset.name + "-" + model_path.stem + ("_fast" if args.fast else "")
     out_path = Path(args.output).expanduser().resolve() / ex_name
-    out_path.mkdir(exist_ok=True, parents=True)
 
     pid, n_proc, dset_run = 0, 1, dset
+    spatial = args.spatial if args.engine == "fused" else 0
+    if args.spatial and not spatial:
+        print(f"WARNING: --spatial applies to the fused engine only; ignored for "
+              f"--engine {args.engine}.")
     if args.multihost:
         from .parallel.distributed import init_distributed, process_slice
-        pid, n_proc = init_distributed(device=args.dev)
-        if n_proc > 1:
+        backend = args.dist_backend
+        if backend == "auto":
+            backend = "nccl" if spatial > 1 and args.dev == "cuda" else "gloo"
+        pid, n_proc = init_distributed(backend=backend, device=args.dev)
+        if spatial and n_proc % spatial:
+            sys.exit(f"--spatial {spatial}: a world of {n_proc} processes is not a multiple "
+                     f"of {spatial}")
+        # the world's blocks of `spatial` ranks each track one share
+        n_share, share = (n_proc // spatial, pid // spatial) if spatial else (n_proc, pid)
+        if n_share > 1:
             # sequences are independent: each process tracks its round-robin
             # share and writes into the shared out_path
             seqs = list(dset)
-            keep = set(process_slice(len(seqs), pid, n_proc))
+            keep = set(process_slice(len(seqs), share, n_share))
 
             class Share(list):
                 """This process's share, with the dataset's name."""
@@ -155,7 +175,13 @@ def main(argv=None, dataset=None):
             dset_run = Share(s for i, s in enumerate(seqs) if i in keep)
             print(f"multihost: process {pid}/{n_proc} tracking "
                   f"{len(dset_run)}/{len(seqs)} sequences")
+    sp_mesh = None
+    if spatial:
+        from .parallel.spatial import make_spatial_mesh
+        sp_mesh = make_spatial_mesh(spatial, n_proc // spatial if args.multihost else 1,
+                                    device=args.dev)
 
+    out_path.mkdir(exist_ok=True, parents=True)
     speedrun = args.dset == "dv2016val"
     if args.engine == "host":
         if args.pipeline:
@@ -174,7 +200,7 @@ def main(argv=None, dataset=None):
     else:
         tracker = BatchedSequenceTracker(cfg, backbone, refiner, extract_chunk=16,
                                          aug_compact=args.aug_compact == "on",
-                                         device=args.dev)
+                                         device=args.dev, mesh=sp_mesh)
         fps = tracker.run_dataset(dset_run, out_path, speedrun=speedrun, restart=args.restart,
                                   pipeline=args.pipeline)
 

@@ -12,12 +12,18 @@ The module computes in the type of its own parameters: for bfloat16, take
 as in the JAX package, the image is cast to bfloat16 before the
 normalisation, whose two constants are the float32 ones rounded, and every
 convolution and batch norm runs on bfloat16 weights and statistics.
+
+With a spatial `mesh` (parallel/spatial.py) `extract_features` computes this
+rank's rows of every level that the row plan shards and the whole of every
+level that it replicates (ops/halo.py); each block is given its input's
+global height.
 """
 import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.conv import FrozenBatchNorm2d, conv2d, max_pool_3x3_s2, relu
+from ..ops import halo
+from ..ops.conv import FrozenBatchNorm2d, relu
 
 RESNET_SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -56,11 +62,13 @@ class BasicBlock(nn.Module):
         if stride != 1 or cin != w:
             self.downsample = nn.Sequential(_conv(cin, w, 1, stride), FrozenBatchNorm2d(w))
 
-    def forward(self, x):
-        h = relu(self.bn1(conv2d(x, self.conv1.weight, stride=self.stride)))
-        h = self.bn2(conv2d(h, self.conv2.weight))
+    def forward(self, x, H=None, mesh=None):
+        """H: the input's global height, with a spatial mesh."""
+        H2 = None if H is None else -(-H // self.stride)
+        h = relu(self.bn1(halo.conv2d(x, self.conv1.weight, stride=self.stride, H=H, mesh=mesh)))
+        h = self.bn2(halo.conv2d(h, self.conv2.weight, H=H2, mesh=mesh))
         idn = x if self.downsample is None else self.downsample[1](
-            conv2d(x, self.downsample[0].weight, stride=self.stride))
+            halo.conv2d(x, self.downsample[0].weight, stride=self.stride, H=H, mesh=mesh))
         return relu(h + idn)
 
 
@@ -82,12 +90,14 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
                                             FrozenBatchNorm2d(cout))
 
-    def forward(self, x):
-        h = relu(self.bn1(conv2d(x, self.conv1.weight)))
-        h = relu(self.bn2(conv2d(h, self.conv2.weight, stride=self.stride)))
-        h = self.bn3(conv2d(h, self.conv3.weight))
+    def forward(self, x, H=None, mesh=None):
+        """H: the input's global height, with a spatial mesh."""
+        H2 = None if H is None else -(-H // self.stride)
+        h = relu(self.bn1(halo.conv2d(x, self.conv1.weight, H=H, mesh=mesh)))
+        h = relu(self.bn2(halo.conv2d(h, self.conv2.weight, stride=self.stride, H=H, mesh=mesh)))
+        h = self.bn3(halo.conv2d(h, self.conv3.weight, H=H2, mesh=mesh))
         idn = x if self.downsample is None else self.downsample[1](
-            conv2d(x, self.downsample[0].weight, stride=self.stride))
+            halo.conv2d(x, self.downsample[0].weight, stride=self.stride, H=H, mesh=mesh))
         return relu(h + idn)
 
 
@@ -115,11 +125,13 @@ class ResNet(nn.Module):
         self.requires_grad_(False)
 
     @torch.no_grad()
-    def extract_features(self, images, output_layers=None, out_dtype=torch.float32):
+    def extract_features(self, images, output_layers=None, out_dtype=torch.float32, mesh=None):
         """:param images: (N, 3, H, W) holding 0..255 values (any dtype)
         :param output_layers: optional iterable of layer names to keep
         :param out_dtype: type of the emitted maps (bfloat16 halves the
             pyramid for consumers that compute in it; the solver takes float32)
+        :param mesh: a spatial mesh: the images are whole on every rank, the
+            maps this rank's rows by the plan (heights: level_heights)
         :return: {layer1..layer5: (N, c, h, w) feature maps}"""
         want = None if output_layers is None else set(output_layers)
         deepest = "layer5" if want is None else max(want)
@@ -131,17 +143,35 @@ class ResNet(nn.Module):
             if want is None or name in want:
                 out[name] = t.to(out_dtype)
 
-        x = relu(self.bn1(conv2d(x, self.conv1.weight, stride=2)))
-        x = max_pool_3x3_s2(x)
+        heights = level_heights(images.shape[-2])
+        H = heights["image"]
+        x = relu(self.bn1(halo.conv2d(x, self.conv1.weight, stride=2, H=H, mesh=mesh)))
+        x = halo.max_pool_3x3_s2(x, H=-(-H // 2), mesh=mesh)
         save("layer1", x)
         if deepest == "layer1":
             return out
         for si in range(4):
             name = f"layer{si + 2}"
-            x = getattr(self, f"layer{si + 1}")(x)
+            H = heights[f"layer{si + 1}"]
+            for block in getattr(self, f"layer{si + 1}"):
+                x = block(x, H, mesh)
+                H = -(-H // block.stride)
             save(name, x)
             if name == deepest:
                 break
         return out
 
     forward = extract_features
+
+
+def level_heights(H: int) -> dict:
+    """{"image", layer1..layer5: global height} for an image of height H:
+    the stem and its pool halve it (rounding up), layer2 keeps it, and each
+    later stage halves it again."""
+    out = {"image": H}
+    for name, halvings in (("layer1", 2), ("layer2", 0), ("layer3", 1), ("layer4", 1),
+                           ("layer5", 1)):
+        for _ in range(halvings):
+            H = -(-H // 2)
+        out[name] = H
+    return out

@@ -47,7 +47,22 @@ frame-major, and B x n lanes, sequence-major, each reading its own
 sequence's frames and merged with its own sequence's labels. The one-sequence
 loops (`_window_track`, `_scan_track`) run it at B = 1; the group engine
 (parallel/multi_sequence.py) runs B sequences in one pass, one decode a
-window for all of them. Not ported yet: `mesh` (height sharding).
+window for all of them.
+
+`mesh` (parallel/spatial.py's make_spatial_mesh) shards the frames' height
+over a spatial group of processes, as the JAX class's `mesh` does. The init
+(augment, its extract, the solve) runs replicated and unchanged on every
+rank, on whole frames. The sequence's pyramid is extracted on this rank's
+rows of every level the row plan shards (ops/halo.py; the frames are
+uploaded whole and the stem takes its rows from them), and the decoder and
+the merge run on this rank's rows. The target models stay replicated: the
+projection of this rank's rows is gathered once for the sequence, and the
+classification, the memory inserts, the >= 10 pixel gate and the re-solves
+read whole maps only (each window's merged rows are gathered once), so
+every rank's models stay equal and every rank issues the same collectives.
+The labels (or the deferred merge's soft rows) are gathered at the end;
+rank 0 of the group writes the PNGs. A group of one is the tracker without
+a mesh.
 
 Two augment backends, as in the JAX class: "host" (models/augmenter.py, one
 spec after another, its batches made before the init or, in the pipelined
@@ -67,6 +82,7 @@ float32.
 """
 import contextlib
 import time
+import warnings
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -83,8 +99,9 @@ from ..models.discriminator import (DiscParams, DiscState, classify_objects, dis
                                     init_disc_params, insert_sample, project_all,
                                     repeat_params, resolve_due)
 from ..models.multilayer import layer_configs, ml_disc_init, starting_params
-from ..models.resnet import ResNet
+from ..models.resnet import ResNet, level_heights
 from ..models.seg_network import SegNetwork, seg_network_apply, seg_network_reduce
+from ..ops import halo
 from ..ops.conv import compute_copy
 from ..utils.meters import AverageMeter
 from ..utils.prefetch import prefetch_iter
@@ -192,19 +209,25 @@ class BatchedSequenceTracker:
                  augment_backend: str = "host", decode_chunk: int = 0,
                  aug_compact: bool = False, device=None,
                  disc_params0: Optional[DiscParams] = None, augmenter=None,
-                 profile: bool = False):
+                 profile: bool = False, mesh=None):
         """decode_chunk: decode a window in sub-batches of this many lanes
         (0 = the whole window at once). aug_compact: take first-frame
         augment batches in the compact encoding and compose them before the
         init (models/aug_compose.py). Both default to off, as the JAX class
         has them off the TPU; the device augment backend takes no compact
-        batches."""
+        batches. mesh: a spatial mesh (make_spatial_mesh), whose device is
+        the tracker's where `device` is not given."""
         if merge_mode not in ("online", "deferred"):
             raise ValueError(f"merge_mode {merge_mode!r}: 'online' or 'deferred'")
         self.dtype = compute_dtype_of(cfg)
         if augment_backend not in ("host", "device"):
             raise ValueError(f"augment_backend {augment_backend!r}: 'host' or 'device'")
-        self.device = dev = resolve_device(device)
+        self.device = dev = resolve_device(mesh.device if device is None and mesh is not None
+                                           else device)
+        # the spatial group whose ranks share each frame's rows; None where
+        # nothing is sharded (no mesh, or a group of one)
+        self.spatial_mesh = mesh if halo.active(mesh) else None
+        self._sp_warned = False
         self.cfg = cfg
         self.disc_cfg = cfg.disc
         self.backbone = backbone.to(dev).eval()
@@ -250,7 +273,8 @@ class BatchedSequenceTracker:
         stays. Only enqueues; nothing waits for the card."""
         outs = [self.backbone_c.extract_features(c.permute(0, 3, 1, 2),
                                                  output_layers=self._all_layers,
-                                                 out_dtype=self.dtype)
+                                                 out_dtype=self.dtype,
+                                                 mesh=self.spatial_mesh)
                 for c in chunks]
         return {L: torch.cat([o[L] for o in outs]) for L in outs[0]}
 
@@ -368,9 +392,10 @@ class BatchedSequenceTracker:
     def _decode(self, scores, reduced, im_size):
         """(B, 1, h, w) scores (in the compute type; a list of them, one per
         layer, with multilayer models) and per-lane TSE reductions -> (B, H, W)
-        float32 soft foreground masks, in sub-batches of decode_chunk where
-        that divides B."""
+        float32 soft foreground masks (this rank's rows with a spatial mesh),
+        in sub-batches of decode_chunk where that divides B."""
         layers = self.cfg.refnet_layers
+        sp = dict(mesh=self.spatial_mesh, heights=level_heights(im_size[0]))
         multi = isinstance(scores, list)
         B, dc = (scores[0] if multi else scores).shape[0], self.decode_chunk
         if dc and B > dc and B % dc == 0:
@@ -379,11 +404,11 @@ class BatchedSequenceTracker:
                                   [sc[i:i + dc] for sc in scores] if multi else scores[i:i + dc],
                                   None, im_size, layers=layers,
                                   reduced={L: (h[i:i + dc], hp[i:i + dc])
-                                           for L, (h, hp) in reduced.items()})
+                                           for L, (h, hp) in reduced.items()}, **sp)
                 for i in range(0, B, dc)])
         else:
             logits = seg_network_apply(self.refiner_c, scores, None, im_size, layers=layers,
-                                       reduced=reduced)
+                                       reduced=reduced, **sp)
         return torch.sigmoid(logits[:, 0].float())
 
     def _track(self, feats_all, models: Models, start_frames, start_masks,
@@ -429,8 +454,13 @@ class BatchedSequenceTracker:
         B = n_seqs
         n_track = feats_all[next(iter(cfgs))].shape[0] // B
         n = N // B
-        compressed_all = {L: project_sequences(feats_all[L], params[L].project, B)
+        # with a spatial mesh: the projection of this rank's rows, gathered
+        # whole; this rank's rows of the start masks
+        smesh, heights = self.spatial_mesh, level_heights(im_size[0])
+        compressed_all = {L: halo.gather_rows(project_sequences(feats_all[L], params[L].project,
+                                                                B), heights[L], smesh)
                           for L in cfgs}
+        start_masks = halo.take_rows(start_masks, im_size[0], smesh)
         t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
         starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
         active_all = t_all > starts          # (T', N) tracked this frame
@@ -458,7 +488,7 @@ class BatchedSequenceTracker:
             # each sequence and are repeated, at 32 channels, across its lanes
             red = seg_network_reduce(self.refiner_c,
                                      {L: feats_all[L][i0 * B:i1 * B] for L in layers},
-                                     layers)
+                                     layers, mesh=smesh, heights=heights)
             if n > 1:
                 red = {L: (h.repeat_interleave(n, dim=0), hp.repeat_interleave(n, dim=0))
                        for L, (h, hp) in red.items()}
@@ -482,6 +512,7 @@ class BatchedSequenceTracker:
                     state.frame_num = [f + sum(a[k] for a in active_h)
                                        for k, f in enumerate(state.frame_num)]
                 continue
+            merged = halo.gather_rows(merged, im_size[0], smesh)     # whole, for the memory
             enough = ((merged > 0.5).sum(dim=(-2, -1)) >= 10) & active      # (w, N)
             for f in range(w):
                 if any(active_h[f]):
@@ -494,7 +525,7 @@ class BatchedSequenceTracker:
                 for L, state in states.items():
                     params[L] = resolve_due(params[L], state, due, cfgs[L])
         models = (params, states) if self.multilayer else (params[cfg.layer], states[cfg.layer])
-        return torch.cat(outs), models
+        return halo.gather_rows(torch.cat(outs), im_size[0], smesh), models
 
     def _window_track(self, *args):
         """The windowed loop, a window of train_skipping frames: with every
@@ -681,10 +712,11 @@ class BatchedSequenceTracker:
             n_frames += len(sequence)
             tag = " (ex-augment)" if pipeline and self.augment_backend != "device" else ""
             print(f"{sequence.name}: {seq_fps:.2f} fps{tag}")
-            dst = out_path / sequence.name
-            dst.mkdir(exist_ok=True)
-            for lb, f in zip(outputs, sequence.frame_names):
-                imwrite_indexed(dst / (f + ".png"), lb)
+            if self.spatial_mesh is None or self.spatial_mesh.rank == 0:     # one writer a group
+                dst = out_path / sequence.name
+                dst.mkdir(exist_ok=True)
+                for lb, f in zip(outputs, sequence.frame_names):
+                    imwrite_indexed(dst / (f + ".png"), lb)
             sequence.preloaded = None   # release decoded frames
             sequences[i] = None
         wall = time.perf_counter() - t_all
@@ -705,6 +737,13 @@ class BatchedSequenceTracker:
              aug_batches=None):
         T = images_np.shape[0]
         im_size = tuple(images_np.shape[1:3])
+        sp = self.spatial_mesh
+        if sp is not None and im_size[0] % sp.size and not self._sp_warned:
+            # the full-resolution levels replicate: each rank redoes them whole
+            warnings.warn(f"spatial mesh: frame height {im_size[0]} is not divisible by "
+                          f"n_spatial={sp.size}; the levels that do not divide are computed "
+                          "whole on every rank (pick a divisor of the frame height)")
+            self._sp_warned = True
         objects = self._collect_objects(sequence)
         if not objects:
             raise ValueError("sequence has no objects")

@@ -35,6 +35,9 @@ pixels (61 of 12,288), with frame 0 equal to the ground truth; measured at
 most 0.23 % (fused and host engines alike), 3 times frtm_tpu's own
 sensitivity and under half the bound.
 """
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -271,8 +274,11 @@ def test_cli_refuses_what_it_cannot_do(world, tmp_path, capsys):
             evaluate.main(args + ["--engine", "sharded"])
         assert "no CUDA device is available" in str(e.value.code)
     with pytest.raises(SystemExit) as e:
-        evaluate.main(world.args(tmp_path / "out", "--spatial", "4"))
-    assert "ROADMAP.md queue item 7" in str(e.value.code) and "--spatial" in str(e.value.code)
+        evaluate.main(world.args(tmp_path / "out", "--spatial", "2"))
+    assert e.value.code not in (0, None) and "--spatial 2 needs --multihost" in str(e.value.code)
+    with pytest.raises(SystemExit) as e:        # a world of one process is no multiple of 2
+        evaluate.main(world.args(tmp_path / "out", "--spatial", "2", "--multihost"))
+    assert "a world of 1 processes is not a multiple of 2" in str(e.value.code)
     with pytest.raises(SystemExit) as e:
         evaluate.main(world.args(tmp_path / "out")[2:] + ["--model", str(tmp_path / "no.pth")])
     assert "not found" in str(e.value.code)
@@ -285,6 +291,85 @@ def test_cli_refuses_what_it_cannot_do(world, tmp_path, capsys):
     help_text = capsys.readouterr().out
     for flag in ("--model", "--dset", "--dev", "--fast", "--davis", "--yt2018", "--output",
                  "--backbone", "--dtype", "--restart", "--engine", "--pipeline",
-                 "--aug-compact", "--spatial", "--multihost"):
+                 "--aug-compact", "--spatial", "--multihost", "--dist-backend"):
         assert flag in help_text
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("extra, dev, backend", [((), "cuda", "nccl"),
+                                                  (("--dist-backend", "gloo"), "cuda", "gloo"),
+                                                  ((), "cpu", "gloo")])
+def test_cli_spatial_joins_nccl_on_cards(world, monkeypatch, tmp_path, extra, dev, backend):
+    """`--spatial 2 --multihost` joins NCCL on cards, so its exchanges go card
+    to card; gloo where `--dist-backend gloo` asks for it (ranks sharing a
+    card) and on the CPU."""
+    from frtm_tpu_torch.parallel import distributed
+
+    class Joined(Exception):
+        pass
+
+    def join(*args, backend="gloo", device=None, **kwargs):
+        raise Joined(backend, device)
+
+    monkeypatch.setattr(evaluate, "load_models",
+                        lambda args: (world.model_pth, ARCH, None, None))
+    monkeypatch.setattr(distributed, "init_distributed", join)
+    args = [a if a != "cpu" else dev for a in world.args(tmp_path / "out")]
+    with pytest.raises(Joined) as e:
+        evaluate.main(args + ["--spatial", "2", "--multihost", *extra])
+    assert e.value.args == (backend, dev)
+
+
+SPATIAL_CHILD = """
+import sys
+import torch
+torch.set_num_threads(2)
+from frtm_tpu_torch.parallel import init_distributed
+from frtm_tpu_torch.runtime import sequence_tracker
+p0 = torch.load(sys.argv[3], weights_only=False)
+sequence_tracker.init_disc_params = lambda *a, **k: p0
+init_distributed(sys.argv[2], 2, int(sys.argv[1]), timeout_s=300)
+from frtm_tpu_torch import evaluate
+evaluate.main(sys.argv[4:])
+"""
+
+
+def test_cli_spatial_two_processes(world, fused_run, tmp_path):
+    """`--spatial 2 --multihost` in a gloo world of two processes on the
+    CPU: one frame's height split over both, their PNGs within the tracker
+    bound (0.5 % of a frame) of the one-process fused run (measured:
+    equal), the scores written by rank 0 alone."""
+    torch.save(world.p0, tmp_path / "p0.pt")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = os.pathsep.join([str(Path(__file__).resolve().parents[1]),
+                                         env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "2"
+    args = world.args(tmp_path / "two", "--spatial", "2", "--multihost")
+    children = [subprocess.Popen([sys.executable, "-c", SPATIAL_CHILD, str(rank),
+                                  f"file://{tmp_path / 'rendezvous'}", str(tmp_path / "p0.pt"),
+                                  *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True, env=env, cwd=tmp_path)
+                for rank in range(2)]
+    try:
+        outs = [child.communicate(timeout=600)[0] for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for rank, (child, out) in enumerate(zip(children, outs)):
+        assert child.returncode == 0, (rank, out[-3000:])
+    assert "Computing J-scores" in outs[0] and "Computing J-scores" not in outs[1]
+    assert "multihost: process" not in outs[0]      # one group of two tracks every sequence
+    two = tmp_path.resolve() / "two" / fused_run["out_path"].name
+    worst = 0.0
+    for seq in world.seqs:
+        for name in seq.frame_names:
+            got = _read(two / seq.name / f"{name}.png")
+            worst = max(worst, float(np.mean(got != _read(fused_run["out_path"] / seq.name /
+                                                          f"{name}.png"))))
+    assert worst < 0.005, worst
+    for measure in ("J", "F"):
+        assert (two / f"evaluation-{measure}.txt").read_text().splitlines()[0] == \
+            "1/2: seq1: 1 object"

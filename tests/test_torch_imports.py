@@ -1,7 +1,7 @@
 """The port's import rule, read from the sources with `ast`: no module of
 frtm_tpu_torch, not chip_smoke.py and none of the scripts that run on the
 card (scripts/bench_torch_*.py, scripts/torch_demo_synthetic.py,
-scripts/torch_train_eval_synthetic.py) imports
+scripts/torch_train_eval_synthetic.py, scripts/torch_spatial_cards.py) imports
 jax, cv2, PIL or anything of frtm_tpu, with no exception: JPEG and PNG go
 through the port's own host library and codec. The machine with the card
 has none of these packages."""
@@ -14,7 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = (sorted((ROOT / "frtm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
            + sorted((ROOT / "scripts").glob("bench_torch_*.py"))
            + [ROOT / "scripts" / "torch_demo_synthetic.py",
-              ROOT / "scripts" / "torch_train_eval_synthetic.py"])
+              ROOT / "scripts" / "torch_train_eval_synthetic.py",
+              ROOT / "scripts" / "torch_spatial_cards.py"])
 FORBIDDEN = {"jax", "jaxlib", "flax", "cv2", "PIL", "frtm_tpu"}
 
 
@@ -54,7 +55,8 @@ def test_the_walk_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"chip_smoke.py", "frtm_tpu_torch/evaluate.py", "frtm_tpu_torch/data/image.py",
             "frtm_tpu_torch/ops/kernels/build.py", "frtm_tpu_torch/parallel/distributed.py",
-            "frtm_tpu_torch/parallel/multi_sequence.py"} <= names and len(names) > 30
+            "frtm_tpu_torch/parallel/multi_sequence.py", "frtm_tpu_torch/parallel/spatial.py",
+            "frtm_tpu_torch/ops/halo.py"} <= names and len(names) > 30
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
