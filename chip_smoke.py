@@ -23,6 +23,22 @@ Phases, each printing one JSON line:
                 theirs; the committed JPEG fixtures decoded to their digests
                 (libjpeg-turbo) or within 0.5 dB of their PSNR (another
                 decoder), one frame alone and in a batch; times of each;
+  2c. image_io — JPEG writing and the PNG forms (data/image.py,
+                the host library's encode_jpeg and png_samples) against the
+                committed fixtures that frtm_tpu wrote and read: the port's
+                imwrite of each imwrite/ source frame (colour and grey at
+                480x854, colour at 720x1280 and 37x53) is frtm_tpu's file
+                byte for byte, and so is encode_jpeg_plain's; the port's
+                reader decodes each within 0.5 dB of the manifest's PSNR
+                (its digest with libjpeg-turbo); every png_forms/ file
+                (each colour type and bit depth, Adam7) and 2-bit DAVIS
+                annotation reads to the manifest's digest of frtm_tpu's
+                pixels through the library and the plain version; `python
+                -m frtm_tpu_torch.evaluate --dev cuda` (the committed .npz
+                model) on the DAVIS tree with its annotations swapped for
+                the 2-bit ones writes the PNGs of the same run on the 8-bit
+                tree, byte for byte (the two processes run at once). Printed: ms per frame written (C++ and
+                plain) at each size, with the card;
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes (max abs difference within the stated
                 tolerance), with CUDA-event times of kernel, plain version and
@@ -71,9 +87,11 @@ Phases, each printing one JSON line:
   6b. init_scaling — the fused tracker on 9-frame 480x854 sequences with 1, 2
                 and 4 objects: disc_init and scan seconds of a synchronised
                 pass, and the kernels each of the two phases ran (a
-                torch.profiler session per phase) with the peak memory inside
-                it. All objects' target models are solved together, so the
-                kernels at four objects may be at most 1.25x those at one;
+                torch.profiler session per phase, three passes, each kernel
+                name at the most a pass saw, since the profiler loses events)
+                with the peak memory inside it. All objects' target models
+                are solved together, so the kernels at four objects may be at
+                most 1.25x those at one;
   6b'. sharded — the multi-sequence engine (ShardedSequenceTracker,
                 parallel/multi_sequence.py) in bfloat16 on 17-frame 480x854
                 sequences with two objects (seeds 0-3): groups of 1, 2 and 4
@@ -251,9 +269,11 @@ Without CUDA, or without the frtm_tpu_torch package beside this file, the
 script exits non-zero and prints no result.
 """
 import contextlib
+import functools
 import io
 import json
 import math
+import operator
 import re
 import statistics
 import subprocess
@@ -501,24 +521,6 @@ def textured_frame(size, seed=0):
     return np.clip(img * 2 - 127 + pattern, 0, 255).astype(np.uint8)
 
 
-def png_rows(arr, ftypes):
-    """The raw (inflated) PNG image data of (h, w, c) uint8 `arr` with row y
-    filtered by ftypes[y % len(ftypes)]: the encoder's side of the unfilter,
-    vectorised over each row (the predictors read the unfiltered values)."""
-    h, w, c = arr.shape
-    cur = arr.reshape(h, w * c).astype(np.int64)
-    up = np.concatenate([np.zeros((1, w * c), np.int64), cur[:-1]])
-    left = np.concatenate([np.zeros((h, c), np.int64), cur[:, :-c]], axis=1)
-    upleft = np.concatenate([np.zeros((h, c), np.int64), up[:, :-c]], axis=1)
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    preds = {0: 0 * cur, 1: left, 2: up, 3: (left + up) // 2, 4: paeth}
-    types = np.array([ftypes[y % len(ftypes)] for y in range(h)])
-    rows = np.stack([((cur[y] - preds[types[y]][y]) % 256) for y in range(h)]).astype(np.uint8)
-    return np.concatenate([types[:, None].astype(np.uint8), rows], axis=1).tobytes()
-
-
 def fixture_script():
     """scripts/make_torch_jpeg_fixtures.py, which rebuilds the fixtures'
     source frames with numpy alone."""
@@ -574,23 +576,23 @@ def phase_native():
 
     # the PNG unfilter: Average and Paeth rows (the ones the plain version
     # walks in Python), then all five, on a 480x854 RGB image
+    script = fixture_script()
     png = {}
     for name, ftypes in (("average_paeth", (3, 4)), ("all_five", (0, 1, 2, 3, 4))):
-        raw = png_rows(frame, ftypes)
-        got = native.png_unfilter(raw, 480, 854 * 3, 3)
+        raw = script.png_filter_rows(frame.reshape(480, 854 * 3), 3, ftypes)
+        got = native.png_samples(raw, 480, 854, 8, 3, 0)
         t1 = time.perf_counter()
-        want = port_image._unfilter_plain(raw, 480, 854 * 3, 3)
+        want = port_image.png_samples_plain(raw, 480, 854, 8, 3, 0)
         plain_ms = (time.perf_counter() - t1) * 1e3
-        if not (np.array_equal(got, want) and np.array_equal(got.reshape(480, 854, 3), frame)):
+        if not (np.array_equal(got, want) and np.array_equal(got, frame)):
             fail(f"native: the PNG unfilter ({name}) differs from the plain version")
-        png[name] = {"ms": host_ms(lambda: native.png_unfilter(raw, 480, 854 * 3, 3)),
+        png[name] = {"ms": host_ms(lambda: native.png_samples(raw, 480, 854, 8, 3, 0)),
                      "plain_ms": plain_ms}
-    functions["png_unfilter (480x854 RGB, Average / Paeth rows)"] = png["average_paeth"]
+    functions["png_samples (480x854 RGB, Average / Paeth rows)"] = png["average_paeth"]
 
     # the committed fixtures: digests of PIL's decode where the backend is
     # libjpeg-turbo, else the PSNR against the rebuilt source within 0.5 dB
     manifest = json.loads((FIXTURES / "manifest.json").read_text())
-    script = fixture_script()
     exact = backend.startswith("libjpeg-turbo")
     jpegs, worst_db = {"checked": 0, "digest_equal": 0}, 0.0
     for name, entry in manifest["jpeg"].items():
@@ -627,12 +629,12 @@ def phase_native():
     # library's unfilter and through the plain one
     (name, entry), = manifest["png"].items()
     got = port_image.imread(FIXTURES / name)
-    library_unfilter = native.png_unfilter
-    native.png_unfilter = port_image._unfilter_plain
+    library_samples = native.png_samples
+    native.png_samples = port_image.png_samples_plain
     try:
         plain = port_image.imread(FIXTURES / name)
     finally:
-        native.png_unfilter = library_unfilter
+        native.png_samples = library_samples
     if hashlib.sha256(got.tobytes()).hexdigest() != entry["sha256"] \
             or not np.array_equal(got, plain):
         fail(f"native: {name} (libpng, filters {entry['filters']}) does not read to its digest "
@@ -643,6 +645,130 @@ def phase_native():
           "resize": resizes, "functions": functions,
           "tolerance": {"telea": 0, "png": 0, "jpeg": "digest" if exact else "0.5 dB",
                         "resize": 0}})
+
+
+def evaluate_cli_runs(trees, out, timeout=600):
+    """`python -m frtm_tpu_torch.evaluate --dev cuda` on each DAVIS-layout
+    tree with the committed frtm_tpu .npz model (a resnet18-width refiner, a
+    seeded random backbone), one process a tree, all started together;
+    returns each run's results directory."""
+    procs = []
+    with contextlib.ExitStack() as stack:
+        try:
+            for i, tree in enumerate(trees):
+                log = stack.enter_context(open(out / f"cli{i}.log", "w"))
+                argv = [sys.executable, "-m", "frtm_tpu_torch.evaluate", "--model",
+                        str(FIXTURES / "models" / "rn18_refiner.npz"), "--dset", "dv2017val",
+                        "--davis", str(tree), "--output", str(out / f"run{i}"), "--dev", "cuda",
+                        "--dtype", "bfloat16", "--engine", "fused"]
+                procs.append(subprocess.Popen(argv, cwd=ROOT, stdout=log,
+                                              stderr=subprocess.STDOUT))
+            for i, proc in enumerate(procs):
+                if proc.wait(timeout=timeout) != 0:
+                    text = (out / f"cli{i}.log").read_text()
+                    fail(f"image_io: the CLI on {trees[i]} exited {proc.returncode}:\n"
+                         f"{text[-4000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return [out / f"run{i}" / "dv2017val-rn18_refiner" for i in range(len(trees))]
+
+
+def phase_image_io(card):
+    """JPEG writing and the PNG forms against the committed fixtures that
+    frtm_tpu wrote and read (the card's machine has no PIL), and the CLI on
+    a DAVIS tree whose annotations are 2-bit PNGs."""
+    import hashlib
+    import shutil
+    from frtm_tpu_torch.data import image as port_image
+    from frtm_tpu_torch.utils import native
+
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    script = fixture_script()
+    native.library()
+    backend = native.JPEG_BACKEND
+    exact = backend.startswith("libjpeg-turbo")
+    writes, decode_gap_db = {}, 0.0
+
+    def sha(data):
+        return hashlib.sha256(data).hexdigest()
+
+    with tempfile.TemporaryDirectory(prefix="frtm_image_io_") as tmp:
+        tmp = Path(tmp)
+        # (1) every imwrite/ frame, written by the port, is the file frtm_tpu wrote
+        for name, entry in manifest["imwrite"].items():
+            src = script.imwrite_source(name)
+            path = tmp / Path(name).name
+            port_image.imwrite(path, src)
+            data = path.read_bytes()
+            if data != (FIXTURES / name).read_bytes() or sha(data) != entry["sha256_file"]:
+                fail(f"image_io: the port's JPEG of {name}'s source differs from frtm_tpu's file")
+            t1 = time.perf_counter()
+            plain = port_image.encode_jpeg_plain(src)
+            plain_ms = (time.perf_counter() - t1) * 1e3
+            if plain != data:
+                fail(f"image_io: encode_jpeg_plain differs from the host library on {name}")
+            # (2) decoded by the port's reader, within 0.5 dB of the manifest's PSNR
+            got = port_image.imread(path)
+            rgb = src if src.ndim == 3 else np.repeat(src[..., None], 3, -1)
+            db = script.psnr(got, rgb)
+            decode_gap_db = max(decode_gap_db, abs(db - entry["psnr_db"]))
+            if list(got.shape) != entry["shape"] or abs(db - entry["psnr_db"]) > 0.5 or (
+                    exact and sha(got.tobytes()) != entry["sha256"]):
+                fail(f"image_io: {name} decodes to {got.shape} at {db:.3f} dB, the manifest "
+                     f"says {entry['shape']} at {entry['psnr_db']:.3f}")
+            writes[name] = {
+                "shape": list(src.shape), "bytes": len(data), "psnr_db": db,
+                "ms": host_ms(lambda: port_image.imwrite(path, src)),
+                "encode_ms": host_ms(lambda: native.encode_jpeg(src)),
+                "plain_ms": plain_ms}
+
+        # (3) every PNG form and 2-bit annotation to frtm_tpu's pixels, through
+        # the host library and through the plain version
+        pngs = dict(manifest["png_forms"], **manifest["davis_2bit"])
+        library_samples = native.png_samples
+        for name, entry in pngs.items():
+            if sha((FIXTURES / name).read_bytes()) != entry["sha256_file"]:
+                fail(f"image_io: {name} is not the committed file")
+            got = port_image.imread(FIXTURES / name)
+            native.png_samples = port_image.png_samples_plain
+            try:
+                plain = port_image.imread(FIXTURES / name)
+            finally:
+                native.png_samples = library_samples
+            if [list(got.shape), str(got.dtype)] != [entry["shape"], entry.get("dtype", "uint8")] \
+                    or sha(got.tobytes()) != entry["sha256"] or not np.array_equal(got, plain):
+                fail(f"image_io: {name} does not read to frtm_tpu's pixels through both "
+                     "unpackers")
+
+        # (4) the CLI on the DAVIS tree with its annotations swapped for the
+        # 2-bit ones: the PNGs of the same run on the 8-bit tree
+        two_bit = tmp / "davis_2bit"
+        shutil.copytree(FIXTURES / "davis", two_bit)
+        anno = Path("Annotations") / "480p" / "blobs"
+        for f in sorted((two_bit / anno).glob("*.png")):
+            shutil.copyfile(FIXTURES / "davis_2bit" / anno / f.name, f)
+        t1 = time.perf_counter()
+        res8, res2 = evaluate_cli_runs([FIXTURES / "davis", two_bit], tmp)
+        cli_s = time.perf_counter() - t1
+        written = sorted(p.name for p in (res8 / "blobs").glob("*.png"))
+        if len(written) != 9 or written != sorted(p.name for p in (res2 / "blobs").glob("*.png")) \
+                or not all((res8 / "blobs" / n).read_bytes() == (res2 / "blobs" / n).read_bytes()
+                           for n in written):
+            fail(f"image_io: the CLI on the 2-bit annotations wrote other PNGs than on the "
+                 f"8-bit ones ({len(written)} files)")
+
+    print("jpeg write ms per frame (C++ / plain): " + ", ".join(
+        f"{Path(n).stem} {e['ms']:.3f} / {e['plain_ms']:.1f}" for n, e in writes.items())
+        + f" [{card}]", flush=True)
+    emit({"phase": "image_io", "card": card, "jpeg_backend": backend, "jpeg_writes": writes,
+          "decode_psnr_gap_db_max": decode_gap_db, "pngs_read": len(pngs),
+          "cli_2bit_annotations": {"pngs": len(written), "equal_to_8bit_run": True,
+                                   "seconds_both_runs": cli_s},
+          "tolerance": {"jpeg_bytes": 0, "png": 0, "jpeg_decode": "digest" if exact
+                        else "0.5 dB", "cli_pngs": 0}})
 
 
 def resize_checks():
@@ -1425,13 +1551,20 @@ def per_phase_readings(names):
         PhaseTimer.phase = plain
 
 
-def init_scaling_readings(cfg, backbone, refiner, counts=(1, 2, 4), n_frames=9):
+def init_scaling_readings(cfg, backbone, refiner, counts=(1, 2, 4), n_frames=9, passes=3):
     """The fused tracker (float32, 480x854) on a sequence of n_frames with
     each number of objects in `counts`, all from frame 0: after a warm-up
     pass, the disc_init and scan seconds of a pass synchronised at every
-    phase edge (profile=True), then, in another such pass, the kernels each
-    of the two phases ran and the peak memory inside it. 9 frames are one
-    window of 8: one re-solve per object. Returns {n: readings}."""
+    phase edge (profile=True), then, in `passes` more such passes, the
+    kernels each of the two phases ran and the peak memory inside it. 9
+    frames are one window of 8: one re-solve per object. Returns {n: readings}.
+
+    torch.profiler loses kernel events (augment_call_readings): once a third
+    of disc_init's at one object (6560 read as about 4400), and now and then
+    one or two, while the pass's launch calls stayed 6560 (NVIDIA H100,
+    scripts/torch_init_kernel_records.py). The passes launch the same
+    kernels, so a name's count is the most that a pass saw, and the kernels
+    are the sum of those; `kernels_per_pass` gives each pass's total."""
     from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
     from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
     out = {}
@@ -1442,13 +1575,19 @@ def init_scaling_readings(cfg, backbone, refiner, counts=(1, 2, 4), n_frames=9):
         fused.run_sequence(seq)                        # warm-up
         _, fps = fused.run_sequence(seq)
         stats = fused.last_phase_stats
-        with per_phase_readings(("disc_init", "scan")) as readings:
-            fused.run_sequence(seq)
+        seen = []
+        for _ in range(passes):
+            with per_phase_readings(("disc_init", "scan")) as readings:
+                fused.run_sequence(seq)
+            seen.append(readings)
+        by_name = {k: dict(functools.reduce(operator.or_, (r[k]["by_name"] for r in seen)))
+                   for k in ("disc_init", "scan")}
         out[n] = {"disc_init_s": stats["disc_init"]["total_s"], "scan_s": stats["scan"]["total_s"],
                   "fps_profiled": fps,
-                  "kernels": {k: v["kernels"] for k, v in readings.items()},
-                  "kernels_by_name": {k: dict(v["by_name"]) for k, v in readings.items()},
-                  "peak_bytes": {k: v["peak_bytes"] for k, v in readings.items()}}
+                  "kernels": {k: sum(v.values()) for k, v in by_name.items()},
+                  "kernels_per_pass": {k: [r[k]["kernels"] for r in seen] for k in by_name},
+                  "kernels_by_name": by_name,
+                  "peak_bytes": {k: max(r[k]["peak_bytes"] for r in seen) for k in by_name}}
         del fused
         torch.cuda.empty_cache()
     return out
@@ -3651,6 +3790,7 @@ def main():
     card = phase_probe()
     ptxas = phase_build()
     phase_native()
+    phase_image_io(card)
     rows = phase_kernels()
     cfg = eval_config("resnet101")
     seq = make_moving_square_sequence(n_frames=17, size=(480, 854), square=120, seed=0)

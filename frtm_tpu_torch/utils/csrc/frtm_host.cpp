@@ -15,8 +15,14 @@
 //     1 / (1 + fabs(dt)), each rounded to float once). Built with
 //     -ffp-contract=off and without -ffast-math: a contracted a*b+c (an FMA)
 //     rounds once where the plain version rounds twice.
-//   * png_unfilter: undoes the five PNG row filters (data/image.py inflates
-//     with zlib and hands the raw rows here).
+//   * png_samples: undoes the five PNG row filters (data/image.py inflates
+//     with zlib and hands the raw rows here), unpacks 1-, 2-, 4- and 16-bit
+//     samples and puts the seven passes of an Adam7-interlaced image in
+//     their places.
+//   * encode_jpeg: a baseline JPEG encoder on IJG's integer arithmetic, byte
+//     for byte what libjpeg writes at its defaults through PIL (quality 75,
+//     4:2:0, the Annex K Huffman tables), data/image.py's encode_jpeg_plain
+//     step by step.
 //   * jpeg_dims, decode_jpeg, batch_decode_jpeg_files: JPEG to (H, W, 3)
 //     uint8 RGB on the host. The decoder is chosen when the library is built:
 //     libjpeg where jpeglib.h compiles (FRTM_HOST_LIBJPEG), else nvJPEG from
@@ -40,6 +46,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <limits>
 #include <queue>
@@ -269,6 +276,79 @@ inline uint8_t paeth(int a, int b, int c) {
     const int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
     if (pa <= pb && pa <= pc) return static_cast<uint8_t>(a);
     return static_cast<uint8_t>(pb <= pc ? b : c);
+}
+
+// Undo the per-row filters of one image (or one Adam7 pass): raw holds
+// height rows of (1 filter byte + stride bytes); out gets (height, stride).
+// Returns -1, or the first row whose filter type is unknown.
+int unfilter_rows(const uint8_t* raw, int height, int64_t stride, int bpp, uint8_t* out) {
+    std::vector<uint8_t> zeros(stride, 0);
+    for (int y = 0; y < height; ++y) {
+        const uint8_t* line = raw + static_cast<size_t>(y) * (stride + 1);
+        const uint8_t ftype = line[0];
+        ++line;
+        const uint8_t* prev = y ? out + static_cast<size_t>(y - 1) * stride : zeros.data();
+        uint8_t* cur = out + static_cast<size_t>(y) * stride;
+        switch (ftype) {
+            case 0:
+                std::memcpy(cur, line, stride);
+                break;
+            case 1:  // Sub
+                for (int64_t i = 0; i < stride; ++i)
+                    cur[i] = static_cast<uint8_t>(line[i] + (i >= bpp ? cur[i - bpp] : 0));
+                break;
+            case 2:  // Up
+                for (int64_t i = 0; i < stride; ++i) cur[i] = static_cast<uint8_t>(line[i] + prev[i]);
+                break;
+            case 3:  // Average
+                for (int64_t i = 0; i < stride; ++i) {
+                    const int a = i >= bpp ? cur[i - bpp] : 0;
+                    cur[i] = static_cast<uint8_t>(line[i] + ((a + prev[i]) >> 1));
+                }
+                break;
+            case 4:  // Paeth
+                for (int64_t i = 0; i < stride; ++i) {
+                    const int a = i >= bpp ? cur[i - bpp] : 0;
+                    const int c = i >= bpp ? prev[i - bpp] : 0;
+                    cur[i] = static_cast<uint8_t>(line[i] + paeth(a, prev[i], c));
+                }
+                break;
+            default:
+                return y;
+        }
+    }
+    return -1;
+}
+
+// Adam7: first column, first row, column step, row step of each pass.
+constexpr int ADAM7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                             {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+
+struct PngPass {
+    int x0, y0, dx, dy, rows, cols;
+};
+
+// The sub-images a PNG's image data holds, in order: the whole image, or the
+// non-empty Adam7 passes.
+std::vector<PngPass> png_passes(int h, int w, bool interlace) {
+    std::vector<PngPass> out;
+    for (int p = 0; p < (interlace ? 7 : 1); ++p) {
+        const int* a = interlace ? ADAM7[p] : nullptr;
+        PngPass q{a ? a[0] : 0, a ? a[1] : 0, a ? a[2] : 1, a ? a[3] : 1, 0, 0};
+        q.rows = (h - q.y0 + q.dy - 1) / q.dy;
+        q.cols = (w - q.x0 + q.dx - 1) / q.dx;
+        if (q.rows > 0 && q.cols > 0) out.push_back(q);
+    }
+    return out;
+}
+
+// Sample i of an unfiltered row: a sub-byte sample's raw value (most
+// significant bits first), a byte, or a big-endian 16-bit word.
+inline unsigned sample(const uint8_t* row, long i, int depth) {
+    if (depth == 8) return row[i];
+    if (depth == 16) return (static_cast<unsigned>(row[2 * i]) << 8) | row[2 * i + 1];
+    const long bit = i * depth;
+    return (row[bit >> 3] >> (8 - depth - (bit & 7))) & ((1u << depth) - 1);
 }
 
 void set_error(char* err, int errlen, const std::string& msg) {
@@ -895,6 +975,331 @@ void resize_cubic(const uint8_t* src, int H, int W, int C, int dh, int dw, uint8
     }
 }
 
+// ---------------------------------------------------------------------------
+// JPEG writing: a baseline encoder on IJG's integer arithmetic, as libjpeg
+// writes at its defaults (jccolor.c, jcsample.c, jfdctint.c, jcdctmgr.c,
+// jchuff.c, jcmarker.c), step by step the algorithm of data/image.py's
+// encode_jpeg_plain and equal to it on every byte.
+
+// the natural (row-major) index of each zigzag position
+constexpr int ZIGZAG[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// Annex K's quantisation tables (luminance, chrominance), natural order
+constexpr int QUANT[2][64] = {
+    {16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+     14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+     18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99},
+    {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99}};
+
+// Annex K's Huffman tables: code counts by length 1-16, then the symbols;
+// luminance (table 0) and chrominance (table 1)
+constexpr uint8_t DC_COUNTS[2][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                      {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+constexpr uint8_t DC_SYMBOLS[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr uint8_t AC_COUNTS[2][16] = {{0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+                                      {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+constexpr uint8_t AC_SYMBOLS[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+     0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+     0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+     0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+     0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+     0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+     0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+     0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+     0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+     0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+     0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+     0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+     0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+     0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+     0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+     0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+     0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+     0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+     0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+     0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+     0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+// symbol -> canonical code and its length
+struct HuffTable {
+    uint16_t code[256] = {};
+    uint8_t size[256] = {};
+    HuffTable(const uint8_t* counts, const uint8_t* symbols) {
+        unsigned c = 0;
+        int k = 0;
+        for (int len = 1; len <= 16; ++len) {
+            for (int i = 0; i < counts[len - 1]; ++i, ++k, ++c) {
+                code[symbols[k]] = static_cast<uint16_t>(c);
+                size[symbols[k]] = static_cast<uint8_t>(len);
+            }
+            c <<= 1;
+        }
+    }
+};
+
+// Huffman-coded bits, most significant first; a 0xFF byte is followed by 0x00.
+struct BitWriter {
+    std::vector<uint8_t>* out;
+    uint64_t acc = 0;
+    int nacc = 0;
+    void emit(unsigned code, int size) {
+        acc = (acc << size) | code;
+        nacc += size;
+        while (nacc >= 8) {
+            nacc -= 8;
+            const uint8_t byte = static_cast<uint8_t>(acc >> nacc);
+            out->push_back(byte);
+            if (byte == 0xFF) out->push_back(0);
+        }
+        acc &= (uint64_t{1} << nacc) - 1;
+    }
+    void symbol(const HuffTable& t, int s) { emit(t.code[s], t.size[s]); }
+    // a coefficient's magnitude category is its bit length; a negative one
+    // is sent as v - 1 in that many bits
+    void value(int v, int nbits) {
+        if (nbits) emit(static_cast<unsigned>(v < 0 ? v - 1 : v) & ((1u << nbits) - 1), nbits);
+    }
+    void flush() {  // the last byte filled with 1 bits
+        if (nacc) emit((1u << (8 - nacc)) - 1, 8 - nacc);
+    }
+};
+
+inline int bit_length(int v) {
+    int n = 0;
+    for (unsigned a = static_cast<unsigned>(v < 0 ? -v : v); a; a >>= 1) ++n;
+    return n;
+}
+
+inline int64_t descale(int64_t x, int n) { return (x + (int64_t{1} << (n - 1))) >> n; }
+
+// One pass of jfdctint.c's jpeg_fdct_islow over 8 values d[0], d[step], ...:
+// CONST_BITS 13, PASS1_BITS 2; the first pass leaves its outputs scaled up by
+// 4, the second removes it.
+void fdct_pass(int64_t* d, int step, bool first) {
+    constexpr int CB = 13, P1 = 2;
+    const int shift = first ? CB - P1 : CB + P1;
+    int64_t t0 = d[0] + d[7 * step], t7 = d[0] - d[7 * step];
+    int64_t t1 = d[step] + d[6 * step], t6 = d[step] - d[6 * step];
+    int64_t t2 = d[2 * step] + d[5 * step], t5 = d[2 * step] - d[5 * step];
+    int64_t t3 = d[3 * step] + d[4 * step], t4 = d[3 * step] - d[4 * step];
+    const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+    d[0] = first ? (t10 + t11) * (1 << P1) : descale(t10 + t11, P1);
+    d[4 * step] = first ? (t10 - t11) * (1 << P1) : descale(t10 - t11, P1);
+    int64_t z1 = (t12 + t13) * 4433;                          // FIX(0.541196100)
+    d[2 * step] = descale(z1 + t13 * 6270, shift);           // FIX(0.765366865)
+    d[6 * step] = descale(z1 - t12 * 15137, shift);          // FIX(1.847759065)
+    z1 = t4 + t7;
+    int64_t z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+    const int64_t z5 = (z3 + z4) * 9633;                     // FIX(1.175875602)
+    t4 *= 2446;
+    t5 *= 16819;
+    t6 *= 25172;
+    t7 *= 12299;
+    z1 *= -7373;
+    z2 *= -20995;
+    z3 = z3 * -16069 + z5;
+    z4 = z4 * -3196 + z5;
+    d[7 * step] = descale(t4 + z1 + z3, shift);
+    d[5 * step] = descale(t5 + z2 + z4, shift);
+    d[3 * step] = descale(t6 + z2 + z3, shift);
+    d[step] = descale(t7 + z1 + z4, shift);
+}
+
+// The quantised coefficients, zigzag order, of the 8x8 block at (y0, x0) of
+// a plane: samples centred on 0, the DCT by rows then columns, then division
+// by 8 * quant rounding half away from zero (jcdctmgr.c).
+void quantised_block(const uint8_t* plane, int stride, int y0, int x0, const int* quant,
+                     int* zz) {
+    int64_t d[64];
+    for (int r = 0; r < 8; ++r)
+        for (int c = 0; c < 8; ++c)
+            d[r * 8 + c] = static_cast<int64_t>(plane[static_cast<size_t>(y0 + r) * stride + x0 + c]) - 128;
+    for (int r = 0; r < 8; ++r) fdct_pass(d + r * 8, 1, true);
+    for (int c = 0; c < 8; ++c) fdct_pass(d + c, 8, false);
+    for (int i = 0; i < 64; ++i) {
+        const int64_t v = d[ZIGZAG[i]], div = int64_t{8} * quant[ZIGZAG[i]];
+        const int64_t q = ((v < 0 ? -v : v) + div / 2) / div;
+        zz[i] = static_cast<int>(v < 0 ? -q : q);
+    }
+}
+
+// A plane of (rows, cols) from (h, w) values (row stride `stride`, one sample
+// every `step` bytes), the last row and column repeated beyond the edge.
+std::vector<uint8_t> edge_padded(const uint8_t* src, int h, int w, size_t stride, int step,
+                                 int rows, int cols) {
+    std::vector<uint8_t> out(static_cast<size_t>(rows) * cols);
+    for (int y = 0; y < rows; ++y) {
+        const uint8_t* s = src + static_cast<size_t>(std::min(y, h - 1)) * stride;
+        uint8_t* o = out.data() + static_cast<size_t>(y) * cols;
+        for (int x = 0; x < cols; ++x) o[x] = s[static_cast<size_t>(std::min(x, w - 1)) * step];
+    }
+    return out;
+}
+
+// jcsample.c's h2v2_downsample of an even-sized plane: each 2x2 sum plus a
+// bias of 1 and 2 in turn along the row, shifted right by 2.
+std::vector<uint8_t> downsample_h2v2(const std::vector<uint8_t>& p, int rows, int cols) {
+    std::vector<uint8_t> out(static_cast<size_t>(rows / 2) * (cols / 2));
+    for (int y = 0; y < rows / 2; ++y) {
+        const uint8_t* a = p.data() + static_cast<size_t>(2 * y) * cols;
+        const uint8_t* b = a + cols;
+        for (int x = 0; x < cols / 2; ++x)
+            out[static_cast<size_t>(y) * (cols / 2) + x] = static_cast<uint8_t>(
+                (a[2 * x] + a[2 * x + 1] + b[2 * x] + b[2 * x + 1] + 1 + (x & 1)) >> 2);
+    }
+    return out;
+}
+
+void put_segment(std::vector<uint8_t>* out, uint8_t marker, const std::vector<uint8_t>& body) {
+    const size_t len = body.size() + 2;
+    out->insert(out->end(), {0xFF, marker, static_cast<uint8_t>(len >> 8),
+                             static_cast<uint8_t>(len & 0xFF)});
+    out->insert(out->end(), body.begin(), body.end());
+}
+
+// SOI, JFIF 1.01 APP0 (no units, 1:1), DQT per table, SOF0, DHT per table,
+// SOS: the markers jcmarker.c writes, in its order.
+void jpeg_headers(std::vector<uint8_t>* out, int h, int w, int ncomp, const int quant[2][64]) {
+    const int ntab = ncomp == 1 ? 1 : 2;
+    out->insert(out->end(), {0xFF, 0xD8});
+    put_segment(out, 0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+    for (int t = 0; t < ntab; ++t) {
+        std::vector<uint8_t> body{static_cast<uint8_t>(t)};
+        for (int i = 0; i < 64; ++i) body.push_back(static_cast<uint8_t>(quant[t][ZIGZAG[i]]));
+        put_segment(out, 0xDB, body);
+    }
+    std::vector<uint8_t> sof{8, static_cast<uint8_t>(h >> 8), static_cast<uint8_t>(h & 0xFF),
+                             static_cast<uint8_t>(w >> 8), static_cast<uint8_t>(w & 0xFF),
+                             static_cast<uint8_t>(ncomp)};
+    std::vector<uint8_t> sos{static_cast<uint8_t>(ncomp)};
+    for (int c = 0; c < ncomp; ++c) {
+        const uint8_t tab = c ? 1 : 0;
+        sof.insert(sof.end(), {static_cast<uint8_t>(c + 1),
+                               static_cast<uint8_t>(ncomp == 3 && c == 0 ? 0x22 : 0x11), tab});
+        sos.insert(sos.end(), {static_cast<uint8_t>(c + 1), static_cast<uint8_t>(tab << 4 | tab)});
+    }
+    put_segment(out, 0xC0, sof);
+    for (int t = 0; t < ntab; ++t) {
+        std::vector<uint8_t> dc{static_cast<uint8_t>(t)}, ac{static_cast<uint8_t>(0x10 | t)};
+        dc.insert(dc.end(), DC_COUNTS[t], DC_COUNTS[t] + 16);
+        dc.insert(dc.end(), DC_SYMBOLS, DC_SYMBOLS + 12);
+        ac.insert(ac.end(), AC_COUNTS[t], AC_COUNTS[t] + 16);
+        ac.insert(ac.end(), AC_SYMBOLS[t], AC_SYMBOLS[t] + 162);
+        put_segment(out, 0xC4, dc);
+        put_segment(out, 0xC4, ac);
+    }
+    sos.insert(sos.end(), {0, 63, 0});
+    put_segment(out, 0xDA, sos);
+}
+
+// A block's Huffman codes: DC as the difference to the component's last DC,
+// AC as runs of zeros (ZRL for 16) and EOB.
+void encode_block(BitWriter& bw, const int* zz, int* last_dc, const HuffTable& dc,
+                  const HuffTable& ac) {
+    const int diff = zz[0] - *last_dc;
+    *last_dc = zz[0];
+    int nbits = bit_length(diff);
+    bw.symbol(dc, nbits);
+    bw.value(diff, nbits);
+    int run = 0;
+    for (int k = 1; k < 64; ++k) {
+        if (zz[k] == 0) {
+            ++run;
+            continue;
+        }
+        for (; run > 15; run -= 16) bw.symbol(ac, 0xF0);
+        nbits = bit_length(zz[k]);
+        bw.symbol(ac, (run << 4) | nbits);
+        bw.value(zz[k], nbits);
+        run = 0;
+    }
+    if (run) bw.symbol(ac, 0x00);
+}
+
+// (h, w, c) uint8, c = 1 (greyscale) or 3 (RGB, written as YCbCr 4:2:0).
+void encode_jpeg_image(const uint8_t* px, int h, int w, int c, std::vector<uint8_t>* out) {
+    // quality 75: jpeg_quality_scaling's 50 % of Annex K's tables, every
+    // entry within 1..255 without clamping
+    int quant[2][64];
+    for (int t = 0; t < 2; ++t)
+        for (int i = 0; i < 64; ++i) quant[t][i] = (QUANT[t][i] * 50 + 50) / 100;
+    const HuffTable dc[2] = {{DC_COUNTS[0], DC_SYMBOLS}, {DC_COUNTS[1], DC_SYMBOLS}};
+    const HuffTable ac[2] = {{AC_COUNTS[0], AC_SYMBOLS[0]}, {AC_COUNTS[1], AC_SYMBOLS[1]}};
+    jpeg_headers(out, h, w, c, quant);
+    BitWriter bw{out};
+    int zz[64], last_dc[3] = {0, 0, 0};
+    const int hb = (h + 7) / 8, wb = (w + 7) / 8;
+    if (c == 1) {
+        const std::vector<uint8_t> y = edge_padded(px, h, w, w, 1, 8 * hb, 8 * wb);
+        for (int by = 0; by < hb; ++by)
+            for (int bx = 0; bx < wb; ++bx) {
+                quantised_block(y.data(), 8 * wb, 8 * by, 8 * bx, quant[0], zz);
+                encode_block(bw, zz, &last_dc[0], dc[0], ac[0]);
+            }
+    } else {
+        // jccolor.c's RGB -> YCbCr in 16-bit fixed point; Cb and Cr round
+        // with 0.5 - epsilon, so that 255 is their largest value
+        auto fix = [](double x) { return static_cast<int64_t>(x * 65536 + 0.5); };
+        const int64_t half = 1 << 15, centre = int64_t{128} << 16;
+        std::vector<uint8_t> ycc(static_cast<size_t>(h) * w * 3);
+        for (size_t i = 0; i < static_cast<size_t>(h) * w; ++i) {
+            const int64_t r = px[3 * i], g = px[3 * i + 1], b = px[3 * i + 2];
+            ycc[3 * i] = static_cast<uint8_t>(
+                (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16);
+            ycc[3 * i + 1] = static_cast<uint8_t>(
+                (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + centre + half - 1) >> 16);
+            ycc[3 * i + 2] = static_cast<uint8_t>(
+                (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + centre + half - 1) >> 16);
+        }
+        const int mr = (h + 15) / 16, mc = (w + 15) / 16;
+        const size_t stride = static_cast<size_t>(w) * 3;
+        const std::vector<uint8_t> y = edge_padded(ycc.data(), h, w, stride, 3, 8 * hb, 8 * wb);
+        std::vector<uint8_t> chroma[2];
+        for (int k = 0; k < 2; ++k) {
+            // rows and columns made even by repeating the last, downsampled,
+            // then repeated again to whole blocks
+            const int rows = 2 * ((h + 1) / 2), cols = 16 * mc;
+            const std::vector<uint8_t> small = downsample_h2v2(
+                edge_padded(ycc.data() + 1 + k, h, w, stride, 3, rows, cols), rows, cols);
+            chroma[k] = edge_padded(small.data(), rows / 2, cols / 2, cols / 2, 1, 8 * mr, 8 * mc);
+        }
+        for (int my = 0; my < mr; ++my)
+            for (int mx = 0; mx < mc; ++mx) {
+                // Y's blocks beyond the image are dummies with no AC and the
+                // DC of the block before them (jccoefct.c): the one on the
+                // left, or for a dummy row the MCU's upper right block
+                int dcs[4];
+                for (int j = 0; j < 4; ++j) {
+                    const int by = 2 * my + j / 2, bx = 2 * mx + j % 2;
+                    if (by < hb && bx < wb) {
+                        quantised_block(y.data(), 8 * wb, 8 * by, 8 * bx, quant[0], zz);
+                    } else {
+                        std::fill(zz, zz + 64, 0);
+                        zz[0] = by < hb ? dcs[j - 1] : dcs[1];
+                    }
+                    dcs[j] = zz[0];
+                    encode_block(bw, zz, &last_dc[0], dc[0], ac[0]);
+                }
+                for (int k = 0; k < 2; ++k) {
+                    quantised_block(chroma[k].data(), 8 * mc, 8 * my, 8 * mx, quant[1], zz);
+                    encode_block(bw, zz, &last_dc[1 + k], dc[1], ac[1]);
+                }
+            }
+    }
+    bw.flush();
+    out->insert(out->end(), {0xFF, 0xD9});
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -991,10 +1396,6 @@ FRTM_EXPORT int inpaint_telea_u8c3(const uint8_t* img, const uint8_t* mask, int 
     return 0;
 }
 
-// Undo the per-row filters of a non-interlaced PNG image: raw holds height
-// rows of (1 filter byte + stride bytes); out gets (height, stride).
-// Returns 0, -1 for a size mismatch, or -(2 + y) for an unknown filter type
-// in row y.
 // src (H, W, C) -> dst (dh, dw, C), uint8; mode 0 nearest, 1 area, 2 cubic.
 // Returns 0, or -1 for bad sizes.
 FRTM_EXPORT int resize_u8(const uint8_t* src, int H, int W, int C, int dh, int dw, int mode,
@@ -1012,48 +1413,73 @@ FRTM_EXPORT int resize_u8(const uint8_t* src, int H, int W, int C, int dh, int d
     return 0;
 }
 
-FRTM_EXPORT int png_unfilter(const uint8_t* raw, long raw_len, int height, int stride, int bpp,
-                             uint8_t* out) {
-    if (height < 0 || stride < 0 || bpp <= 0 ||
-        raw_len != static_cast<long>(height) * (stride + 1))
+// The (h, w, channels) samples of a PNG's inflated image data: each pass
+// (the whole image, or the seven Adam7 passes when interlaced) unfiltered on
+// its own with a byte step of max(1, depth * channels / 8), its samples
+// unpacked and put in their places. out holds uint8 samples for depths 1-8,
+// uint16 (native order) for 16. Returns 0, -1 for bad arguments or a size
+// mismatch, or -(2 + i) for an unknown filter type at byte i of raw.
+FRTM_EXPORT long png_samples(const uint8_t* raw, long raw_len, int h, int w, int depth,
+                             int channels, int interlace, uint8_t* out) {
+    if (h <= 0 || w <= 0 || channels < 1 || channels > 4 || (interlace != 0 && interlace != 1) ||
+        (depth != 1 && depth != 2 && depth != 4 && depth != 8 && depth != 16))
         return -1;
-    std::vector<uint8_t> zeros(stride, 0);
-    for (int y = 0; y < height; ++y) {
-        const uint8_t* line = raw + static_cast<size_t>(y) * (stride + 1);
-        const uint8_t ftype = line[0];
-        ++line;
-        const uint8_t* prev = y ? out + static_cast<size_t>(y - 1) * stride : zeros.data();
-        uint8_t* cur = out + static_cast<size_t>(y) * stride;
-        switch (ftype) {
-            case 0:
-                std::memcpy(cur, line, stride);
-                break;
-            case 1:  // Sub
-                for (int i = 0; i < stride; ++i)
-                    cur[i] = static_cast<uint8_t>(line[i] + (i >= bpp ? cur[i - bpp] : 0));
-                break;
-            case 2:  // Up
-                for (int i = 0; i < stride; ++i) cur[i] = static_cast<uint8_t>(line[i] + prev[i]);
-                break;
-            case 3:  // Average
-                for (int i = 0; i < stride; ++i) {
-                    const int a = i >= bpp ? cur[i - bpp] : 0;
-                    cur[i] = static_cast<uint8_t>(line[i] + ((a + prev[i]) >> 1));
+    const std::vector<PngPass> passes = png_passes(h, w, interlace == 1);
+    // a row's bytes in 64 bits: a width of up to 2^31 - 1 at 64 bits a pixel
+    auto stride = [&](const PngPass& p) {
+        return (static_cast<int64_t>(p.cols) * channels * depth + 7) / 8;
+    };
+    int64_t total = 0;
+    for (const PngPass& p : passes) total += p.rows * (stride(p) + 1);
+    if (total != raw_len) return -1;
+    // non-interlaced 8-bit rows are the samples themselves
+    const bool direct = interlace == 0 && depth == 8;
+    const int bpp = std::max(1, depth * channels / 8);
+    std::vector<uint8_t> lines;
+    uint16_t* out16 = reinterpret_cast<uint16_t*>(out);
+    int64_t pos = 0;
+    for (const PngPass& p : passes) {
+        const int64_t st = stride(p);
+        if (!direct) lines.resize(static_cast<size_t>(p.rows) * st);
+        const int bad = unfilter_rows(raw + pos, p.rows, st, bpp, direct ? out : lines.data());
+        if (bad >= 0) return -(2 + pos + bad * (st + 1));
+        for (int r = 0; r < p.rows && !direct; ++r) {
+            const uint8_t* line = lines.data() + static_cast<size_t>(r) * st;
+            const size_t base = (static_cast<size_t>(p.y0) + static_cast<size_t>(r) * p.dy) * w;
+            for (int col = 0; col < p.cols; ++col) {
+                const size_t o = (base + p.x0 + static_cast<size_t>(col) * p.dx) * channels;
+                for (int ch = 0; ch < channels; ++ch) {
+                    const unsigned v = sample(line, static_cast<long>(col) * channels + ch, depth);
+                    if (depth == 16)
+                        out16[o + ch] = static_cast<uint16_t>(v);
+                    else
+                        out[o + ch] = static_cast<uint8_t>(v);
                 }
-                break;
-            case 4:  // Paeth
-                for (int i = 0; i < stride; ++i) {
-                    const int a = i >= bpp ? cur[i - bpp] : 0;
-                    const int c = i >= bpp ? prev[i - bpp] : 0;
-                    cur[i] = static_cast<uint8_t>(line[i] + paeth(a, prev[i], c));
-                }
-                break;
-            default:
-                return -(2 + y);
+            }
         }
+        pos += p.rows * (st + 1);
     }
     return 0;
 }
+
+// A baseline JPEG of (h, w, c) uint8 pixels, c = 1 (greyscale) or 3 (RGB), at
+// IJG quality 75: *out is a buffer of *len bytes from malloc, for the caller
+// to release with frtm_host_free. Returns 0, or -1 for bad arguments.
+FRTM_EXPORT int encode_jpeg(const uint8_t* px, int h, int w, int c, uint8_t** out, long* len) {
+    *out = nullptr;
+    *len = 0;
+    if (h <= 0 || w <= 0 || h > 65535 || w > 65535 || (c != 1 && c != 3)) return -1;
+    std::vector<uint8_t> buf;
+    buf.reserve(1024 + static_cast<size_t>(h) * w * c / 4);
+    encode_jpeg_image(px, h, w, c, &buf);
+    *out = static_cast<uint8_t*>(std::malloc(buf.size()));
+    if (!*out) return -1;
+    std::memcpy(*out, buf.data(), buf.size());
+    *len = static_cast<long>(buf.size());
+    return 0;
+}
+
+FRTM_EXPORT void frtm_host_free(void* p) { std::free(p); }
 
 // The size of a JPEG image from its header.
 FRTM_EXPORT int jpeg_dims(const uint8_t* buf, long len, int* h, int* w, char* err, int errlen) {

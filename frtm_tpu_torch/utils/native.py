@@ -1,6 +1,7 @@
 """The port's host library (utils/csrc/frtm_host.cpp): Telea inpainting and
-the 2x2-ellipse dilation, the PNG row unfilter, JPEG decoding (one frame or
-a batch of same-size files on a pool of threads), and cv2.resize's nearest,
+the 2x2-ellipse dilation, PNG's row unfilter and sample unpacking (every
+bit depth, Adam7), JPEG decoding (one frame or a batch of same-size files on
+a pool of threads) and baseline JPEG encoding, and cv2.resize's nearest,
 area and cubic modes on uint8 images (data/resize_host.py). The counterpart of the
 JAX package's host library, without its quiet fallback: a library that does
 not build raises, with the compiler's output.
@@ -146,7 +147,7 @@ def _bind(path):
     for name, args in {
             "dilate_ellipse2_u8": [u8p, c_int, c_int, u8p],
             "inpaint_telea_u8c3": [u8p, u8p, c_int, c_int, c_int, u8p],
-            "png_unfilter": [u8p, c_long, c_int, c_int, c_int, u8p],
+            "encode_jpeg": [u8p, c_int, c_int, c_int, ctypes.POINTER(u8p), ctypes.POINTER(c_long)],
             "resize_u8": [u8p, c_int, c_int, c_int, c_int, c_int, c_int, u8p],
             "jpeg_dims": [u8p, c_long, i32p, i32p, c_char_p, c_int],
             "decode_jpeg": [u8p, c_long, u8p, c_int, c_int, c_char_p, c_int],
@@ -155,6 +156,9 @@ def _bind(path):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, c_int
     lib.frtm_host_jpeg_backend.argtypes, lib.frtm_host_jpeg_backend.restype = [], c_char_p
+    lib.frtm_host_free.argtypes, lib.frtm_host_free.restype = [ctypes.c_void_p], None
+    lib.png_samples.argtypes = [u8p, c_long, c_int, c_int, c_int, c_int, c_int, u8p]
+    lib.png_samples.restype = c_long
     if hasattr(lib, "decode_jpeg_planar"):      # libjpeg builds only
         lib.decode_jpeg_planar.argtypes = [u8p, c_long, u8p, c_int, c_int, c_char_p, c_int]
         lib.decode_jpeg_planar.restype = c_int
@@ -220,22 +224,46 @@ def resize_u8(mode: str, image: np.ndarray, size) -> np.ndarray:
     return out
 
 
-def png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the PNG row filters of inflated image data: (height, stride) uint8."""
-    if len(raw) != height * (stride + 1):
-        raise ValueError(f"PNG: {len(raw)} bytes of image data, expected "
-                         f"{height * (stride + 1)}")
-    src = np.frombuffer(raw, np.uint8)
-    out = np.empty((height, stride), np.uint8)
+def png_samples(raw: bytes, h: int, w: int, depth: int, channels: int,
+                interlace: int) -> np.ndarray:
+    """(h, w, channels) samples of a PNG's inflated image data, uint8 for
+    depths 1-8 (raw values), uint16 for 16: every pass of an Adam7 image
+    unfiltered, unpacked and put in its place."""
+    mismatch = ValueError(f"PNG: {len(raw)} bytes of image data do not hold a {h}x{w} image "
+                          f"of {channels} samples at {depth} bits (interlace {interlace})")
+    if h * w * channels * depth > 8 * len(raw):     # too few bytes, whatever the layout
+        raise mismatch
+    out = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
     if out.size == 0:
         return out
-    rc = library().png_unfilter(_u8(src), len(raw), height, stride, bpp, _u8(out))
+    src = np.frombuffer(raw, np.uint8)
+    rc = library().png_samples(_u8(src), len(raw), h, w, depth, channels, interlace,
+                               _u8(out.view(np.uint8)))
     if rc <= -2:
-        y = -2 - rc
-        raise ValueError(f"PNG: unknown filter type {raw[y * (stride + 1)]} in row {y}")
+        raise ValueError(f"PNG: unknown filter type {raw[-2 - rc]} at byte {-2 - rc} of the "
+                         "image data")
     if rc != 0:
-        raise ValueError("PNG: bad image data")
+        raise mismatch
     return out
+
+
+def encode_jpeg(im: np.ndarray) -> bytes:
+    """The bytes of a baseline JPEG of (H, W) greyscale or (H, W, 3) RGB
+    uint8 pixels, as libjpeg writes them with PIL's defaults (quality 75);
+    data/image.py's encode_jpeg_plain is the plain version."""
+    im = np.ascontiguousarray(im)
+    if im.dtype != np.uint8 or not (im.ndim == 2 or (im.ndim == 3 and im.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes (H, W) or (H, W, 3) uint8, got {im.dtype} "
+                         f"{im.shape}")
+    out, n = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_long()
+    c = 1 if im.ndim == 2 else 3
+    if library().encode_jpeg(_u8(im), im.shape[0], im.shape[1], c, ctypes.byref(out),
+                             ctypes.byref(n)) != 0:
+        raise ValueError(f"encode_jpeg: cannot encode a {im.shape} image")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        library().frtm_host_free(out)
 
 
 def _jpeg_dims(data: np.ndarray, name):

@@ -12,16 +12,31 @@
   coverage/   small JPEGs in the other encodings (4:4:4, greyscale,
               progressive) and a PNG that libpng (through OpenCV) wrote with
               all five row filters;
+  imwrite/    JPEGs that frtm_tpu.data.image.imwrite wrote (PIL's defaults:
+              quality 75, 4:2:0), of the arrays `imwrite_source` rebuilds:
+              colour and grey at 480x854, colour at 720x1280 and at 37x53;
+  png_forms/  a PNG of every colour type at every bit depth the format
+              allows, non-interlaced and Adam7 (`encode_png_samples`, this
+              script's own writer, all five row filters), and the forms PIL
+              writes for 1-bit and 16-bit grey and 2- and 4-bit palettes;
+  davis_2bit/ the DAVIS annotations again, saved by PIL with a 3-colour
+              palette, which it writes at 2 bits a pixel;
   manifest.json  per JPEG the sha256 of PIL's decoded pixels and the PSNR of
               that decode against the source frame, per PNG the sha256 of its
-              pixels and the filter types its rows use.
+              pixels and the filter types its rows use; under `imwrite`,
+              `png_forms` and `davis_2bit` per file also the sha256 of its
+              bytes, and per PNG the pixels' sha256 as frtm_tpu's imread
+              reads them (its libpng path for grey at 8 bits or fewer).
 
     python scripts/make_torch_jpeg_fixtures.py [--out tests/data/torch_fixtures]
 
-PIL and OpenCV write the files; `source_frame` and `label_frame` are numpy
-only, so that a check on a machine without PIL can rebuild the source frames
-and measure its own decoder's PSNR. The content is smooth with little noise,
-which keeps the committed files small.
+PIL and OpenCV write the files, and frtm_tpu (the JAX package) writes and
+reads the newer ones; `source_frame`, `label_frame`, `imwrite_source`,
+`png_form_samples` and `encode_png_samples` are numpy only, so that a check
+on a machine without PIL can rebuild the source frames and measure its own
+decoder's PSNR. The content is smooth with little noise, which keeps the
+committed files small. Only the trees named above and the manifest are
+rewritten; other files under --out (models/) stay.
 """
 import argparse
 import hashlib
@@ -41,6 +56,19 @@ YTVOS_SEQ, YTVOS_SIZE = "0a1b2c3d4e", (720, 1280)
 YTVOS_ENTRY = 4            # object 2's first frame
 COVERAGE_SIZE = (61, 83)
 QUALITY = 85
+TREES = ("davis", "ytvos", "coverage", "imwrite", "png_forms", "davis_2bit")
+# imwrite/: name -> (colour or grey, size, seed, frame)
+IMWRITE = {"imwrite/colour_480x854.jpg": ("colour", DAVIS_SIZE, 4, 0),
+           "imwrite/grey_480x854.jpg": ("grey", DAVIS_SIZE, 4, 1),
+           "imwrite/colour_720x1280.jpg": ("colour", YTVOS_SIZE, 5, 0),
+           "imwrite/colour_37x53.jpg": ("colour", (37, 53), 6, 0)}
+# PNG colour type -> (name, samples per pixel, bit depths)
+PNG_FORMS = {0: ("grey", 1, (1, 2, 4, 8, 16)), 2: ("rgb", 3, (8, 16)),
+             3: ("palette", 1, (1, 2, 4, 8)), 4: ("grey_alpha", 2, (8, 16)),
+             6: ("rgba", 4, (8, 16))}
+PNG_FORM_SIZE = (37, 53)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 
 
 def _objects(t, size, entry=0):
@@ -101,6 +129,96 @@ def source_of(name: str) -> np.ndarray:
     return src
 
 
+def imwrite_source(name: str) -> np.ndarray:
+    """The array an imwrite/ JPEG was written from: (H, W, 3) or, for grey,
+    (H, W), the green channel."""
+    kind, size, seed, t = IMWRITE[name]
+    frame = source_frame(t, size, seed=seed)
+    return frame if kind == "colour" else np.ascontiguousarray(frame[..., 1])
+
+
+def png_form_samples(ctype, depth, size=PNG_FORM_SIZE) -> np.ndarray:
+    """(H, W, C) samples of a png_forms/ file: diagonal ramps over every value
+    of the bit depth (at most 16 palette entries), a different one per
+    channel."""
+    _, c, _ = PNG_FORMS[ctype]
+    yy, xx = np.mgrid[0:size[0], 0:size[1]]
+    levels = min(1 << depth, 16) if ctype == 3 else 1 << depth
+    step = max(1, levels // 64)
+    return np.stack([((yy * 3 + xx * 5 + 11 * k) * step) % levels for k in range(c)],
+                    -1).astype(np.uint16 if depth == 16 else np.uint8)
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def png_filter_rows(packed, bpp, ftypes) -> bytes:
+    """Each row of packed bytes filtered by ftypes[y % len(ftypes)] (the
+    predictors read the unfiltered bytes), with its filter byte in front."""
+    h, s = packed.shape
+    cur = packed.astype(np.int64)
+    up = np.concatenate([np.zeros((1, s), np.int64), cur[:-1]])
+    left = np.concatenate([np.zeros((h, bpp), np.int64), cur], axis=1)[:, :s]
+    upleft = np.concatenate([np.zeros((h, bpp), np.int64), up], axis=1)[:, :s]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = {0: 0 * cur, 1: left, 2: up, 3: (left + up) // 2, 4: paeth}
+    out = bytearray()
+    for y in range(h):
+        t = ftypes[y % len(ftypes)]
+        out.append(t)
+        out += bytes(((cur[y] - preds[t][y]) % 256).astype(np.uint8))
+    return bytes(out)
+
+
+def encode_png_samples(samples, depth, ctype, interlace=0, ftypes=(0, 1, 2, 3, 4),
+                       palette=None) -> bytes:
+    """A PNG of (H, W, C) samples at any bit depth: sub-byte samples packed
+    most significant first with each row padded to a byte, 16-bit ones
+    big-endian; interlace 1 writes the seven Adam7 passes, each filtered on
+    its own. PIL writes no interlaced PNG (it ignores interlace=1)."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, c = samples.shape
+    raw = b""
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = sub.reshape(sub.shape[0], -1).astype(np.int64)
+        if depth == 16:
+            packed = rows.astype(">u2").view(np.uint8)
+        elif depth == 8:
+            packed = rows.astype(np.uint8)
+        else:
+            bits = (rows[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+            packed = np.packbits(bits.reshape(rows.shape[0], -1).astype(np.uint8), axis=1)
+        raw += png_filter_rows(packed, max(1, depth * c // 8), ftypes)
+    plte = b"" if palette is None else _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (b"\x89PNG\r\n\x1a\n"
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+            + plte + _png_chunk(b"IDAT", zlib.compress(raw, 9)) + _png_chunk(b"IEND", b""))
+
+
+def png_form_pixels(ctype, depth, samples) -> np.ndarray:
+    """What frtm_tpu's imread returns for a PNG of these samples: palette
+    indices and grey at 8 bits or fewer as they are (libpng), 16-bit grey as
+    uint16, other 16-bit forms as PIL's 8-bit modes (the high byte; grey +
+    alpha widened to RGBA)."""
+    if depth != 16 or ctype == 0:
+        return samples
+    hi = (samples >> 8).astype(np.uint8)
+    return hi[..., [0, 0, 0, 1]] if ctype == 4 else hi
+
+
+def _file_sha(path) -> str:
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
 def psnr(a, b) -> float:
     mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
@@ -153,9 +271,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(DEFAULT_OUT))
     out = Path(ap.parse_args().out)
-    if out.exists():
-        shutil.rmtree(out)
-    manifest = {"quality": QUALITY, "jpeg": {}, "png": {}}
+    for tree in TREES:
+        if (out / tree).exists():
+            shutil.rmtree(out / tree)
+    manifest = {"quality": QUALITY, "jpeg": {}, "png": {}, "imwrite": {}, "png_forms": {},
+                "davis_2bit": {}}
 
     def write_jpeg(path, src, **kw):
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -220,9 +340,94 @@ def main():
     manifest["png"][path.relative_to(out).as_posix()] = {
         "shape": list(arr.shape), "sha256": _sha(arr), "filters": filters}
 
+    write_image_io_fixtures(out, manifest)
     (out / "manifest.json").write_text(json.dumps(manifest, indent=1, sort_keys=True) + "\n")
-    total = sum(p.stat().st_size for p in out.rglob("*") if p.is_file())
+    total = sum(p.stat().st_size for tree in TREES for p in (out / tree).rglob("*")
+                if p.is_file()) + (out / "manifest.json").stat().st_size
     print(f"wrote {out}: {total} bytes")
+
+
+def write_image_io_fixtures(out, manifest):
+    """imwrite/, png_forms/ and davis_2bit/ with their manifest entries,
+    written and read by frtm_tpu (the JAX package's image module)."""
+    from PIL import Image
+    from frtm_tpu.data import image as jax_image
+    from frtm_tpu.utils import native as jax_native
+    if not jax_native.available():
+        raise SystemExit("frtm_tpu's host library did not build: its libpng path reads "
+                         "the sub-byte grey PNGs")
+
+    for name in IMWRITE:
+        path, src = out / name, imwrite_source(name)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        jax_image.imwrite(path, src)
+        with Image.open(path) as pil:
+            dec = np.asarray(pil.convert("RGB"))
+        rgb = src if src.ndim == 3 else np.repeat(src[..., None], 3, -1)
+        manifest["imwrite"][name] = {"shape": list(dec.shape), "sha256": _sha(dec),
+                                     "sha256_file": _file_sha(path), "psnr_db": psnr(dec, rgb)}
+
+    def record_png(path, ctype, depth, interlace, writer, want):
+        got = jax_image.imread(path)
+        if ctype == 0 and depth < 8:        # frtm_tpu's libpng path, whatever the fallback
+            got = jax_native.read_png_index(path)[..., None]
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise SystemExit(f"{path}: frtm_tpu reads {got.dtype} {got.shape}, not the samples")
+        manifest["png_forms"][path.relative_to(out).as_posix()] = {
+            "colour_type": ctype, "bit_depth": depth, "interlace": interlace, "writer": writer,
+            "shape": list(got.shape), "dtype": str(got.dtype), "sha256": _sha(got),
+            "sha256_file": _file_sha(path)}
+
+    root = out / "png_forms"
+    root.mkdir(parents=True)
+    palette = np.stack([np.arange(16) * 16, 255 - np.arange(16) * 16, np.arange(16) * 5], -1)
+    for ctype, (form, _, depths) in PNG_FORMS.items():
+        for depth in depths:
+            samples = png_form_samples(ctype, depth)
+            for interlace in (0, 1):
+                path = root / f"{form}{depth}{'_adam7' if interlace else ''}.png"
+                path.write_bytes(encode_png_samples(
+                    samples, depth, ctype, interlace,
+                    palette=palette[:min(1 << depth, 16)] if ctype == 3 else None))
+                record_png(path, ctype, depth, interlace, "script",
+                           png_form_pixels(ctype, depth, samples))
+    # the forms PIL chooses itself: mode 1, I;16, and a palette of 3 or 16 colours
+    for name, ctype, depth, samples in (
+            ("grey1_pil.png", 0, 1, png_form_samples(0, 1)),
+            ("grey16_pil.png", 0, 16, png_form_samples(0, 16)),
+            ("palette2_pil.png", 3, 2, png_form_samples(3, 2) % 3),
+            ("palette4_pil.png", 3, 4, png_form_samples(3, 4))):
+        if ctype == 3:
+            im = Image.fromarray(samples[..., 0], "P")
+            im.putpalette(palette[:3 if depth == 2 else 16].ravel().tolist())
+        else:
+            im = Image.fromarray(samples[..., 0].astype(bool if depth == 1 else np.uint16))
+        im.save(root / name)
+        if _png_header(root / name)[2:4] != (depth, ctype):
+            raise SystemExit(f"{name}: PIL wrote {_png_header(root / name)}")
+        record_png(root / name, ctype, depth, 0, "pil", samples)
+
+    # the DAVIS annotations with a 3-colour palette: 2 bits a pixel
+    for t in range(N_FRAMES):
+        path = out / "davis_2bit" / "Annotations" / "480p" / DAVIS_SEQ / f"{t:05d}.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        lb = label_frame(t, DAVIS_SIZE)
+        img = Image.fromarray(lb, "P")
+        img.putpalette([0, 0, 0, 128, 0, 0, 0, 128, 0])
+        img.save(path)
+        if _png_header(path)[2:4] != (2, 3):
+            raise SystemExit(f"{path}: PIL wrote {_png_header(path)}, not a 2-bit palette")
+        got = jax_image.imread(path)
+        if not np.array_equal(got[..., 0], lb):
+            raise SystemExit(f"{path}: frtm_tpu does not read the labels back")
+        manifest["davis_2bit"][path.relative_to(out).as_posix()] = {
+            "shape": list(got.shape), "sha256": _sha(got), "sha256_file": _file_sha(path),
+            "bit_depth": 2}
+
+
+def _png_header(path):
+    """(width, height, bit depth, colour type, compression, filter, interlace)."""
+    return struct.unpack(">IIBBBBB", Path(path).read_bytes()[16:29])
 
 
 if __name__ == "__main__":

@@ -36,6 +36,7 @@ most 0.23 % (fused and host engines alike), 3 times frtm_tpu's own
 sensitivity and under half the bound.
 """
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -52,7 +53,7 @@ from frtm_tpu.runtime.sequence_tracker import BatchedSequenceTracker as JaxFused
 from frtm_tpu.utils import checkpoints as jax_ckpt
 from frtm_tpu_torch import evaluate
 from frtm_tpu_torch.config import eval_config
-from frtm_tpu_torch.data.image import imwrite_indexed
+from frtm_tpu_torch.data.image import davis_palette, imwrite_indexed
 from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
 from frtm_tpu_torch.models.resnet import resnet_out_channels
 from frtm_tpu_torch.runtime import sequence_tracker, tracker
@@ -119,22 +120,27 @@ class World:
             conv2.bias.sub_(float(np.median(logits))).mul_(HEAD_SPREAD / float(logits.std()))
         self._save(refiner)
 
-        # frtm_tpu's run_dataset from the same two files on the same tree
+        self.jax_out = root / "jax_results"
+        self.jax_run(self.davis, self.jax_out)
+
+    def jax_run(self, davis, out):
+        """frtm_tpu's run_dataset from the same two files on a DAVIS tree."""
+        jcfg = jax_eval_config(ARCH, fast=True, compute_dtype="float32")
         arch, jrefiner = jax_ckpt.load_reference_model(self.model_pth)
         assert arch == ARCH
-        jt = JaxFused(jcfg, jbackbone, jrefiner, extract_chunk=16)
+        jt = JaxFused(jcfg, jax_ckpt.load_backbone(self.backbone_pth, ARCH), jrefiner,
+                      extract_chunk=16)
         jt.augmenter = FreshBatches(JaxAugmenter(jcfg.aug_params, backend="xla"))
-        self.jax_out = root / "jax_results"
-        jt.run_dataset(JaxDAVIS(path=self.davis, year="2017", split="val"), self.jax_out)
+        jt.run_dataset(JaxDAVIS(path=davis, year="2017", split="val"), out)
 
     def _save(self, refiner):
         """The reference's trainer checkpoint: refiner.* keys under 'model'."""
         torch.save({"model": {"refiner." + k: v for k, v in refiner.state_dict().items()},
                     "epoch": 260}, self.model_pth)
 
-    def args(self, out, *extra):
+    def args(self, out, *extra, davis=None):
         return ["--model", str(self.model_pth), "--backbone", str(self.backbone_pth),
-                "--dset", "dv2017val", "--davis", str(self.davis), "--output", str(out),
+                "--dset", "dv2017val", "--davis", str(davis or self.davis), "--output", str(out),
                 "--dev", "cpu", "--fast", "--dtype", "float32", *extra]
 
 
@@ -147,22 +153,22 @@ def _read(path):
     return np.array(Image.open(path))
 
 
-def _run(world, monkeypatch, out, *extra):
+def _run(world, monkeypatch, out, *extra, davis=None):
     monkeypatch.setattr(sequence_tracker, "init_disc_params", lambda *a, **k: world.p0)
     monkeypatch.setattr(tracker, "init_disc_params", lambda *a, **k: world.p0)
-    result = evaluate.main(world.args(out, *extra))
+    result = evaluate.main(world.args(out, *extra, davis=davis))
     assert result["out_path"] == Path(out).resolve() / "dv2017val-rn18_fake_fast"
     return result
 
 
-def _check_against_jax(world, res_dir):
+def _check_against_jax(world, res_dir, jax_out=None):
     worst = 0.0
     for seq in world.seqs:
         pngs = sorted((res_dir / seq.name).glob("*.png"))
         assert [p.stem for p in pngs] == seq.frame_names
         np.testing.assert_array_equal(_read(pngs[0]), seq.labels[0][..., 0])
         for p in pngs:
-            got, want = _read(p), _read(world.jax_out / seq.name / p.name)
+            got, want = _read(p), _read((jax_out or world.jax_out) / seq.name / p.name)
             assert Image.open(p).mode == "P"
             worst = max(worst, float(np.mean(got != want)))
         # every object and the background hold pixels in the tracked frames
@@ -262,6 +268,31 @@ def test_cli_sharded_and_multihost_write_the_fused_pngs(world, fused_run, monkey
                 (fused_run["out_path"] / png).read_bytes(), png
     _check_reports(result["out_path"], result)
     assert (result["J"], result["F"]) == (fused_run["J"], fused_run["F"])
+
+
+def test_cli_reads_2bit_annotations(world, fused_run, monkeypatch, tmp_path):
+    """The tree's annotations saved again by PIL with a 3-colour palette,
+    which it writes at 2 bits a pixel (the port once raised on them): the
+    port's PNGs within the bound of frtm_tpu's run_dataset on that tree, and
+    byte for byte those of its own run on the 8-bit tree."""
+    davis = tmp_path / "DAVIS2"
+    shutil.copytree(world.davis, davis)
+    for path in sorted((davis / "Annotations").rglob("*.png")):
+        labels = np.array(Image.open(path))
+        im = Image.fromarray(labels, "P")
+        im.putpalette(davis_palette[:3].ravel().tolist())
+        im.save(path)
+        assert path.read_bytes()[24:26] == bytes([2, 3])        # IHDR: 2-bit palette
+    world.jax_run(davis, tmp_path / "jax_results")
+    result = _run(world, monkeypatch, tmp_path / "out", davis=davis)
+    _check_against_jax(world, result["out_path"], tmp_path / "jax_results")
+    for seq in world.seqs:
+        for name in seq.frame_names:
+            png = f"{seq.name}/{name}.png"
+            assert (result["out_path"] / png).read_bytes() == \
+                (fused_run["out_path"] / png).read_bytes(), png
+            np.testing.assert_array_equal(_read(tmp_path / "jax_results" / png),
+                                          _read(world.jax_out / png))
 
 
 def test_cli_refuses_what_it_cannot_do(world, tmp_path, capsys):

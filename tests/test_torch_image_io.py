@@ -3,6 +3,7 @@ against PIL and against frtm_tpu.data.image: what it writes, PIL and the JAX
 package read as the same indexed image with the DAVIS palette; what they
 write, and what libpng writes through OpenCV (indexed, grey, grey + alpha, RGB,
 RGBA; odd widths; all five scanline filter types), it reads equal, value for value; what it does not read raises.
+Every bit depth and Adam7: test_torch_image_formats.py.
 """
 import struct
 import zlib
@@ -180,18 +181,37 @@ def test_every_filter_type_by_hand():
 
 
 def test_unsupported_files_raise(tmp_path):
+    """What the port does not read raises. 16-bit and 1-bit PNGs and Adam7
+    ones, which it once refused, read as frtm_tpu reads them (every form:
+    test_torch_image_formats.py); an Adam7 header over non-interlaced data
+    raises on the data's size."""
     rng = np.random.RandomState(5)
     Image.fromarray(rng.randint(0, 65535, (8, 9)).astype(np.uint16)).save(tmp_path / "16.png")
     Image.fromarray(rng.randint(0, 2, (8, 9)).astype(bool)).save(tmp_path / "1bit.png")
-    for name in ("16.png", "1bit.png"):
-        with pytest.raises(ValueError, match="bit depth"):
-            imread(tmp_path / name)
-    # an interlaced file: a valid header that says Adam7
+    want16 = jax_image.imread(tmp_path / "16.png")
+    assert want16.dtype == np.uint16
+    np.testing.assert_array_equal(imread(tmp_path / "16.png"), want16)
+    got1 = imread(tmp_path / "1bit.png")
+    assert (got1.shape, got1.dtype) == ((8, 9, 1), np.uint8)
+    with Image.open(tmp_path / "1bit.png") as im:           # PIL: bool
+        np.testing.assert_array_equal(got1[..., 0], np.array(im).astype(np.uint8))
+    # an interlaced file: the indices of a 4x4 label image, as Adam7 passes
+    lb = _labels(rng, 4, 4, n=3)
+    rows = b""
+    for x0, y0, dx, dy in port_image._ADAM7:       # each row with filter None
+        sub = lb[y0::dy, x0::dx]
+        rows += b"".join(b"\0" + bytes(r) for r in sub if sub.size)
     png = encode_png_indexed(np.zeros((4, 4), np.uint8), davis_palette)
     ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 3, 0, 0, 1)
-    interlaced = png[:8] + port_image._chunk(b"IHDR", ihdr) + png[8 + 12 + 13:]
-    with pytest.raises(ValueError, match="interlaced"):
-        decode_png(interlaced)
+    head = png[:8] + port_image._chunk(b"IHDR", ihdr) + png[8 + 12 + 13:png.index(b"IDAT") - 4]
+    interlaced = head + port_image._chunk(b"IDAT", zlib.compress(rows)) + port_image._chunk(
+        b"IEND", b"")
+    np.testing.assert_array_equal(decode_png(interlaced), lb[..., None])
+    (tmp_path / "adam7.png").write_bytes(interlaced)
+    np.testing.assert_array_equal(jax_image.imread(tmp_path / "adam7.png"), lb[..., None])
+    swapped = png[:8] + port_image._chunk(b"IHDR", ihdr) + png[8 + 12 + 13:]
+    with pytest.raises(ValueError, match="bytes of image data"):
+        decode_png(swapped)
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError):

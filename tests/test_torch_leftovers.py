@@ -95,8 +95,17 @@ def test_imwrite_matches_jax(rng, tmp_path, shape):
         1 if len(shape) == 2 else shape[2]]
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     np.testing.assert_array_equal(np.asarray(got), im.squeeze())
-    with pytest.raises(ValueError, match="PNG"):
+    # JPEG: frtm_tpu's bytes (every case: test_torch_image_formats.py), RGBA
+    # refused by both; other formats raise
+    if shape[-1] == 4:
+        with pytest.raises(ValueError, match="RGBA as JPEG"):
+            imwrite(tmp_path / "port.jpg", im)
+    else:
         imwrite(tmp_path / "port.jpg", im)
+        jax_imwrite(tmp_path / "jax.jpg", im)
+        assert (tmp_path / "port.jpg").read_bytes() == (tmp_path / "jax.jpg").read_bytes()
+    with pytest.raises(ValueError, match="PNG and JPEG only"):
+        imwrite(tmp_path / "port.bmp", im)
 
 
 def _refiner_tree(arch, seed=2):

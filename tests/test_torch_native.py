@@ -5,8 +5,8 @@ libraries it stands in for, with exact equality as the bound throughout:
 * Telea inpainting equal on every value to the port's Python Telea
   (`inpaint_telea_plain`) and to cv2.inpaint; the 2x2-ellipse dilation equal
   to cv2.dilate;
-* the PNG row unfilter equal to `_unfilter_plain` for each filter type and
-  1-4 channels;
+* the PNG row unfilter (`png_samples` on 8-bit non-interlaced data) equal
+  to `png_samples_plain` for each filter type and 1-4 channels;
 * JPEG decoding equal to the JAX package's reader (its own libjpeg build)
   and to PIL on files PIL writes (4:2:0, 4:2:2, 4:4:4, greyscale,
   progressive, restart markers, odd sizes), and so is libjpeg's planar output
@@ -124,19 +124,19 @@ def test_png_unfilter_equals_plain(ftype, c):
     arr = rng.randint(0, 256, (9, 13, c)).astype(np.uint8)
     ftypes = rng.randint(0, 5, 9) if ftype == "mixed" else [ftype] * 9
     raw = _filtered(arr, ftypes)
-    got = native.png_unfilter(raw, 9, 13 * c, c)
-    np.testing.assert_array_equal(got, port_image._unfilter_plain(raw, 9, 13 * c, c))
-    np.testing.assert_array_equal(got.reshape(9, 13, c), arr)
+    got = native.png_samples(raw, 9, 13, 8, c, 0)
+    np.testing.assert_array_equal(got, port_image.png_samples_plain(raw, 9, 13, 8, c, 0))
+    np.testing.assert_array_equal(got, arr)
 
 
 def test_png_unfilter_raises_as_plain():
     raw = bytearray(_filtered(np.zeros((3, 4, 1), np.uint8), [0, 0, 0]))
     raw[5] = 7                                          # row 1's filter byte
-    for fn in (native.png_unfilter, port_image._unfilter_plain):
-        with pytest.raises(ValueError, match="unknown filter type 7 in row 1"):
-            fn(bytes(raw), 3, 4, 1)
+    for fn in (native.png_samples, port_image.png_samples_plain):
+        with pytest.raises(ValueError, match="unknown filter type 7 at byte 5 of"):
+            fn(bytes(raw), 3, 4, 8, 1, 0)
         with pytest.raises(ValueError, match="bytes of image data"):
-            fn(bytes(raw[:-1]), 3, 4, 1)
+            fn(bytes(raw[:-1]), 3, 4, 8, 1, 0)
 
 
 def test_decode_png_goes_through_the_library(tmp_path):
