@@ -1,0 +1,10 @@
+"""The thread-CPU time of the port's `scan_forward` spans in ms over the
+tracked frames (every frame but the first): the host's cost of issuing
+a window's classification, TSE reductions, decode, suppression of entering objects and merge. One of the scan's four steps; the four sum to about the `scan`
+phase's own thread-CPU time, without the closing synchronise that
+scan_host_ms_per_frame holds."""
+from benchmark.metrics._program import per_unit_ms, tracked_frames
+
+
+def read(context):
+    return per_unit_ms(context, "scan_forward", tracked_frames(context), cpu=True)

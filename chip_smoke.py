@@ -81,9 +81,8 @@ Phases, each printing one JSON line:
                 objects in the output), and with the compact augment against
                 the dense one; launch counts per run; fps of both engines,
                 phase seconds from a synchronised pass, the scan's host waits,
-                peak memory, and the device busy share of an unsynchronised
-                pass (device time of everything in a torch.profiler trace
-                over the wall);
+                peak memory, and a second unsynchronised pass whose labels
+                must repeat the first's;
   6b. init_scaling — the fused tracker on 9-frame 480x854 sequences with 1, 2
                 and 4 objects: disc_init and scan seconds of a synchronised
                 pass, and the kernels each of the two phases ran (a
@@ -1381,22 +1380,6 @@ def phase_main(tracker, seq):
     return launches
 
 
-def trace_device_seconds(fn):
-    """Runs fn under torch.profiler's CUDA activity; returns (fn's result,
-    seconds of device time summed over everything the trace holds: kernels,
-    copies, memsets)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            total_us += getattr(ev, "device_time", None) or getattr(ev, "cuda_time", 0.0)
-    return out, total_us / 1e6
-
-
 def phase_fused(cfg, backbone, refiner):
     """The fused tracker's float32 path: two objects, 17 frames (two windows
     of 8, two re-solves per object), against the host loop and against its
@@ -1432,9 +1415,8 @@ def phase_fused(cfg, backbone, refiner):
     resolves = state.n_resolves.tolist()
     finite = bool(torch.isfinite(params.filter).all())
 
-    # the same pass under the profiler: device time of all it ran over its wall
-    (out_traced, fps_traced), device_s = trace_device_seconds(lambda: fused.run_sequence(seq))
-    traced_wall = n_frames / fps_traced
+    # the same pass again: the labels must repeat
+    out_rerun, fps_rerun = fused.run_sequence(seq)
     # and once more with a synchronise at every phase edge, counting host waits
     fused.profile = True
     _, fps_profiled = fused.run_sequence(seq)
@@ -1457,12 +1439,12 @@ def phase_fused(cfg, backbone, refiner):
     def diffs(a, b):
         return [float(np.mean(x != y)) for x, y in zip(a, b)]
 
-    d_host, d_compact, d_traced = (diffs(out_fused, o) for o in (out_host, out_compact, out_traced))
+    d_host, d_compact, d_rerun = (diffs(out_fused, o) for o in (out_host, out_compact, out_rerun))
     pixels = {i: [int((o == i).sum()) for o in out_fused] for i in range(1, n_objects + 1)}
     emit({"phase": "fused", "arch": cfg.feature_extractor, "frames": n_frames,
           "objects": n_objects, "size": [480, 854], "windows": windows,
           "fps_fused": fps_fused, "fps_host_loop": fps_host, "fps_fused_compact": fps_compact,
-          "fps_fused_traced": fps_traced, "fps_fused_profiled": fps_profiled,
+          "fps_fused_rerun": fps_rerun, "fps_fused_profiled": fps_profiled,
           "fps_host_loop_profiled": fps_host_profiled,
           "phase_seconds": phase_seconds, "enqueue_seconds_timed_pass": enqueue_seconds,
           "phase_seconds_host_loop": dict(host_profiled.phase_seconds),
@@ -1470,13 +1452,11 @@ def phase_fused(cfg, backbone, refiner):
           "scan_host_syncs": host_syncs, "scan_host_syncs_per_window": host_syncs / windows,
           "scan_host_syncs_at": host_syncs_at,
           "max_memory_allocated": peak,
-          "device_busy_share": device_s / traced_wall, "device_seconds": device_s,
-          "traced_wall_s": traced_wall,
           "launches": launches, "warp_variants": variants, "launches_host_loop": launches_host,
           "launches_compact": launches_compact, "resolves": resolves, "finite": finite,
           "label_mismatch_vs_host_loop_max": max(d_host),
           "label_mismatch_vs_compact_max": max(d_compact),
-          "label_mismatch_vs_traced_rerun_max": max(d_traced),
+          "label_mismatch_vs_rerun_max": max(d_rerun),
           "label_mismatch_vs_host_loop": d_host,
           "object_pixels_min": {i: min(v[1:]) for i, v in pixels.items()},
           "tolerance": {"labels": 5e-3}})
@@ -1487,8 +1467,8 @@ def phase_fused(cfg, backbone, refiner):
         fail(f"fused: labels differ from the host loop's on {max(d_host):.4%} of a frame")
     if max(d_compact) >= 5e-3:
         fail(f"fused: compact-augment labels differ from dense on {max(d_compact):.4%}")
-    if max(d_traced) >= 5e-3:
-        fail(f"fused: two runs of the same tracker differ on {max(d_traced):.4%} of a frame")
+    if max(d_rerun) >= 5e-3:
+        fail(f"fused: two runs of the same tracker differ on {max(d_rerun):.4%} of a frame")
     lost = [i for i, v in pixels.items() if min(v[1:]) == 0]
     if lost:
         fail(f"fused: objects {lost} are missing from a tracked frame")

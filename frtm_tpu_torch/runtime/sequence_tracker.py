@@ -103,6 +103,7 @@ from ..models.resnet import ResNet, level_heights
 from ..models.seg_network import SegNetwork, seg_network_apply, seg_network_reduce
 from ..ops import halo
 from ..ops.conv import compute_copy
+from ..utils import profiling
 from ..utils.meters import AverageMeter
 from ..utils.prefetch import prefetch_iter
 from ..utils.profiling import PhaseTimer, count_host_syncs
@@ -202,7 +203,10 @@ class BatchedSequenceTracker:
     `disc_params0` and `augmenter` as for the host-loop Tracker, and
     `profile`: the timed pass then synchronises the card at every phase edge
     (nothing overlaps, fps drops) and counts the scan's host waits, so that
-    `last_phase_stats` holds device-inclusive phase seconds."""
+    `last_phase_stats` holds device-inclusive phase seconds, and run_sequence
+    and run_dataset record the program's spans (utils/profiling.py): the
+    phases, the scan's four steps a window, the label download and the PNG
+    writes, each sequence a request of its own, and the `resolves` count."""
 
     def __init__(self, cfg: TrackerConfig, backbone: ResNet, refiner: SegNetwork,
                  extract_chunk: int = 8, merge_mode: str = "online",
@@ -440,90 +444,96 @@ class BatchedSequenceTracker:
                  (T', N, H, W) float32 suppressed soft rows (deferred), the
                  updated models)
         """
-        cfg = self.disc_cfg
-        cfgs = self.disc_cfgs
-        online = self.merge_mode == "online"
-        N = len(start_frames)
-        W = window
-        dev = self.device
-        layers = self.cfg.refnet_layers
-        params, states = models if self.multilayer else ({cfg.layer: models[0]},
-                                                         {cfg.layer: models[1]})
-        # every layer follows the first layer's counter, as in the JAX scan
-        counter = states[next(iter(cfgs))]
-        B = n_seqs
-        n_track = feats_all[next(iter(cfgs))].shape[0] // B
-        n = N // B
-        # with a spatial mesh: the projection of this rank's rows, gathered
-        # whole; this rank's rows of the start masks
-        smesh, heights = self.spatial_mesh, level_heights(im_size[0])
-        compressed_all = {L: halo.gather_rows(project_sequences(feats_all[L], params[L].project,
-                                                                B), heights[L], smesh)
-                          for L in cfgs}
-        start_masks = halo.take_rows(start_masks, im_size[0], smesh)
-        t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
-        starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
-        active_all = t_all > starts          # (T', N) tracked this frame
-        fresh_all = t_all == starts          # entering this frame
-        # a lane's frame counter after frame t is t - (start - counter at init)
-        base = torch.stack([torch.full((), s - f, device=dev)
-                            for s, f in zip(start_frames, counter.frame_num)])
-        cadence_all = active_all & ((t_all - base) % cfg.train_skipping == 0)
+        with profiling.span("scan_prepare"):
+            cfg = self.disc_cfg
+            cfgs = self.disc_cfgs
+            online = self.merge_mode == "online"
+            N = len(start_frames)
+            W = window
+            dev = self.device
+            layers = self.cfg.refnet_layers
+            params, states = models if self.multilayer else ({cfg.layer: models[0]},
+                                                             {cfg.layer: models[1]})
+            # every layer follows the first layer's counter, as in the JAX scan
+            counter = states[next(iter(cfgs))]
+            B = n_seqs
+            n_track = feats_all[next(iter(cfgs))].shape[0] // B
+            n = N // B
+            # with a spatial mesh: the projection of this rank's rows, gathered
+            # whole; this rank's rows of the start masks
+            smesh, heights = self.spatial_mesh, level_heights(im_size[0])
+            compressed_all = {L: halo.gather_rows(project_sequences(feats_all[L],
+                                                                    params[L].project, B),
+                                                  heights[L], smesh)
+                              for L in cfgs}
+            start_masks = halo.take_rows(start_masks, im_size[0], smesh)
+            t_all = torch.arange(1, n_track + 1, device=dev)[:, None]
+            starts = torch.stack([torch.full((), s, device=dev) for s in start_frames])
+            active_all = t_all > starts          # (T', N) tracked this frame
+            fresh_all = t_all == starts          # entering this frame
+            # a lane's frame counter after frame t is t - (start - counter at init)
+            base = torch.stack([torch.full((), s - f, device=dev)
+                                for s, f in zip(start_frames, counter.frame_num)])
+            cadence_all = active_all & ((t_all - base) % cfg.train_skipping == 0)
         outs = []
         for i0 in range(0, n_track, W):
-            i1 = min(i0 + W, n_track)
-            w = i1 - i0
-            active = active_all[i0:i1]
-            fresh = fresh_all[i0:i1]
-            # the same facts on the host, where the control flow needs them
-            active_h = [[t > s for s in start_frames] for t in range(i0 + 1, i1 + 1)]
-            entering = any(s in range(i0 + 1, i1 + 1) for s in start_frames)
+            with profiling.span("scan_forward"):
+                i1 = min(i0 + W, n_track)
+                w = i1 - i0
+                active = active_all[i0:i1]
+                fresh = fresh_all[i0:i1]
+                # the same facts on the host, where the control flow needs them
+                active_h = [[t > s for s in start_frames] for t in range(i0 + 1, i1 + 1)]
+                entering = any(s in range(i0 + 1, i1 + 1) for s in start_frames)
 
-            cft = {L: c[i0:i1] for L, c in compressed_all.items()}     # (w, N, c, h, w)
-            scores = []
-            for L, c in cft.items():
-                s = classify_objects(c, params[L].filter, clamp_output=cfgs[L].clamp_output)
-                scores.append(s.reshape(w * N, 1, *s.shape[-2:]).to(self.dtype))
-            # the object-independent TSE reductions run once per frame of
-            # each sequence and are repeated, at 32 channels, across its lanes
-            red = seg_network_reduce(self.refiner_c,
-                                     {L: feats_all[L][i0 * B:i1 * B] for L in layers},
-                                     layers, mesh=smesh, heights=heights)
-            if n > 1:
-                red = {L: (h.repeat_interleave(n, dim=0), hp.repeat_interleave(n, dim=0))
-                       for L, (h, hp) in red.items()}
-            y = self._decode(scores if self.multilayer else scores[0], red, im_size)
-            y = y.view(w, B, n, *y.shape[-2:]) * active.view(w, B, n, 1, 1)
-            if entering:
-                # suppress tracked masks under this window's entering objects
-                masks = start_masks.view(B, n, *start_masks.shape[-2:])[None]
-                entry = fresh.view(w, B, n, 1, 1)
-                sup = torch.prod(1.0 - masks * entry, dim=2)
-                y = y * sup[:, :, None]
-                rows = torch.where(entry, masks, y) if online else y
-            else:
-                rows = y
-            merged, labels = merge_rows_and_label(rows, obj_ids_lut)
-            merged = merged.flatten(1, 2)
-            outs.append(labels.flatten(0, 1) if online else rows.flatten(1, 2))
+                cft = {L: c[i0:i1] for L, c in compressed_all.items()}     # (w, N, c, h, w)
+                scores = []
+                for L, c in cft.items():
+                    s = classify_objects(c, params[L].filter, clamp_output=cfgs[L].clamp_output)
+                    scores.append(s.reshape(w * N, 1, *s.shape[-2:]).to(self.dtype))
+                # the object-independent TSE reductions run once per frame of
+                # each sequence and are repeated, at 32 channels, across its lanes
+                red = seg_network_reduce(self.refiner_c,
+                                         {L: feats_all[L][i0 * B:i1 * B] for L in layers},
+                                         layers, mesh=smesh, heights=heights)
+                if n > 1:
+                    red = {L: (h.repeat_interleave(n, dim=0), hp.repeat_interleave(n, dim=0))
+                           for L, (h, hp) in red.items()}
+                y = self._decode(scores if self.multilayer else scores[0], red, im_size)
+                y = y.view(w, B, n, *y.shape[-2:]) * active.view(w, B, n, 1, 1)
+                if entering:
+                    # suppress tracked masks under this window's entering objects
+                    masks = start_masks.view(B, n, *start_masks.shape[-2:])[None]
+                    entry = fresh.view(w, B, n, 1, 1)
+                    sup = torch.prod(1.0 - masks * entry, dim=2)
+                    y = y * sup[:, :, None]
+                    rows = torch.where(entry, masks, y) if online else y
+                else:
+                    rows = y
+                merged, labels = merge_rows_and_label(rows, obj_ids_lut)
+                merged = merged.flatten(1, 2)
+                outs.append(labels.flatten(0, 1) if online else rows.flatten(1, 2))
 
             if not cfg.update_filters:
                 for state in states.values():
                     state.frame_num = [f + sum(a[k] for a in active_h)
                                        for k, f in enumerate(state.frame_num)]
                 continue
-            merged = halo.gather_rows(merged, im_size[0], smesh)     # whole, for the memory
-            enough = ((merged > 0.5).sum(dim=(-2, -1)) >= 10) & active      # (w, N)
-            for f in range(w):
-                if any(active_h[f]):
-                    for L, state in states.items():
-                        insert_sample(state, cft[L][f], merged[f][:, None], enough[f],
-                                      active_h[f], cfgs[L])
+            with profiling.span("scan_insert"):
+                merged = halo.gather_rows(merged, im_size[0], smesh)     # whole, for the memory
+                enough = ((merged > 0.5).sum(dim=(-2, -1)) >= 10) & active      # (w, N)
+                for f in range(w):
+                    if any(active_h[f]):
+                        for L, state in states.items():
+                            insert_sample(state, cft[L][f], merged[f][:, None], enough[f],
+                                          active_h[f], cfgs[L])
             if any(a and n % cfg.train_skipping == 0
                    for a, n in zip(active_h[-1], counter.frame_num)):
-                due = cadence_all[i1 - 1] & enough[-1]
-                for L, state in states.items():
-                    params[L] = resolve_due(params[L], state, due, cfgs[L])
+                with profiling.span("scan_resolve"):
+                    due = cadence_all[i1 - 1] & enough[-1]
+                    for L, state in states.items():
+                        params[L] = resolve_due(params[L], state, due, cfgs[L])
+                        profiling.count("resolves")
         models = (params, states) if self.multilayer else (params[cfg.layer], states[cfg.layer])
         return halo.gather_rows(torch.cat(outs), im_size[0], smesh), models
 
@@ -626,43 +636,47 @@ class BatchedSequenceTracker:
         at the start frames, instead of labels."""
         if soft and self.merge_mode != "deferred":
             raise ValueError("soft output is the deferred merge's pre-merge volume")
-        if preloaded is not None:
-            images_np = preloaded["images_np"]
-            self._adopt(preloaded)
-            self._frame0_dev = preloaded["frame0_dev"]
-            chunks = preloaded["chunks"]
-            if aug_batches is None:
-                aug_batches = preloaded["aug_batches"]
-        else:
-            inputs = self.prepare_inputs(sequence)
-            images_np, self._frame0_dev, chunks = (inputs["images_np"], inputs["frame0_dev"],
-                                                   inputs["chunks"])
+        with self._recording(), profiling.request(sequence.name), \
+                profiling.span("run_sequence"):
+            if preloaded is not None:
+                images_np = preloaded["images_np"]
+                self._adopt(preloaded)
+                self._frame0_dev = preloaded["frame0_dev"]
+                chunks = preloaded["chunks"]
+                if aug_batches is None:
+                    aug_batches = preloaded["aug_batches"]
+            else:
+                with profiling.span("prepare_inputs"):
+                    inputs = self.prepare_inputs(sequence)
+                images_np, self._frame0_dev, chunks = (inputs["images_np"], inputs["frame0_dev"],
+                                                       inputs["chunks"])
 
-        if speedrun:
-            self._run(images_np, sequence, PhaseTimer(sync=False), chunks, soft=soft,
-                      aug_batches=aug_batches)
-        timer = PhaseTimer(sync=self.profile, device=self.device)
-        # the preload has landed (and a warm-up pass has drained) before the clock
-        self._synchronize()
-        t0 = time.perf_counter()
-        result = self._run(images_np, sequence, timer, chunks, soft=soft,
-                           aug_batches=aug_batches)
-        self._synchronize()
-        fps = len(sequence) / max(time.perf_counter() - t0, 1e-9)
-        self.last_phase_report = timer.report()
-        stats = timer.stats()
-        if "scan" in stats:
-            stats["scan"]["host_syncs"] = self._scan_host_syncs.count
-            stats["scan"]["host_syncs_at"] = list(self._scan_host_syncs.where)
-        self.last_phase_stats = stats
-        # downloads happen after the clock
-        if soft:
-            return result[0].cpu().numpy(), fps
-        outputs = []
-        for arr in result:
-            a = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr, np.uint8)
-            outputs.extend(list(a) if a.ndim == 3 else [a])
-        return outputs, fps
+            if speedrun:
+                self._run(images_np, sequence, PhaseTimer(sync=False), chunks, soft=soft,
+                          aug_batches=aug_batches)
+            timer = PhaseTimer(sync=self.profile, device=self.device)
+            # the preload has landed (and a warm-up pass has drained) before the clock
+            self._synchronize()
+            t0 = time.perf_counter()
+            result = self._run(images_np, sequence, timer, chunks, soft=soft,
+                               aug_batches=aug_batches)
+            self._synchronize()
+            fps = len(sequence) / max(time.perf_counter() - t0, 1e-9)
+            self.last_phase_report = timer.report()
+            stats = timer.stats()
+            if "scan" in stats:
+                stats["scan"]["host_syncs"] = self._scan_host_syncs.count
+                stats["scan"]["host_syncs_at"] = list(self._scan_host_syncs.where)
+            self.last_phase_stats = stats
+            # downloads happen after the clock
+            with profiling.span("label_download"):
+                if soft:
+                    return result[0].cpu().numpy(), fps
+                outputs = []
+                for arr in result:
+                    a = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr, np.uint8)
+                    outputs.extend(list(a) if a.ndim == 3 else [a])
+            return outputs, fps
 
     def run_dataset(self, dataset, out_path, speedrun=False, restart=None, pipeline=False):
         """Track every sequence, write indexed PNGs under
@@ -684,53 +698,61 @@ class BatchedSequenceTracker:
         shares the interpreter lock with the thread that issues the
         tracker's launches, so the two overlap only in part.
         """
-        out_path = Path(out_path)
-        out_path.mkdir(exist_ok=True, parents=True)
-        fps_meter = AverageMeter()
-        print("Evaluating", dataset.name)
-        restarted = restart is None
-        sequences = []
-        for sequence in dataset:
-            if not restarted:
-                if sequence.name != restart:
-                    continue
-                restarted = True
-            sequences.append(sequence)
+        with self._recording(), profiling.span("run_dataset"):
+            out_path = Path(out_path)
+            out_path.mkdir(exist_ok=True, parents=True)
+            fps_meter = AverageMeter()
+            print("Evaluating", dataset.name)
+            restarted = restart is None
+            sequences = []
+            for sequence in dataset:
+                if not restarted:
+                    if sequence.name != restart:
+                        continue
+                    restarted = True
+                sequences.append(sequence)
 
-        def prefetch(seq):
-            if hasattr(seq, "preload"):
-                seq.preload()
-            if not pipeline:
-                return seq, None
-            return seq, self.prepare_sequence(seq, stream=self._prep_stream)
+            def prefetch(seq):
+                if hasattr(seq, "preload"):
+                    seq.preload()
+                if not pipeline:
+                    return seq, None
+                return seq, self.prepare_sequence(seq, stream=self._prep_stream)
 
-        t_all = time.perf_counter()
-        n_frames = 0
-        for i, (sequence, prep) in enumerate(prefetch_iter(map(prefetch, sequences))):
-            outputs, seq_fps = self.run_sequence(sequence, speedrun, preloaded=prep)
-            fps_meter.update(seq_fps)
-            n_frames += len(sequence)
-            tag = " (ex-augment)" if pipeline and self.augment_backend != "device" else ""
-            print(f"{sequence.name}: {seq_fps:.2f} fps{tag}")
-            if self.spatial_mesh is None or self.spatial_mesh.rank == 0:     # one writer a group
-                dst = out_path / sequence.name
-                dst.mkdir(exist_ok=True)
-                for lb, f in zip(outputs, sequence.frame_names):
-                    imwrite_indexed(dst / (f + ".png"), lb)
-            sequence.preloaded = None   # release decoded frames
-            sequences[i] = None
-        wall = time.perf_counter() - t_all
-        print("Average frame rate: %.2f fps" % fps_meter.avg)
-        if pipeline:
-            extra = ", incl. speedrun warm-up passes" if speedrun else ""
-            print("Pipelined dataset pass: %.2f fps aggregate "
-                  "(%d frames / %.1fs wall, incl. PNG writes%s)"
-                  % (n_frames / max(wall, 1e-9), n_frames, wall, extra))
-        return fps_meter.avg
+            t_all = time.perf_counter()
+            n_frames = 0
+            for i, (sequence, prep) in enumerate(prefetch_iter(map(prefetch, sequences))):
+                with profiling.request(sequence.name):
+                    outputs, seq_fps = self.run_sequence(sequence, speedrun, preloaded=prep)
+                    fps_meter.update(seq_fps)
+                    n_frames += len(sequence)
+                    tag = " (ex-augment)" if pipeline and self.augment_backend != "device" else ""
+                    print(f"{sequence.name}: {seq_fps:.2f} fps{tag}")
+                    # one writer a group
+                    if self.spatial_mesh is None or self.spatial_mesh.rank == 0:
+                        with profiling.span("png_write"):
+                            dst = out_path / sequence.name
+                            dst.mkdir(exist_ok=True)
+                            for lb, f in zip(outputs, sequence.frame_names):
+                                imwrite_indexed(dst / (f + ".png"), lb)
+                sequence.preloaded = None   # release decoded frames
+                sequences[i] = None
+            wall = time.perf_counter() - t_all
+            print("Average frame rate: %.2f fps" % fps_meter.avg)
+            if pipeline:
+                extra = ", incl. speedrun warm-up passes" if speedrun else ""
+                print("Pipelined dataset pass: %.2f fps aggregate "
+                      "(%d frames / %.1fs wall, incl. PNG writes%s)"
+                      % (n_frames / max(wall, 1e-9), n_frames, wall, extra))
+            return fps_meter.avg
 
     def _synchronize(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _recording(self):
+        """The program's spans are recorded in a profiled run."""
+        return profiling.recording() if self.profile else contextlib.nullcontext()
 
     @torch.no_grad()
     def _run(self, images_np, sequence, timer: PhaseTimer, chunks, soft: bool = False,

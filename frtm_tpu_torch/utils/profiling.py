@@ -10,15 +10,171 @@ synchronised pass.
 
 `trace(log_dir)` is the counterpart of frtm_tpu's `xla_trace`: a
 torch.profiler session around a block, written to `log_dir` as a
-Chrome / Perfetto trace.
+Chrome / Perfetto trace, the program's spans on a track of their own.
+
+The span recorder. The port marks its layer boundaries with `span(name)`
+and counts work with `count(name, n)`; both do nothing unless a
+`recording()` block is open (on any thread: the recorder is the process's,
+as torch.profiler is). While one is, each span keeps its name, its start
+and end in `time.time_ns()` (the clock torch.profiler stamps host and device
+events in, so spans lie over the device trace as they are), the thread-CPU
+nanoseconds its thread spent inside it, the thread, the index in `spans()`
+of the span it opened inside on the same thread, and the request it served
+(`request(name)`: one sequence tracked). Counters are integers by request
+and name. A span never synchronises the device or reads a tensor, so it
+times the host's issue alone. `PhaseTimer.phase` records its phase as a
+span too. Everything is kept in memory until `reset()`.
 """
+import itertools
+import json
+import os
+import threading
 import time
 import warnings
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
+
+
+class Span(NamedTuple):
+    """One recorded span; end_ns and cpu_ns are None while it is open."""
+    name: str
+    start_ns: int
+    end_ns: Optional[int]
+    cpu_ns: Optional[int]
+    thread: int
+    parent: int                 # index in spans() of the enclosing span, -1 at a root
+    request: Optional[str]
+
+
+class _Recorder:
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0          # recording() blocks open
+        self.records = []       # Span fields as lists, filled in when a span closes
+        self.counts = defaultdict(int)      # (request, name) -> n
+        self.local = threading.local()      # .stack of open span indices, .request
+        self.ids = itertools.count()
+
+    def open(self, name):
+        """A handle for close(), or None while nothing records."""
+        if not self.depth:
+            return None
+        local = self.local
+        stack = getattr(local, "stack", None)
+        if stack is None:
+            stack = local.stack = []
+        rec = [name, time.time_ns(), None, None, threading.get_ident(),
+               stack[-1] if stack else -1, getattr(local, "request", None)]
+        with self.lock:
+            index = len(self.records)
+            self.records.append(rec)
+        stack.append(index)
+        return rec, time.thread_time_ns()
+
+    def close(self, handle, cpu_end_ns=None):
+        """Close the span; its thread-CPU time ends at cpu_end_ns (a
+        thread_time_ns() reading) where given, else now."""
+        rec, c0 = handle
+        rec[3] = (time.thread_time_ns() if cpu_end_ns is None else cpu_end_ns) - c0
+        rec[2] = time.time_ns()
+        self.local.stack.pop()
+
+
+_RECORDER = _Recorder()
+
+
+class _Span:
+    __slots__ = ("name", "handle")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.handle = _RECORDER.open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.handle is not None:
+            _RECORDER.close(self.handle)
+
+
+class _Request:
+    __slots__ = ("name", "outer")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        local = _RECORDER.local
+        self.outer = getattr(local, "request", None)
+        if self.outer is None:
+            local.request = f"{self.name}#{next(_RECORDER.ids)}"
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDER.local.request = self.outer
+
+
+_OFF = nullcontext()
+
+
+@contextmanager
+def recording():
+    """Record spans and counts while the block runs (blocks nest)."""
+    with _RECORDER.lock:
+        _RECORDER.depth += 1
+    try:
+        yield
+    finally:
+        with _RECORDER.lock:
+            _RECORDER.depth -= 1
+
+
+def span(name: str):
+    """A context manager that records the block as a span named `name`;
+    while nothing records, one shared no-op."""
+    return _Span(name) if _RECORDER.depth else _OFF
+
+
+def request(name: str):
+    """The block's spans and counts serve one request, named `name` and
+    numbered apart from every other; inside an open request, that one."""
+    return _Request(name) if _RECORDER.depth else _OFF
+
+
+def count(name: str, n: int = 1):
+    if not _RECORDER.depth:
+        return
+    key = (getattr(_RECORDER.local, "request", None), name)
+    with _RECORDER.lock:
+        _RECORDER.counts[key] += n
+
+
+def spans() -> list:
+    """Every span recorded since reset(), in the order they opened."""
+    with _RECORDER.lock:
+        return [Span(*rec) for rec in _RECORDER.records]
+
+
+def counts(requests=None) -> dict:
+    """{name: n} summed over all requests, or over those in `requests`."""
+    out = defaultdict(int)
+    with _RECORDER.lock:
+        for (req, name), n in _RECORDER.counts.items():
+            if requests is None or req in requests:
+                out[name] += n
+    return dict(out)
+
+
+def reset():
+    """Forget every span and count (call it with no span open)."""
+    with _RECORDER.lock:
+        _RECORDER.records.clear()
+        _RECORDER.counts.clear()
 
 
 class PhaseTimer:
@@ -39,13 +195,20 @@ class PhaseTimer:
 
     @contextmanager
     def phase(self, name):
+        """Time the block as phase `name`; where spans are recorded, also a
+        span whose thread-CPU time stops before the closing synchronise."""
         self._edge()
         t0 = time.perf_counter()
         c0 = time.thread_time()
+        handle = _RECORDER.open(name)
         try:
             yield
         finally:
+            if handle is not None:
+                cpu_end = time.thread_time_ns()
             self._edge()
+            if handle is not None:
+                _RECORDER.close(handle, cpu_end)
             self.cpu_totals[name] += time.thread_time() - c0
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
@@ -108,15 +271,40 @@ def count_host_syncs(device):
 def trace(log_dir):
     """Profile the block with torch.profiler and write its trace, viewable
     in Perfetto or chrome://tracing, to <log_dir>/trace.json: the host's
-    operators, and the card's kernels where a CUDA device is available.
+    operators, the card's kernels where a CUDA device is available, and the
+    spans the program recorded in the block (the recorder is on for it).
     Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with recording(), profile(activities=activities) as prof:
+        first = len(_RECORDER.records)
         yield prof
         if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(str(log_dir / "trace.json"))
+    path = log_dir / "trace.json"
+    prof.export_chrome_trace(str(path))
+    _add_spans(path, spans()[first:])
+
+
+def _add_spans(path, recorded):
+    """Append the closed spans to a Chrome trace that torch.profiler wrote,
+    as complete events in its time base (microseconds after its
+    baseTimeNanoseconds), on a track of each thread's own."""
+    doc = json.loads(path.read_text())
+    base = doc.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    events = doc.setdefault("traceEvents", [])
+    for thread in sorted({s.thread for s in recorded}):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": thread,
+                       "args": {"name": f"program spans ({thread})"}})
+    for s in recorded:
+        if s.end_ns is None:
+            continue
+        events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": pid,
+                       "tid": s.thread, "ts": (s.start_ns - base) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {"request": s.request, "cpu_ms": s.cpu_ns / 1e6}})
+    path.write_text(json.dumps(doc))

@@ -877,3 +877,41 @@ def test_batched_init_of_four_objects_on_the_card(gen, size):
     print(size, "lanes against one-object solves, of the peak:", gaps)
     if size == "small":
         assert max(gaps) <= 1e-5, gaps
+
+
+def test_kernel_records_follow_the_scan_forward_that_issued_them(gen):
+    """The port's spans and torch.profiler's device records share one
+    clock: in a profiled fused run every kernel-1 (pyrup) record starts
+    after the start of the latest `scan_forward` span before it on the
+    issuing thread (the window whose decode launched it), within 100 ms,
+    and every window's decode has its records."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.utils import profiling
+    tracker = _small_fused_world()
+    seq = make_moving_square_sequence(n_frames=9, size=(96, 128), square=24, n_objects=2,
+                                      seed=2)
+    tracker.run_sequence(seq)           # builds and first launches outside the profile
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with profiling.recording(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tracker.run_sequence(seq)
+            torch.cuda.synchronize()
+        starts = sorted(s.start_ns for s in profiling.spans()
+                        if s.name == "scan_forward" and s.thread == threading.get_ident())
+    finally:
+        profiling.reset()
+    records = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                     if str(e.device_type()).endswith("CUDA") and "pyrup" in e.name().lower())
+    assert len(starts) == 4 and records, (starts, records)       # 8 tracked frames, windows of 2
+    issued_by = []
+    for r in records:
+        before = [s for s in starts if s <= r]
+        assert before, (r - starts[0]) / 1e6
+        assert r - before[-1] <= 100_000_000, (r - before[-1]) / 1e6
+        issued_by.append(before[-1])
+    assert set(issued_by) == set(starts)
+    print("pyrup records after their scan_forward's start, ms:",
+          [round((r - s) / 1e6, 3) for r, s in zip(records, issued_by)])

@@ -49,7 +49,9 @@ from frtm_tpu_torch.config import eval_config
 from frtm_tpu_torch.models.discriminator import classify_objects, project_all
 from frtm_tpu_torch.models.resnet import ResNet
 from frtm_tpu_torch.models.seg_network import SegNetwork
+from frtm_tpu_torch.runtime import sequence_tracker
 from frtm_tpu_torch.runtime.sequence_tracker import BatchedSequenceTracker
+from frtm_tpu_torch.utils import profiling
 from frtm_tpu_torch.utils.convert import (disc_objects_from_jax, disc_params_from_jax,
                                           resnet_from_jax, seg_network_from_jax)
 from test_torch_tracker import SMALL, FreshBatches, JaxAugmenterShim
@@ -299,3 +301,85 @@ def test_batched_init_matches_jax(world):
         masks = torch.from_numpy(np.stack([o[2] for o in objects]))
         got = port._window_track(feats, converted, [0, 0], masks, lut, SIZE)[0].numpy()
     _assert_labels_close([want[0]] + list(got), want, 2)
+
+
+def _inside(inner, outer):
+    return outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
+
+
+def test_fused_tracker_records_the_scans_steps(world, monkeypatch):
+    """With the recorder on, a six-frame two-object sequence (windows of 2
+    over 5 tracked frames, re-solves after frames 2 and 4) records the
+    scan's four steps inside its `scan` phase, all of the sequence's
+    request, and one `resolves` a resolve_due call; the labels are the same
+    bytes as with the recorder off."""
+    seq = _sequence(6, 2)
+    port = world.port()
+    plain, _ = port.run_sequence(seq)
+    assert profiling.spans() == []
+    calls = []
+    inner = sequence_tracker.resolve_due
+
+    def counted(*args):
+        calls.append(args)
+        return inner(*args)
+    monkeypatch.setattr(sequence_tracker, "resolve_due", counted)
+    profiling.reset()
+    try:
+        with profiling.recording():
+            recorded, _ = port.run_sequence(seq)
+        spans, counts = profiling.spans(), profiling.counts()
+    finally:
+        profiling.reset()
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(plain, recorded))
+    assert len(plain) == len(recorded) == 6
+    names = [s.name for s in spans]
+    for name, n in (("run_sequence", 1), ("scan", 1), ("scan_prepare", 1), ("scan_forward", 3),
+                    ("scan_insert", 3), ("scan_resolve", 2), ("label_download", 1)):
+        assert names.count(name) == n, (name, names)
+    scan_at = names.index("scan")
+    scan = spans[scan_at]
+    request = spans[names.index("run_sequence")].request
+    assert request is not None and request.startswith(seq.name)
+    for s in spans:
+        assert s.request == request and s.cpu_ns <= s.end_ns - s.start_ns
+        if s.name.startswith("scan_"):
+            assert s.parent == scan_at and _inside(s, scan)
+    assert len(calls) == 2 and counts == {"resolves": len(calls)}
+    assert port.last_models[1].n_resolves.tolist() == [2, 2]
+
+
+def test_profiled_run_dataset_records_downloads_and_png_writes(world, tmp_path):
+    """profile=True turns the recorder on for run_dataset: each sequence is
+    a request whose spans hold its label download and its PNG writes; a
+    tracker that does not profile records nothing, and both write the same
+    bytes."""
+    class Dataset(list):
+        name = "synthetic"
+
+    seqs = Dataset([_sequence(3, 1, seed=2), _sequence(4, 2, seed=3)])
+    for i, seq in enumerate(seqs):
+        seq.name = f"s{i}"
+    profiling.reset()
+    try:
+        world.port().run_dataset(seqs, tmp_path / "plain")
+        assert profiling.spans() == []
+        world.port(profile=True).run_dataset(seqs, tmp_path / "profiled")
+        spans = profiling.spans()
+    finally:
+        profiling.reset()
+    for seq in seqs:
+        for f in seq.frame_names:
+            assert ((tmp_path / "plain" / seq.name / f"{f}.png").read_bytes()
+                    == (tmp_path / "profiled" / seq.name / f"{f}.png").read_bytes())
+    dataset, = [s for s in spans if s.name == "run_dataset"]
+    assert dataset.request is None
+    requests = [s.request for s in spans if s.name == "run_sequence"]
+    assert [r.split("#")[0] for r in requests] == ["s0", "s1"] and len(set(requests)) == 2
+    for r in requests:
+        mine = [s for s in spans if s.request == r]
+        for name in ("prepare_inputs", "scan", "scan_forward", "label_download", "png_write"):
+            assert sum(s.name == name for s in mine) >= 1, (r, name)
+        write = next(s for s in mine if s.name == "png_write")
+        download = next(s for s in mine if s.name == "label_download")
+        assert download.end_ns <= write.start_ns and _inside(write, dataset)
