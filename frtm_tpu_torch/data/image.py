@@ -30,12 +30,14 @@ is byte for byte the one that frtm_tpu's `imwrite` writes through PIL and
 libjpeg at PIL's defaults (quality 75, 4:2:0, the Annex K Huffman tables).
 """
 import struct
+import threading
 import zlib
+from collections import deque
 from pathlib import Path
 
 import numpy as np
 
-from ..utils import native
+from ..utils import native, profiling
 
 # 256-entry palette; the first 22 are the DAVIS colours, the rest a grey ramp.
 davis_palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
@@ -89,13 +91,15 @@ def encode_png(im) -> bytes:
 
 
 def _encode_png(rows, w, h, ctype, extra=b"") -> bytes:
-    """A PNG of (h, w * samples) uint8 rows, each written with filter None."""
-    data = np.zeros((h, rows.shape[1] + 1), np.uint8)
+    """A PNG of (h, w * samples) uint8 rows, each written with filter None
+    (compressed from the array's own buffer: no copy to bytes first)."""
+    data = np.empty((h, rows.shape[1] + 1), np.uint8)
+    data[:, 0] = 0
     data[:, 1:] = rows
     return (_PNG_SIGNATURE
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
             + extra
-            + _chunk(b"IDAT", zlib.compress(data.tobytes(), 6))
+            + _chunk(b"IDAT", zlib.compress(data, 6))
             + _chunk(b"IEND", b""))
 
 
@@ -559,6 +563,130 @@ def imwrite_indexed(filename, labels, color_palette=None):
     if labels.ndim == 3 and labels.shape[2] == 1:
         labels = labels[..., 0]
     Path(filename).write_bytes(encode_png_indexed(labels, palette))
+
+
+class LabelWriter:
+    """Writes sequences' label PNGs on background threads while the caller
+    goes on, so that a tracking loop does not wait for `zlib`, which
+    releases the interpreter lock while it compresses.
+
+        with LabelWriter() as writer:
+            for ...:
+                writer.put(dst, labels, frame_names)   # dst/<name>.png
+
+    THREADS threads take the frames of the oldest sequence handed off, one
+    file at a time, each through `write(path, labels)` (`imwrite_indexed`
+    unless given), so the files are those the serial loop writes. `put`
+    waits while DEPTH sequences are handed off and not yet written in full.
+    Leaving the block (or `close()`) waits for every file handed off and
+    joins the threads; a write's exception is raised on the caller's thread
+    at the next `put` or at the close, and the files not yet written are
+    dropped. Where the recorder is on, each thread's stretch of a
+    sequence's writes is a span `png_encode` of the request that handed the
+    sequence off."""
+
+    THREADS = 2
+    DEPTH = 2
+
+    def __init__(self, write=None):
+        self._write = imwrite_indexed if write is None else write
+        self._cv = threading.Condition()
+        self._todo = deque()    # sequences with files no thread has taken yet
+        self._held = 0          # sequences handed off and not yet written in full
+        self._closing = False
+        self._error = None
+        self._threads = []
+
+    def __enter__(self):
+        self._threads = [threading.Thread(target=self._work, name=f"label-writer-{i}",
+                                          daemon=True) for i in range(self.THREADS)]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, kind, exc, tb):
+        try:
+            self.close()
+        except Exception:
+            if exc is None:
+                raise
+
+    def put(self, dst, labels, names):
+        """Hand off one sequence: labels[i] is written to dst/<names[i]>.png."""
+        job = _Sequence(deque((Path(dst) / (f + ".png"), lb) for lb, f in zip(labels, names)),
+                        profiling.current_request())
+        with self._cv:
+            if self._closing:
+                raise RuntimeError("LabelWriter.put after close")
+            while self._held >= self.DEPTH and self._error is None:
+                self._cv.wait()
+            self._raise()
+            if job.left:
+                self._held += 1
+                self._todo.append(job)
+                self._cv.notify_all()
+
+    def close(self):
+        """Wait for every file handed off, join the threads, raise a write's
+        exception; called again, it only raises that again."""
+        with self._cv:
+            self._closing = True
+            self._cv.notify_all()
+        for t in self._threads:
+            t.join()
+        self._threads = []
+        with self._cv:
+            self._raise()
+
+    def _raise(self):
+        if self._error is not None:
+            raise self._error
+
+    def _take(self, job):
+        """The next (path, labels) of `job`, else None (with the lock held).
+        A sequence leaves the queue with its last file taken, so the job
+        with files left is the oldest."""
+        if self._error is not None or not job.files:
+            return None
+        item = job.files.popleft()
+        if not job.files:
+            self._todo.popleft()
+        return item
+
+    def _work(self):
+        while True:
+            with self._cv:
+                while not self._todo and not self._closing:
+                    self._cv.wait()
+                if not self._todo:
+                    return
+                job = self._todo[0]
+                item = self._take(job)
+            with profiling.span("png_encode", request=job.request):
+                while item is not None:
+                    try:
+                        self._write(*item)
+                    except Exception as e:
+                        with self._cv:
+                            self._error = self._error or e
+                            self._todo.clear()
+                            self._cv.notify_all()
+                        return
+                    with self._cv:
+                        job.left -= 1
+                        if not job.left:
+                            self._held -= 1
+                            self._cv.notify_all()
+                        item = self._take(job)
+
+
+class _Sequence:
+    """A sequence handed to a LabelWriter: the files no thread has taken,
+    how many are not yet written, the request that handed it off."""
+    __slots__ = ("files", "left", "request")
+
+    def __init__(self, files, request):
+        self.files, self.left, self.request = files, len(files), request
 
 
 def imwrite(filename, im):

@@ -32,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.image import imwrite_indexed
+from ..data.image import LabelWriter, imwrite_indexed
 from ..runtime.sequence_tracker import BatchedSequenceTracker
 from ..utils.prefetch import prefetch_iter
 from ..utils.profiling import PhaseTimer
@@ -112,10 +112,13 @@ class ShardedSequenceTracker(BatchedSequenceTracker):
 
     def run_dataset(self, dataset, out_path, speedrun=False, restart=None, chunk_multiple=1,
                     pipeline=False):
-        """Streaming dataset evaluation, memory bounded to one chunk: groups
-        the sequences by their metadata, then per chunk of
+        """Streaming dataset evaluation, memory bounded to one chunk (and
+        the labels of the LabelWriter's DEPTH sequences): groups the
+        sequences by their metadata, then per chunk of
         `n_devices * chunk_multiple` sequences of a group, this rank's rows:
-        prepare, track, write PNGs, release, before the next chunk.
+        prepare, track, hand the labels to the writer, release, before the
+        next chunk; the writer's threads write the PNGs meanwhile, all of
+        them before this returns.
 
         speedrun: before the clock, one member of each (group key, width)
         is prepared once and tracked at that width (first launches and the
@@ -157,23 +160,25 @@ class ShardedSequenceTracker(BatchedSequenceTracker):
         t0 = time.perf_counter()
         n_frames = 0
         seq_fps = []    # per sequence: frames / its chunk's wall
-        for (key, batch), preps in prefetch_iter(((j, prep_chunk(j[1])) for j in jobs),
-                                                 enabled=pipeline):
-            tc = time.perf_counter()
-            results = self._run_group(preps, key)
-            chunk_wall = max(time.perf_counter() - tc, 1e-9)
-            del preps
-            for seq in batch:
-                dst = out_path / seq.name
-                dst.mkdir(exist_ok=True, parents=True)
-                for lb, f in zip(results[seq.name], seq.frame_names):
-                    imwrite_indexed(dst / (f + ".png"), lb)
-                n_frames += len(seq)
-                seq_fps.append(len(seq) / chunk_wall)
-                print(f"{seq.name}: {len(seq)} frames written")
-                if getattr(seq, "preloaded", None) is not None:
-                    seq.preloaded = None    # release decoded frames
-            del results
+        # each chunk's PNGs are written while the next one tracks; the writer
+        # looks imwrite_indexed up here at each call
+        with LabelWriter(lambda path, labels: imwrite_indexed(path, labels)) as writer:
+            for (key, batch), preps in prefetch_iter(((j, prep_chunk(j[1])) for j in jobs),
+                                                     enabled=pipeline):
+                tc = time.perf_counter()
+                results = self._run_group(preps, key)
+                chunk_wall = max(time.perf_counter() - tc, 1e-9)
+                del preps
+                for seq in batch:
+                    dst = out_path / seq.name
+                    dst.mkdir(exist_ok=True, parents=True)
+                    writer.put(dst, results[seq.name], seq.frame_names)
+                    n_frames += len(seq)
+                    seq_fps.append(len(seq) / chunk_wall)
+                    print(f"{seq.name}: {len(seq)} frames written")
+                    if getattr(seq, "preloaded", None) is not None:
+                        seq.preloaded = None    # release decoded frames
+                del results
         fps = n_frames / max(time.perf_counter() - t0, 1e-9)
         # two fps, labelled so that they are never compared: the aggregate is
         # throughput (all frames over the whole wall, host prep included);

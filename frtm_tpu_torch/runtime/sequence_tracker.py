@@ -90,7 +90,7 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig, compute_dtype_of
-from ..data.image import imwrite_indexed
+from ..data.image import LabelWriter, imwrite_indexed
 from ..device import resolve_device
 from ..models.aug_compose import compose_aug_batch, pack_bits, pack_compact_batch, unpack_bits
 from ..models.augmenter import ImageAugmenter
@@ -205,8 +205,9 @@ class BatchedSequenceTracker:
     (nothing overlaps, fps drops) and counts the scan's host waits, so that
     `last_phase_stats` holds device-inclusive phase seconds, and run_sequence
     and run_dataset record the program's spans (utils/profiling.py): the
-    phases, the scan's four steps a window, the label download and the PNG
-    writes, each sequence a request of its own, and the `resolves` count."""
+    phases, the scan's four steps a window, the label download, the PNG
+    hand-off (`png_write`) and the writer threads' `png_encode`, each
+    sequence a request of its own, and the `resolves` count."""
 
     def __init__(self, cfg: TrackerConfig, backbone: ResNet, refiner: SegNetwork,
                  extract_chunk: int = 8, merge_mode: str = "online",
@@ -683,7 +684,10 @@ class BatchedSequenceTracker:
         out_path/<sequence>/, report the average fps: the surface of the
         host-loop Tracker.run_dataset. The next sequence's frames are decoded
         (`preload()`) on a background thread while the current one tracks;
-        sequences that are done release their decoded frames.
+        sequences that are done release their decoded frames. Their labels
+        go to a LabelWriter (data/image.py), whose threads write the PNGs
+        while the next sequence tracks; every file is written when this
+        returns.
 
         pipeline=True moves the whole host-side preparation of the next
         sequence (frame stacking, uploads, first-frame augmentation:
@@ -721,22 +725,30 @@ class BatchedSequenceTracker:
 
             t_all = time.perf_counter()
             n_frames = 0
-            for i, (sequence, prep) in enumerate(prefetch_iter(map(prefetch, sequences))):
-                with profiling.request(sequence.name):
-                    outputs, seq_fps = self.run_sequence(sequence, speedrun, preloaded=prep)
-                    fps_meter.update(seq_fps)
-                    n_frames += len(sequence)
-                    tag = " (ex-augment)" if pipeline and self.augment_backend != "device" else ""
-                    print(f"{sequence.name}: {seq_fps:.2f} fps{tag}")
-                    # one writer a group
-                    if self.spatial_mesh is None or self.spatial_mesh.rank == 0:
-                        with profiling.span("png_write"):
-                            dst = out_path / sequence.name
-                            dst.mkdir(exist_ok=True)
-                            for lb, f in zip(outputs, sequence.frame_names):
-                                imwrite_indexed(dst / (f + ".png"), lb)
-                sequence.preloaded = None   # release decoded frames
-                sequences[i] = None
+            # one writer a group
+            writes = self.spatial_mesh is None or self.spatial_mesh.rank == 0
+            # each sequence's PNGs are written while the next one tracks; the
+            # writer looks imwrite_indexed up here at each call
+            with LabelWriter(lambda path, labels: imwrite_indexed(path, labels)) as writer:
+                for i, (sequence, prep) in enumerate(prefetch_iter(map(prefetch, sequences))):
+                    with profiling.request(sequence.name):
+                        outputs, seq_fps = self.run_sequence(sequence, speedrun, preloaded=prep)
+                        fps_meter.update(seq_fps)
+                        n_frames += len(sequence)
+                        tag = (" (ex-augment)" if pipeline and self.augment_backend != "device"
+                               else "")
+                        print(f"{sequence.name}: {seq_fps:.2f} fps{tag}")
+                        if writes:
+                            # the hand-off, and after the last sequence the wait
+                            # for every write
+                            with profiling.span("png_write"):
+                                dst = out_path / sequence.name
+                                dst.mkdir(exist_ok=True)
+                                writer.put(dst, outputs, sequence.frame_names)
+                                if i == len(sequences) - 1:
+                                    writer.close()
+                    sequence.preloaded = None   # release decoded frames
+                    sequences[i] = None
             wall = time.perf_counter() - t_all
             print("Average frame rate: %.2f fps" % fps_meter.avg)
             if pipeline:

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig, compute_dtype_of
-from ..data.image import imwrite_indexed
+from ..data.image import LabelWriter, imwrite_indexed
 from ..device import resolve_device
 from ..models.augmenter import ImageAugmenter
 from ..models.discriminator import (DiscParams, DiscState, disc_apply, disc_init,
@@ -213,26 +213,29 @@ class Tracker:
 
     def run_dataset(self, dataset, out_path, speedrun=False, restart=None):
         """Track every sequence, write indexed PNGs under
-        out_path/<sequence>/, report the average fps. `restart`: skip the
-        sequences before the one of that name."""
+        out_path/<sequence>/ (a LabelWriter's threads, while the next
+        sequence tracks; all written when this returns), report the average
+        fps. `restart`: skip the sequences before the one of that name."""
         out_path = Path(out_path)
         out_path.mkdir(exist_ok=True, parents=True)
         fps_meter = AverageMeter()
         print("Evaluating", dataset.name)
         restarted = restart is None
-        for sequence in dataset:
-            if not restarted:
-                if sequence.name != restart:
-                    continue
-                restarted = True
-            if hasattr(sequence, "preload"):
-                sequence.preload()
-            outputs, seq_fps = self.run_sequence(sequence, speedrun)
-            fps_meter.update(seq_fps)
-            print(f"{sequence.name}: {seq_fps:.2f} fps")
-            dst = out_path / sequence.name
-            dst.mkdir(exist_ok=True)
-            for lb, f in zip(outputs, sequence.frame_names):
-                imwrite_indexed(dst / (f + ".png"), lb)
+        # each sequence's PNGs are written while the next one tracks; the
+        # writer looks imwrite_indexed up here at each call
+        with LabelWriter(lambda path, labels: imwrite_indexed(path, labels)) as writer:
+            for sequence in dataset:
+                if not restarted:
+                    if sequence.name != restart:
+                        continue
+                    restarted = True
+                if hasattr(sequence, "preload"):
+                    sequence.preload()
+                outputs, seq_fps = self.run_sequence(sequence, speedrun)
+                fps_meter.update(seq_fps)
+                print(f"{sequence.name}: {seq_fps:.2f} fps")
+                dst = out_path / sequence.name
+                dst.mkdir(exist_ok=True)
+                writer.put(dst, outputs, sequence.frame_names)
         print("Average frame rate: %.2f fps" % fps_meter.avg)
         return fps_meter.avg

@@ -20,10 +20,12 @@ and end in `time.time_ns()` (the clock torch.profiler stamps host and device
 events in, so spans lie over the device trace as they are), the thread-CPU
 nanoseconds its thread spent inside it, the thread, the index in `spans()`
 of the span it opened inside on the same thread, and the request it served
-(`request(name)`: one sequence tracked). Counters are integers by request
-and name. A span never synchronises the device or reads a tensor, so it
-times the host's issue alone. `PhaseTimer.phase` records its phase as a
-span too. Everything is kept in memory until `reset()`.
+(`request(name)`: one sequence tracked; work handed to another thread
+carries `current_request()` there, as `span(name, request=...)`). Counters
+are integers by request and name. A span never synchronises the device or
+reads a tensor, so it times the host's issue alone. `PhaseTimer.phase`
+records its phase as a span too. Everything is kept in memory until
+`reset()`.
 """
 import itertools
 import json
@@ -88,18 +90,25 @@ _RECORDER = _Recorder()
 
 
 class _Span:
-    __slots__ = ("name", "handle")
+    __slots__ = ("name", "handle", "request", "outer")
 
-    def __init__(self, name):
+    def __init__(self, name, request=None):
         self.name = name
+        self.request = request
 
     def __enter__(self):
+        if self.request is not None:
+            local = _RECORDER.local
+            self.outer = getattr(local, "request", None)
+            local.request = self.request
         self.handle = _RECORDER.open(self.name)
         return self
 
     def __exit__(self, *exc):
         if self.handle is not None:
             _RECORDER.close(self.handle)
+        if self.request is not None:
+            _RECORDER.local.request = self.outer
 
 
 class _Request:
@@ -134,10 +143,17 @@ def recording():
             _RECORDER.depth -= 1
 
 
-def span(name: str):
+def span(name: str, request: Optional[str] = None):
     """A context manager that records the block as a span named `name`;
-    while nothing records, one shared no-op."""
-    return _Span(name) if _RECORDER.depth else _OFF
+    while nothing records, one shared no-op. With `request` (a
+    `current_request()` of another thread), the span and those opened inside
+    it on its thread serve that request."""
+    return _Span(name, request) if _RECORDER.depth else _OFF
+
+
+def current_request() -> Optional[str]:
+    """The request the calling thread's spans serve now, None outside one."""
+    return getattr(_RECORDER.local, "request", None)
 
 
 def request(name: str):

@@ -1,6 +1,7 @@
 """The span recorder of utils/profiling.py on the CPU: off, it records
 nothing and hands out one shared no-op; on, its spans nest by thread, keep
 their thread-CPU time and request, and share torch.profiler's clock;
+a request read on one thread is served by spans on another;
 PhaseTimer's phases become spans without their stats moving; trace()
 writes the spans beside the profiler's events."""
 import json
@@ -139,6 +140,44 @@ def test_requests_counters_and_reset():
     assert profiling.counts({b.request, None}) == {"resolves": 1, "outside": 5}
     profiling.reset()
     assert profiling.spans() == [] and profiling.counts() == {}
+
+
+def test_a_request_is_carried_to_another_thread():
+    """current_request() read on one thread and given to span(name,
+    request=...) on another: that span and the spans inside it serve the
+    request there, and the other thread is outside it before and after."""
+    seen = {}
+
+    def work(request):
+        seen["before"] = profiling.current_request()
+        with profiling.span("encode", request=request):
+            seen["inside"] = profiling.current_request()
+            with profiling.span("file"):
+                pass
+        seen["after"] = profiling.current_request()
+        with profiling.span("later"):
+            pass
+
+    assert profiling.current_request() is None
+    with profiling.recording():
+        with profiling.request("seq"):
+            request = profiling.current_request()
+            with profiling.span("hand_off"):
+                t = threading.Thread(target=work, args=(request,))
+                t.start()
+                t.join(timeout=10)
+        assert not t.is_alive() and profiling.current_request() is None
+    got = {s.name: s for s in profiling.spans()}
+    assert request.startswith("seq#")
+    assert seen == {"before": None, "inside": request, "after": None}
+    assert got["encode"].request == got["file"].request == got["hand_off"].request == request
+    assert got["later"].request is None
+    assert got["file"].parent == list(got).index("encode")
+    assert got["encode"].thread == got["file"].thread != got["hand_off"].thread
+    # off, a span with a request is the shared no-op and sets nothing
+    assert profiling.span("x", request=request) is profiling.span("y")
+    with profiling.span("x", request=request):
+        assert profiling.current_request() is None
 
 
 def test_phase_timer_records_its_phases_as_spans():

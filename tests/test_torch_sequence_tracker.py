@@ -383,3 +383,39 @@ def test_profiled_run_dataset_records_downloads_and_png_writes(world, tmp_path):
         write = next(s for s in mine if s.name == "png_write")
         download = next(s for s in mine if s.name == "label_download")
         assert download.end_ns <= write.start_ns and _inside(write, dataset)
+
+
+def test_profiled_run_dataset_encodes_pngs_on_writer_threads(world, tmp_path):
+    """Three sequences: each one's `png_encode` spans serve its request, run
+    on threads other than the loop's (which holds `png_write`), lie inside
+    `run_dataset` and after the sequence's label download; every file is
+    there, and the last `png_write` ends after every `png_encode`."""
+    class Dataset(list):
+        name = "synthetic"
+
+    seqs = Dataset([_sequence(3, 1, seed=2), _sequence(4, 2, seed=3), _sequence(3, 1, seed=4)])
+    for i, seq in enumerate(seqs):
+        seq.name = f"s{i}"
+    profiling.reset()
+    try:
+        world.port(profile=True).run_dataset(seqs, tmp_path)
+        spans = profiling.spans()
+    finally:
+        profiling.reset()
+    for seq in seqs:
+        assert sorted(p.name for p in (tmp_path / seq.name).iterdir()) == \
+            sorted(f + ".png" for f in seq.frame_names)
+    dataset, = [s for s in spans if s.name == "run_dataset"]
+    writes = [s for s in spans if s.name == "png_write"]
+    encodes = [s for s in spans if s.name == "png_encode"]
+    assert len(writes) == 3 and encodes
+    for write in writes:
+        mine = [s for s in encodes if s.request == write.request]
+        download = next(s for s in spans if s.name == "label_download"
+                        and s.request == write.request)
+        assert mine and write.request is not None
+        for s in mine:
+            assert s.thread != write.thread and _inside(s, dataset)
+            assert download.end_ns <= s.start_ns
+    assert {s.request for s in encodes} == {s.request for s in writes}
+    assert max(s.end_ns for s in encodes) <= writes[-1].end_ns
