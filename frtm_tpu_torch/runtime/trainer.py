@@ -25,8 +25,18 @@ What the JAX trainer has and this one does not: the power-of-two bucket of
 cache misses, which only bounds the number of XLA programs. A batch's misses
 are solved together here, as the JAX trainer's vmapped program solves them:
 one `disc_init` (the one the tracker runs) with a lane per miss.
+
+Spans and counters (utils/profiling.py, recorded only inside `recording()`):
+each step is a request, `train_step`, with a span of that name from the
+batch's hand-over to the end of `train_step`; inside it `tmodel_load` (the
+cache reads and their upload) and the `PhaseTimer` phases (`forward`,
+`backward`, `step`, and on misses `augment`, `extract`, `disc_init`); the
+counters `tmodel_hits` and `tmodel_misses` (per sample, as
+`build_disc_batch` counts them). The loop's wait for the next batch is the
+span `data_wait`, outside the step's request.
 """
 import contextlib
+import itertools
 import json
 import os
 import tempfile
@@ -48,6 +58,7 @@ from ..models.seg_network import SegNetwork, apply_bn_updates, seg_network_apply
 from ..ops.collectives import all_reduce_grads, all_reduce_sum
 from ..parallel.distributed import barrier, batch_rows, process_count, process_index
 from ..parallel.mesh import replicated
+from ..utils import profiling
 from ..utils.convert import disc_params_from_jax, disc_params_to_jax
 from ..utils.meters import AverageMeter
 from ..utils.prefetch import prefetch_iter
@@ -212,16 +223,19 @@ class TrainerModel:
         params = [None] * len(specs)
         hits = 0
         unique_misses = {}   # (seq, frame0, obj) -> [batch indices]
-        for i, spec in enumerate(specs):
-            cached = self.cache.load(spec, L, self.device)
-            if cached is not None:
-                params[i] = cached
-                hits += 1
-                continue
-            key = (spec.seq_name, spec.frame0_id, spec.obj_id)
-            if key in unique_misses:
-                hits += 1
-            unique_misses.setdefault(key, []).append(i)
+        with profiling.span("tmodel_load"):
+            for i, spec in enumerate(specs):
+                cached = self.cache.load(spec, L, self.device)
+                if cached is not None:
+                    params[i] = cached
+                    hits += 1
+                    continue
+                key = (spec.seq_name, spec.frame0_id, spec.obj_id)
+                if key in unique_misses:
+                    hits += 1
+                unique_misses.setdefault(key, []).append(i)
+        profiling.count("tmodel_hits", hits)
+        profiling.count("tmodel_misses", len(specs) - hits)
         if unique_misses:
             keys = list(unique_misses)
             ims, lbs = [], []
@@ -444,8 +458,17 @@ class Trainer:
             return None
         return SummaryWriter(str(self.log_path))
 
-    def train(self):
+    def train(self, stop=None):
+        """Train from the epoch after self.epoch to max_epochs.
+
+        stop: a callable checked after each step, once its stats are taken.
+        Where it returns true, training ends at that step: the prefetch
+        worker is joined, an unfinished epoch writes no checkpoint and no
+        stats line, and self.epoch stays at the last finished epoch (a step
+        that finishes its epoch finishes it as always). In data-parallel
+        training every process must stop at the same step."""
         tb = self._tb_writer()
+        halt = False
         # one writer per run: rank 0
         with (open(self.log_path / "stats.jsonl", "a") if self._pid == 0
               else contextlib.nullcontext()) as log_file:
@@ -456,23 +479,41 @@ class Trainer:
                 runtime = AverageMeter()
                 t0 = None
                 n_batches = -(-len(merged) // self.batch_size)
-                for i, (images, labels, specs, mask) in enumerate(
-                        self._prefetched(self._batches(merged)), 1):
-                    t0 = time.time() if t0 is None else t0
-                    disc_batch, hits = self.model.build_disc_batch(images[0], labels[0], specs)
-                    stats = self.model.train_step(disc_batch, images, labels, mask,
-                                                  self.optimizer, self._lr(), self._group)
-                    runtime.update(time.time() - t0)
-                    t0 = time.time()
-                    stats["stats/fcache_hits"] = hits
-                    stats["stats/lr"] = self._lr()
-                    for k, v in stats.items():
-                        self.stats[k].update(v)
-                    sps = self.batch_size / max(runtime.val, 1e-9)
-                    print(f"{epoch}: {i}/{n_batches}, sps={sps:.2f} "
-                          f"({self.batch_size / max(runtime.avg, 1e-9):.2f}), "
-                          + ", ".join(f"{k.split('/')[-1]}={m.val:.5f} ({m.avg:.5f})"
-                                      for k, m in self.stats.items()))
+                batches = self._prefetched(self._batches(merged))
+                try:
+                    for i in itertools.count(1):
+                        with profiling.span("data_wait"):
+                            batch = next(batches, None)
+                        if batch is None:
+                            break
+                        images, labels, specs, mask = batch
+                        t0 = time.time() if t0 is None else t0
+                        with profiling.request("train_step"), profiling.span("train_step"):
+                            disc_batch, hits = self.model.build_disc_batch(images[0], labels[0],
+                                                                           specs)
+                            stats = self.model.train_step(disc_batch, images, labels, mask,
+                                                          self.optimizer, self._lr(),
+                                                          self._group)
+                        runtime.update(time.time() - t0)
+                        t0 = time.time()
+                        stats["stats/fcache_hits"] = hits
+                        stats["stats/lr"] = self._lr()
+                        for k, v in stats.items():
+                            self.stats[k].update(v)
+                        sps = self.batch_size / max(runtime.val, 1e-9)
+                        print(f"{epoch}: {i}/{n_batches}, sps={sps:.2f} "
+                              f"({self.batch_size / max(runtime.avg, 1e-9):.2f}), "
+                              + ", ".join(f"{k.split('/')[-1]}={m.val:.5f} ({m.avg:.5f})"
+                                          for k, m in self.stats.items()))
+                        if stop is not None and stop():
+                            halt = True
+                            break
+                finally:
+                    # joins the prefetch worker where the loop ends early
+                    batches.close()
+                if halt and i < n_batches:
+                    self.epoch = epoch - 1
+                    break
                 if self._pid == 0:
                     if self.epoch % self.save_interval == 0:
                         self.save_checkpoint()
@@ -485,9 +526,12 @@ class Trainer:
                 if tb is not None:
                     for k, m in self.stats.items():
                         tb.add_scalar(k, m.avg, self.epoch)
+                if halt:
+                    break
         if tb is not None:
             tb.close()
-        print("%s done" % self.name)
+        print(f"{self.name} stopped after epoch {self.epoch}" if halt
+              else "%s done" % self.name)
 
 
 class _ConcatDataset:
