@@ -25,9 +25,22 @@ and decides there. The fused tracker's pieces read nothing on the host:
 selects, per lane, between the old and the re-solved filter with one.
 Weights are OIHW behind the object axis: project (N, c, Cin, 1, 1), filter
 (N, out, c, 3, 3).
+
+A filter re-solve on the card issues several hundred small launches (ten CG
+steps of jvp, vjp, stencil and inner products on tensors of a few hundred
+thousand elements), so the host's issue, not the card, sets its time.
+`filter_resolve` and `resolve_due` therefore replay it as a CUDA graph
+(utils/cuda_graphs.py), one per `resolve_graph_key`, where `eager_reasons`
+finds nothing against it: CUDA tensors, the stencil form, no loss
+trajectories, no gradient wanted, no capture under way. The stencil's
+precompute (`_stencil_terms`, a handful of launches over the full-resolution
+label and weight stores) runs eagerly; the graph runs the GN-CG schedule and
+the `due` select on copies of the compressed samples, the stencil terms, the
+filter and the CG state. Elsewhere, and at a key's first call, the same
+functions run eagerly. `disc_init`'s solves always run eagerly.
 """
 from dataclasses import dataclass, replace
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import List, NamedTuple
 
 import numpy as np
@@ -40,6 +53,8 @@ from ..ops.conv import conv2d
 from .lsq_stencil import precompute_stencil, project_targets
 from .memory import MemoryState, memory_init, memory_update
 from ..ops.resize import interpolate
+from ..utils import profiling
+from ..utils.cuda_graphs import GraphCache
 from .solver import (CGState, gauss_newton_cg, gauss_newton_cg_quadform, init_cg_state,
                      lane_dot, lanes, scalar_preconditioner)
 
@@ -137,11 +152,12 @@ def lane_project(x, project):
     return out.view(N, S, -1, h, w)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)
 def _tap_sum_weight(out: int, device: torch.device) -> torch.Tensor:
     """(out, 9 * out, 3, 3) one-hot weight: a convolution with it sums, for
     each output, its nine tap maps, each shifted to its tap. Uploaded once
-    per device."""
+    per device and kept for the process's life: a replayed re-solve graph
+    reads it at the address it was captured with."""
     weight = torch.zeros(out, out * 9, 3, 3)
     for o in range(out):
         for k in range(9):
@@ -172,9 +188,9 @@ def _solve(memory: MemoryState, regs, precond, net_fn, theta, state, schedule,
     M1 = scalar_preconditioner(tuple(float(p) for p in precond))
     dff = cfg.direction_forget_factor
     N, S = memory.weights.shape
-    w = memory.pixel_weights * torch.sqrt(memory.weights).reshape(N, S, 1, 1, 1)
     x = memory.samples
     if cfg.solver == "residual":
+        w = _residual_weights(memory)
         y = memory.labels
 
         def residuals(*th):
@@ -185,10 +201,7 @@ def _solve(memory: MemoryState, regs, precond, net_fn, theta, state, schedule,
                                collect_losses=collect_losses)
     if cfg.solver != "stencil":
         raise ValueError(f"unknown solver {cfg.solver!r}: 'stencil' or 'residual'")
-    w2 = torch.square(w)[:, :, 0]                                # (N, S, H, W)
-    y = memory.labels[:, :, 0]
-    M9 = precompute_stencil(w2.flatten(0, 1), score_hw).unflatten(0, (N, S))
-    v = project_targets(w2.flatten(0, 1), y.flatten(0, 1), score_hw).unflatten(0, (N, S))
+    w2, y, M9, v = _stencil_terms(memory, score_hw)
 
     def scores(*th):
         return net_fn(*th, x)[:, :, 0]
@@ -196,6 +209,25 @@ def _solve(memory: MemoryState, regs, precond, net_fn, theta, state, schedule,
     loss_const = lane_dot(w2, torch.square(y)) if collect_losses else 0.0
     return gauss_newton_cg_quadform(scores, theta, state, schedule, M1, dff, M9, v, regs,
                                     collect_losses=collect_losses, loss_const=loss_const)
+
+
+def _residual_weights(memory: MemoryState):
+    """The residual weights w = pixel weight x sqrt(sample weight):
+    (N, S, 1, H, W)."""
+    N, S = memory.weights.shape
+    return memory.pixel_weights * torch.sqrt(memory.weights).reshape(N, S, 1, 1, 1)
+
+
+def _stencil_terms(memory: MemoryState, score_hw):
+    """The stencil form's full-resolution precompute: w^2 and the labels,
+    (N, S, H, W), the stencil maps M9 (N, S, 3, 3, h, w) and the projected
+    targets v (N, S, h, w)."""
+    N, S = memory.weights.shape
+    w2 = torch.square(_residual_weights(memory))[:, :, 0]
+    y = memory.labels[:, :, 0]
+    M9 = precompute_stencil(w2.flatten(0, 1), score_hw).unflatten(0, (N, S))
+    v = project_targets(w2.flatten(0, 1), y.flatten(0, 1), score_hw).unflatten(0, (N, S))
+    return w2, y, M9, v
 
 
 def _joint_net(project, filt, x):
@@ -273,10 +305,103 @@ def online_update_weights(train_y, cfg: DiscConfig):
     raise ValueError(f"unknown update_method: {m}")
 
 
+# the re-solve graphs of the process: a key for each lane count, memory and
+# configuration met (five in a DAVIS pass of 1-5 objects), with room for the
+# layers of a multilayer model and the sharded engine's lane counts
+RESOLVE_GRAPHS = GraphCache(maxsize=16)
+
+
+def eager_reasons(params: DiscParams, state: DiscState, cfg: DiscConfig,
+                  collect_losses: bool = False) -> list:
+    """Why a filter re-solve runs eagerly rather than as a CUDA graph: an
+    empty list where the graph may serve it."""
+    m, cg = state.memory, state.cg
+    tensors = (params.filter, m.samples, m.labels, m.pixel_weights, m.weights, *cg.p,
+               *cg.r_prev, cg.rho, cg.step_alpha)
+    reasons = []
+    if not all(t.is_cuda for t in tensors):
+        reasons.append("not on CUDA")
+    elif torch.cuda.is_current_stream_capturing():
+        reasons.append("a capture is under way")
+    if cfg.solver != "stencil":
+        reasons.append(f"the {cfg.solver} form")
+    if collect_losses:
+        reasons.append("loss trajectories")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        reasons.append("a gradient is wanted")
+    return reasons
+
+
+def resolve_graph_key(params: DiscParams, state: DiscState, cfg: DiscConfig) -> tuple:
+    """Everything that changes a re-solve graph's captured work: the device,
+    the lane count, the memory's and the filter's shapes and dtypes, and the
+    schedule and the constants the solve bakes in."""
+    m = state.memory
+    return (m.samples.device, m.weights.shape[0],
+            tuple((tuple(t.shape), t.dtype) for t in (m.samples, m.labels, m.pixel_weights,
+                                                       m.weights, params.filter)),
+            tuple(int(n) for n in cfg.update_iters),
+            tuple(float(r) for r in cfg.filter_reg[1:]),
+            tuple(float(p) for p in cfg.precond[1:]), float(cfg.direction_forget_factor))
+
+
+def _take_due(due, new, old):
+    """Per lane, `new` where the (N,) bool tensor `due` holds, else `old`."""
+    return torch.where(lanes(due, new), new, old)
+
+
+def _resolve_schedule(cfg: DiscConfig, x, M9, v, filt, p, r_prev, rho, have_p, step_alpha,
+                      due):
+    """What a re-solve graph captures: the stencil form's GN-CG schedule on
+    the samples x and the stencil terms, from the filter and CG state given,
+    then the `due` select. Returns the selected filter, p, r_prev, rho,
+    have_p and step_alpha."""
+    old = CGState(p=(p,), r_prev=(r_prev,), rho=rho, have_p=have_p, step_alpha=step_alpha)
+    theta, cg = gauss_newton_cg_quadform(
+        lambda f: _filter_net(f, x)[:, :, 0], (filt,), old, cfg.update_iters,
+        scalar_preconditioner(tuple(float(q) for q in cfg.precond[1:])),
+        cfg.direction_forget_factor, M9, v, cfg.filter_reg[1:])
+    return tuple(_take_due(due, a, b) for a, b in (
+        (theta[0], filt), (cg.p[0], p), (cg.r_prev[0], r_prev), (cg.rho, rho),
+        (cg.have_p, have_p), (cg.step_alpha, step_alpha)))
+
+
+def _replay_resolve(params: DiscParams, state: DiscState, due, cfg: DiscConfig):
+    """(filter, CGState) of a re-solve that a CUDA graph served, each lane's
+    where `due` holds (every lane's where it is None); None where the
+    re-solve is to run eagerly."""
+    if eager_reasons(params, state, cfg):
+        return None
+    m, cg = state.memory, state.cg
+
+    def inputs():
+        _, _, M9, v = _stencil_terms(m, tuple(m.samples.shape[-2:]))
+        return (m.samples, M9, v, params.filter, cg.p[0], cg.r_prev[0], cg.rho, cg.have_p,
+                cg.step_alpha, torch.ones_like(cg.have_p) if due is None else due)
+
+    out = RESOLVE_GRAPHS.run(resolve_graph_key(params, state, cfg),
+                             lambda *a: _resolve_schedule(cfg, *a), inputs)
+    if out is None:
+        return None
+    filt, p, r_prev, rho, have_p, step_alpha = out
+    return filt, replace(cg, p=(p,), r_prev=(r_prev,), rho=rho, have_p=have_p,
+                         step_alpha=step_alpha)
+
+
 def filter_resolve(params: DiscParams, state: DiscState, cfg: DiscConfig,
                    collect_losses: bool = False):
     """Filter-only re-solve of every lane on its current memory,
-    warm-started from the carried CG state. Returns (params, cg[, losses])."""
+    warm-started from the carried CG state, replayed as a CUDA graph where
+    `eager_reasons` allows. Returns (params, cg[, losses])."""
+    if not collect_losses:
+        got = _replay_resolve(params, state, None, cfg)
+        if got is not None:
+            return params._replace(filter=got[0]), got[1]
+    return _filter_resolve_eager(params, state, cfg, collect_losses)
+
+
+def _filter_resolve_eager(params: DiscParams, state: DiscState, cfg: DiscConfig,
+                          collect_losses: bool = False):
     score_hw = tuple(state.memory.samples.shape[-2:])
     out = _solve(state.memory, cfg.filter_reg[1:], cfg.precond[1:], _filter_net,
                  (params.filter,), state.cg, cfg.update_iters, cfg, score_hw, collect_losses)
@@ -354,16 +479,21 @@ def resolve_due(params: DiscParams, state: DiscState, due, cfg: DiscConfig) -> D
     """One filter re-solve of every lane, whose result each lane takes where
     the (N,) bool tensor `due` holds: only the filters and the CG state pass
     through the select, the memory buffers are read by the solve and never
-    copied."""
-    new_params, new_cg = filter_resolve(params, state, cfg)
-
-    def sel(a, b):
-        return torch.where(lanes(due, a), a, b)
-
-    cg = state.cg
-    state.cg = replace(cg, p=tuple(map(sel, new_cg.p, cg.p)),
-                       r_prev=tuple(map(sel, new_cg.r_prev, cg.r_prev)),
-                       rho=sel(new_cg.rho, cg.rho), have_p=sel(new_cg.have_p, cg.have_p),
-                       step_alpha=sel(new_cg.step_alpha, cg.step_alpha))
+    copied. Replayed as a CUDA graph where `eager_reasons` allows; the
+    counter `resolve_replays` adds 1 for a call a replay served, 0 for one
+    run eagerly."""
+    got = _replay_resolve(params, state, due, cfg)
+    profiling.count("resolve_replays", int(got is not None))
+    if got is not None:
+        filt, state.cg = got
+    else:
+        new_params, new_cg = _filter_resolve_eager(params, state, cfg)
+        sel = partial(_take_due, due)
+        cg = state.cg
+        state.cg = replace(cg, p=tuple(map(sel, new_cg.p, cg.p)),
+                           r_prev=tuple(map(sel, new_cg.r_prev, cg.r_prev)),
+                           rho=sel(new_cg.rho, cg.rho), have_p=sel(new_cg.have_p, cg.have_p),
+                           step_alpha=sel(new_cg.step_alpha, cg.step_alpha))
+        filt = sel(new_params.filter, params.filter)
     state.n_resolves = state.n_resolves + due.long()
-    return params._replace(filter=sel(new_params.filter, params.filter))
+    return params._replace(filter=filt)

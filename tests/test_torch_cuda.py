@@ -915,3 +915,171 @@ def test_kernel_records_follow_the_scan_forward_that_issued_them(gen):
     assert set(issued_by) == set(starts)
     print("pyrup records after their scan_forward's start, ms:",
           [round((r - s) / 1e6, 3) for r, s in zip(records, issued_by)])
+
+
+def _resolve_world(n, size, seed, cfg=None):
+    """disc_init of n objects on the card from seeded features and boxes, at
+    the CPU tests' size (32 channels into 8, 6x8 scores, 24x32 masks, a
+    memory of 8) or the eval configuration's widths (1024 into 96, 30x54,
+    480x854, a memory of 80), and the inserts of three frames after it, one
+    a re-solve: (cfg, params, state, [(compressed, mask)] * 3)."""
+    from dataclasses import replace
+    from frtm_tpu_torch.config import DiscConfig, eval_config
+    from frtm_tpu_torch.models import discriminator as td
+    if cfg is None:
+        cfg = (DiscConfig(in_channels=32, c_channels=8, init_iters=(3, 5), update_iters=(3,),
+                          memory_size=8, train_skipping=2) if size == "small"
+               else replace(eval_config("resnet101").disc))
+    K, h, w, H, W = (3, 6, 8, 24, 32) if size == "small" else (6, 30, 54, 480, 854)
+    g = torch.Generator().manual_seed(seed)
+
+    def masks(count):
+        out = torch.zeros((count, 1, H, W))
+        for i in range(count):
+            y = int(torch.randint(0, H - H // 3, (1,), generator=g))
+            x = int(torch.randint(0, W - W // 3, (1,), generator=g))
+            out[i, 0, y:y + H // 3, x:x + W // 3] = 1.0
+        return out.cuda()
+
+    feats = torch.randn((n, K, cfg.in_channels, h, w), generator=g).cuda()
+    labels = masks(n * K).view(n, K, 1, H, W)
+    p0 = td.init_disc_params(cfg, g, "cuda")
+    params, state = td.disc_init(td.repeat_params(p0, n), feats, labels, cfg)
+    frames = [(torch.randn((n, cfg.c_channels, h, w), generator=g).cuda(), masks(n))
+              for _ in range(3)]
+    return cfg, params, state, frames
+
+
+def _resolve_runs(monkeypatch, maxsize, n, size, sequences=2):
+    """Each of `sequences` sequences (its own disc_init, so its own memory
+    allocations) inserts a frame and calls resolve_due three times, with the
+    due masks alternating; then one filter_resolve (the host loop's call).
+    Run with a fresh graph cache of `maxsize` keys (0: every call eager).
+    Returns the filters and CG states after each call, the replays counted
+    and the cache."""
+    from frtm_tpu_torch.models import discriminator as td
+    from frtm_tpu_torch.utils import profiling
+    from frtm_tpu_torch.utils.cuda_graphs import GraphCache
+    cache = GraphCache(maxsize)
+    monkeypatch.setattr(td, "RESOLVE_GRAPHS", cache)
+    dues = [[k % 2 == 0 for k in range(n)], [k % 2 == 1 for k in range(n)], [True] * n]
+    got = []
+    profiling.reset()
+    try:
+        with profiling.recording():
+            for s in range(sequences):
+                cfg, params, state, frames = _resolve_world(n, size, seed=10 + s)
+                for (c, y), due in zip(frames, dues):
+                    td.insert_sample(state, c, y, torch.ones(n, dtype=torch.bool, device="cuda"),
+                                     [True] * n, cfg)
+                    params = td.resolve_due(params, state, torch.tensor(due, device="cuda"), cfg)
+                    got.append((params.filter, state.cg))
+                params, cg = td.filter_resolve(params, state, cfg)
+                got.append((params.filter, cg))
+        torch.cuda.synchronize()
+        replays = profiling.counts().get("resolve_replays")
+    finally:
+        profiling.reset()
+    return got, replays, cache
+
+
+def _assert_same_resolves(got, want):
+    for k, ((f, cg), (f0, cg0)) in enumerate(zip(got, want)):
+        for a, b in ((f, f0), (cg.p[0], cg0.p[0]), (cg.r_prev[0], cg0.r_prev[0]),
+                     (cg.rho, cg0.rho), (cg.have_p, cg0.have_p),
+                     (cg.step_alpha, cg0.step_alpha)):
+            assert torch.equal(a, b), (k, float((a.float() - b.float()).abs().max()))
+
+
+@pytest.mark.parametrize("n,size", [(1, "small"), (3, "small"), (3, "eval")])
+def test_graphed_resolve_equals_the_eager_one(gen, monkeypatch, n, size):
+    """The re-solve replayed as a CUDA graph against the same calls run
+    eagerly (a cache of size 0), bit for bit: the filter and the CG state
+    after each of three resolve_due calls of two sequences whose memories
+    are separate allocations, the due masks alternating (a graph output fed
+    back without a copy would be overwritten by the next replay before it is
+    read), and after filter_resolve. The key's first call runs eagerly, every
+    later one replays: 5 of the 6 resolve_due calls count a replay, and the
+    cache holds one graph."""
+    want, eager_replays, _ = _resolve_runs(monkeypatch, 0, n, size)
+    got, replays, cache = _resolve_runs(monkeypatch, 4, n, size)
+    assert eager_replays == 0 and replays == 5
+    assert len(cache) == cache.captured() == 1
+    _assert_same_resolves(got, want)
+
+
+@pytest.mark.parametrize("shapes", ["shared", "apart"])
+def test_graphed_resolve_of_two_layers(gen, monkeypatch, shapes):
+    """Two target-model layers of three objects (ml_disc_init), re-solved one
+    after the other as the fused tracker does, over three windows, graphed
+    against eager bit for bit. Layers of one shape share one graph, so a
+    layer's filter that aliased the graph's output would be overwritten by
+    the next layer's replay; layers of two shapes take a graph each."""
+    from frtm_tpu_torch.config import DiscConfig
+    from frtm_tpu_torch.models import discriminator as td
+    from frtm_tpu_torch.models.multilayer import ml_disc_init
+    from frtm_tpu_torch.utils.cuda_graphs import GraphCache
+    n, K, H, W = 3, 3, 48, 64
+    hw = {"layer4": (6, 8), "layer3": (6, 8) if shapes == "shared" else (12, 16)}
+    cfgs = {L: DiscConfig(in_channels=16, c_channels=8, init_iters=(2, 3), update_iters=(3,),
+                          memory_size=6, train_skipping=1, layer=L) for L in hw}
+
+    def run(maxsize):
+        cache = GraphCache(maxsize)
+        monkeypatch.setattr(td, "RESOLVE_GRAPHS", cache)
+        g = torch.Generator().manual_seed(5)
+        feats = {L: torch.randn((n, K, 16, *s), generator=g).cuda() for L, s in hw.items()}
+        masks = torch.zeros((n, K, 1, H, W))
+        for i in range(n):
+            masks[i, :, :, 10 + 3 * i:34, 14:44 - 4 * i] = 1.0
+        p0 = {L: td.repeat_params(td.init_disc_params(c, g, "cuda"), n) for L, c in cfgs.items()}
+        params, states = ml_disc_init(p0, feats, masks.cuda(), cfgs)
+        out = []
+        for step in range(3):
+            due = torch.tensor([(k + step) % 2 == 0 for k in range(n)], device="cuda")
+            for L in cfgs:
+                c = torch.randn((n, 8, *hw[L]), generator=g).cuda()
+                y = masks[:, step % K].cuda()
+                td.insert_sample(states[L], c, y, torch.ones(n, dtype=torch.bool, device="cuda"),
+                                 [True] * n, cfgs[L])
+            for L in cfgs:
+                params[L] = td.resolve_due(params[L], states[L], due, cfgs[L])
+            out += [(params[L].filter, states[L].cg) for L in cfgs]
+        torch.cuda.synchronize()
+        return out, cache
+    want, _ = run(0)
+    got, cache = run(8)
+    assert cache.captured() == (1 if shapes == "shared" else 2)
+    _assert_same_resolves(got, want)
+
+
+def test_fused_tracker_replays_its_resolves_bit_equal(gen, monkeypatch):
+    """The fused tracker on the card, three two-object sequences of 9 frames
+    (windows of 2: 4 re-solves each), with the graphs and with every re-solve
+    eager: the same labels and final filters bit for bit; the first re-solve
+    runs eagerly and the other 11 replay."""
+    from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
+    from frtm_tpu_torch.models import discriminator as td
+    from frtm_tpu_torch.utils import profiling
+    from frtm_tpu_torch.utils.cuda_graphs import GraphCache
+    tracker = _small_fused_world()
+    seqs = [make_moving_square_sequence(n_frames=9, size=(96, 128), square=24, n_objects=2,
+                                        seed=20 + i) for i in range(3)]
+    runs = []
+    for maxsize in (0, 4):
+        monkeypatch.setattr(td, "RESOLVE_GRAPHS", GraphCache(maxsize))
+        profiling.reset()
+        try:
+            with profiling.recording():
+                outs = [(tracker.run_sequence(s)[0], tracker.last_models[0].filter.clone())
+                        for s in seqs]
+            counts = profiling.counts()
+        finally:
+            profiling.reset()
+        runs.append((outs, counts))
+    (eager, eager_counts), (graphed, counts) = runs
+    assert eager_counts == {"resolves": 12, "resolve_replays": 0}
+    assert counts == {"resolves": 12, "resolve_replays": 11}
+    for (labels0, f0), (labels, f) in zip(eager, graphed):
+        assert all(a.tobytes() == b.tobytes() for a, b in zip(labels0, labels))
+        assert torch.equal(f0, f)
