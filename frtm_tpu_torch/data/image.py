@@ -23,11 +23,11 @@ frtm_tpu's `imread` returns for it:
 
 JPEG is decoded by the host library too (libjpeg or nvJPEG, whichever its
 build found; `native.JPEG_BACKEND`), always to (H, W, 3) RGB; `imread_batch`
-decodes same-size JPEG frames on its pool of threads. JPEG is written by the
-host library's own baseline encoder (`native.encode_jpeg`; `encode_jpeg_plain`
-is its plain version): IJG's integer arithmetic step by step, so that a file
-is byte for byte the one that frtm_tpu's `imwrite` writes through PIL and
-libjpeg at PIL's defaults (quality 75, 4:2:0, the Annex K Huffman tables).
+decodes same-size JPEG frames on its pool of threads. JPEG is written by this
+module's own baseline encoder (`encode_jpeg_plain`): IJG's integer arithmetic
+step by step, so that a file is byte for byte the one that frtm_tpu's
+`imwrite` writes through PIL and libjpeg at PIL's defaults (quality 75,
+4:2:0, the Annex K Huffman tables).
 """
 import struct
 import threading
@@ -243,8 +243,7 @@ def decode_png(data: bytes) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # JPEG writing: a baseline encoder on IJG's integer arithmetic (libjpeg's
 # jccolor.c, jcsample.c, jfdctint.c, jcdctmgr.c, jchuff.c, jcmarker.c), in
-# numpy for the blocks and Python for the entropy coder. The host library's
-# encode_jpeg is the same algorithm in C++; the two give the same bytes.
+# numpy for the blocks and Python for the entropy coder.
 
 # the natural (row-major) index of each zigzag position (jpeg_natural_order)
 _ZIGZAG = np.array([
@@ -488,8 +487,7 @@ def _jpeg_headers(h: int, w: int, components: int, quant) -> bytes:
 def encode_jpeg_plain(im) -> bytes:
     """The bytes of a baseline JPEG of a (H, W) greyscale or (H, W, 3) RGB
     uint8 image, as libjpeg writes it with PIL's defaults (quality 75, 4:2:0
-    for colour, islow DCT, Annex K Huffman tables). The plain version of
-    native.encode_jpeg."""
+    for colour, islow DCT, Annex K Huffman tables)."""
     im = _jpeg_input(im)
     quant = _QUANT_75
     tables = [(_huffman_codes(*_HUFF_DC[t]), _huffman_codes(*_HUFF_AC[t])) for t in (0, 1)]
@@ -693,9 +691,9 @@ def imwrite(filename, im):
     """Write an image as frtm_tpu/data/image.py::imwrite does, by its suffix:
     PNG, uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4); JPEG (.jpg, .jpeg
     in any case), the bytes frtm_tpu writes (`jpeg_image` says which arrays,
-    `native.encode_jpeg` how). Other formats raise."""
+    `encode_jpeg_plain` how). Other formats raise."""
     if _is_jpeg(filename):
-        Path(filename).write_bytes(native.encode_jpeg(jpeg_image(im)))
+        Path(filename).write_bytes(encode_jpeg_plain(jpeg_image(im)))
         return
     if Path(filename).suffix.lower() != ".png":
         raise ValueError(f"imwrite writes PNG and JPEG only (.png, .jpg, .jpeg), got {filename}")

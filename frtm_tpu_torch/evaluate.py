@@ -76,10 +76,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "augmentation) during the current one's tracking (faster "
                          "dataset wall; per-sequence fps then excludes augment and "
                          "is not protocol-comparable)")
-    ap.add_argument("--aug-compact", choices=("auto", "on", "off"), default="auto",
-                    help="fused engine: take augment batches in the compact "
-                         "device-composed encoding. auto = off (the JAX package "
-                         "turns it on only where its backend is a TPU)")
     return ap
 
 
@@ -199,7 +195,6 @@ def main(argv=None, dataset=None):
                                   pipeline=args.pipeline)
     else:
         tracker = BatchedSequenceTracker(cfg, backbone, refiner, extract_chunk=16,
-                                         aug_compact=args.aug_compact == "on",
                                          device=args.dev, mesh=sp_mesh)
         fps = tracker.run_dataset(dset_run, out_path, speedrun=speedrun, restart=args.restart,
                                   pipeline=args.pipeline)

@@ -1,6 +1,6 @@
-"""First-frame augmentation (frtm_tpu/models/augmenter.py, dense and compact):
-cut the target out, inpaint the hole, and paste the target back under random
-affine and blur transforms to build the target model's initial training set.
+"""First-frame augmentation (frtm_tpu/models/augmenter.py): cut the target
+out, inpaint the hole, and paste the target back under random affine and
+blur transforms to build the target model's initial training set.
 
 The spec and accept sequence comes from the caller's np.random.RandomState
 exactly as in the JAX augmenter. Cutting and Telea inpainting run on the host
@@ -8,9 +8,9 @@ exactly as in the JAX augmenter. Cutting and Telea inpainting run on the host
 (ops/kernels/warp_affine.py) on the augmenter's device — the background
 warp, and the foreground's RGBA target (bicubic) and label (nearest) in one
 mixed launch under their common map — the blur filters are
-zero-border per-channel convolutions there, and the batch is composed there.
-With `compact=True` the pieces of the batch are returned instead of its K
-full frames (CompactAugBatch; models/aug_compose.py composes them).
+zero-border per-channel correlations there, their taps summed in the order of
+frtm_tpu's CPU convolution (correlate_planes), and the batch is composed
+there.
 """
 from dataclasses import dataclass
 
@@ -32,37 +32,6 @@ _DEFAULT_SELECTIONS = dict(
     blur_size=[0.0, 0.0, 0.0, 2.0, 5.0],
     blur_angle=[0, 45, 90, 135],
 )
-
-
-@dataclass
-class CompactAugBatch:
-    """The pieces of one object's augment batch, on the augmenter's device:
-    every augmented frame is a memoised background plus a box-sized blended
-    paste of the target.
-
-      * slot 0 is the real frame;
-      * the inpainted background differs from it only inside the dilated
-        target mask and rides as that rectangle;
-      * an identity-transform background IS the inpainted frame, a blur-only
-        one is a small convolution of it (the kernel rides along), and a
-        warped one carries one pre-blur uint8 base per distinct transform;
-      * each paste is the final blended uint8 rectangle (blended against the
-        float32 background, as the dense path blends it) with its box.
-
-    Against the dense batch: slot 0, labels, paste rectangles and every
-    background that is not both warped and blurred are bit-exact; a blurred
-    warped background sees the uint8 quantization of its base, at most 1
-    count."""
-    image: torch.Tensor          # (3, H, W) uint8 real frame (slot 0)
-    mask: torch.Tensor           # (H, W) uint8 slot-0 label
-    inpaint_patch: torch.Tensor  # (3, hi, wi) uint8 inpainted rectangle
-    inpaint_box: tuple           # (y, x, hi, wi)
-    warp_bases: list             # [(3, H, W) uint8] pre-blur warped backgrounds
-    bg_idx: list                 # per slot: 0 = inpainted, i >= 1 -> warp_bases[i - 1]
-    kernels: list                # per slot: (k, k) float32 numpy blur kernel ((1, 1) = none)
-    patches: list                # per slot: (3, h, w) uint8 blended rectangle
-    boxes: list                  # per slot: (y, x, h, w)
-    lbl_patches: list            # per slot: (h, w) uint8 label rectangle
 
 
 @dataclass
@@ -107,6 +76,39 @@ def blur_kernel(sx, sy, R):
     X = (X * np.tensordot(np.linalg.inv(cov), X, axes=[1, 0])).sum(0)
     G = np.exp(-0.5 * X)
     return (G / G.sum()).astype(np.float32)
+
+
+def correlate_planes(planes: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """Zero-border correlation of (C, H, W) float32 planes with a (k, k)
+    float32 kernel, k odd, its k * k row-major taps summed in the order of
+    the XLA CPU convolution that frtm_tpu's augmenter calls (read off it
+    with cancelling probe values), so that every value equals it: tap t's
+    product starts lane t % 8 for t < 8, and each later tap of a whole group
+    of eight is a fused multiply-add into its lane; the lanes are summed as
+    ((0 + 1) + (4 + 5)) + ((2 + 3) + (6 + 7)), and the last tap
+    (k * k = 1 mod 8) is added as a rounded product. Measured equal for the
+    3 x 3 and 7 x 7 kernels that the blur sizes make; larger kernels take
+    another order there. A blurred flat region shows the difference: summed
+    in another order, its values fall a float32 step below the integer, and
+    their uint8 cast one count.
+
+    The multiply-add is exact in float64 (the product of two float32s is),
+    rounded there and again to float32: one rounding, as fused, unless the
+    float64 sum falls exactly halfway between two float32 values."""
+    kh, kw = kernel.shape
+    _, H, W = planes.shape
+    x = F.pad(planes, (kw // 2, kw // 2, kh // 2, kh // 2))
+    taps = [x[:, i:i + H, j:j + W] for i in range(kh) for j in range(kw)]
+    w = torch.from_numpy(np.ascontiguousarray(kernel, np.float32).reshape(-1, 1, 1, 1))
+    w, w64 = w.to(planes.device), w.double().to(planes.device)
+    n = len(taps) - 1
+    lanes = torch.stack(taps[:8]) * w[:8]
+    for t in range(8, n, 8):        # a group of eight at a time: no k * k copy
+        lanes = torch.addcmul(lanes.double(), torch.stack(taps[t:t + 8]).double(),
+                              w64[t:t + 8]).float()
+    pairs = lanes[0::2] + lanes[1::2]               # (0 + 1), (2 + 3), (4 + 5), (6 + 7)
+    halves = pairs[:2] + pairs[2:]
+    return (halves[0] + halves[1]) + taps[n] * w[n]
 
 
 def center_bbox_from_mask(mask) -> tuple:
@@ -214,9 +216,7 @@ class ImageAugmenter:
         """Zero-border per-channel correlation of (C, H, W) planes."""
         if kernel.shape == (1, 1):
             return planes
-        k = torch.from_numpy(kernel).to(planes.device)[None, None]
-        out = F.conv2d(planes[:, None], k, padding=(kernel.shape[0] // 2, kernel.shape[1] // 2))
-        return out[:, 0]
+        return correlate_planes(planes, kernel)
 
     def _paste_bbox(self, target_lbl, T, G, src_bbox, im_size):
         """Warped, blurred target patch restricted to its transformed bbox:
@@ -245,18 +245,13 @@ class ImageAugmenter:
     # -- top level ----------------------------------------------------------
 
     @torch.no_grad()
-    def augment_first_frame(self, image, mask, rng: np.random.RandomState,
-                            compact: bool = False):
+    def augment_first_frame(self, image, mask, rng: np.random.RandomState):
         """num_aug augmented (image, label) pairs; slot 0 is the real frame.
 
         :param image: (H, W, 3) uint8-range array
         :param mask:  (H, W, 1) binary object mask
-        :param compact: return a CompactAugBatch instead of full frames. The
-                 spec and accept sequence and every patch are those of the
-                 dense path (the two modes share this loop); only the
-                 full-frame writes are skipped.
         :return: (images (K, 3, H, W) uint8, labels (K, 1, H, W) uint8) on
-                 the augmenter's device, or a CompactAugBatch
+                 the augmenter's device
         """
         p = self.params
         dev = self.device
@@ -273,11 +268,6 @@ class ImageAugmenter:
             raise ValueError("Augmentation failed: No object to augment.")
 
         target, inpainted = cut_and_inpaint(image, mask)
-        # the inpaint writes only inside the dilated mask: its rectangle
-        diff = (inpainted != image).any(axis=-1)
-        dys, dxs = np.flatnonzero(diff.any(axis=1)), np.flatnonzero(diff.any(axis=0))
-        inpaint_box = ((int(dys[0]), int(dxs[0]), int(dys[-1] - dys[0]) + 1,
-                        int(dxs[-1] - dxs[0]) + 1) if len(dys) else (0, 0, 0, 0))
         target = torch.from_numpy(np.ascontiguousarray(target.transpose(2, 0, 1))).to(dev)
         labels = torch.from_numpy(np.ascontiguousarray(
             np.asarray(mask, np.float32).transpose(2, 0, 1))).to(dev)
@@ -289,24 +279,19 @@ class ImageAugmenter:
         bg_sel = p.get("bg_aug_params")
 
         K = p["num_aug"]
-        image0 = torch.from_numpy(np.ascontiguousarray(image.transpose(2, 0, 1))).to(dev)
-        mask0 = labels.to(torch.uint8)
-        if not compact:
-            out_im = torch.empty((K, 3, H, W), dtype=torch.uint8, device=dev)
-            out_lb = torch.zeros((K, 1, H, W), dtype=torch.uint8, device=dev)
-            out_im[0] = image0
-            out_lb[0] = mask0
+        out_im = torch.empty((K, 3, H, W), dtype=torch.uint8, device=dev)
+        out_lb = torch.zeros((K, 1, H, W), dtype=torch.uint8, device=dev)
+        out_im[0] = torch.from_numpy(np.ascontiguousarray(image.transpose(2, 0, 1))).to(dev)
+        out_lb[0] = labels.to(torch.uint8)
 
-        # backgrounds are deterministic per spec: memoise (base index, blur
-        # kernel, f32, uint8) per spec, and the warp per distinct transform
-        # (base index 0 = the inpainted frame, i >= 1 = warp_bases[i - 1])
+        # backgrounds are deterministic per spec: memoise (f32, uint8) per
+        # spec (f32 None: the inpainted frame itself), and the warp per
+        # distinct transform
         bg_cache, warp_cache = {}, {}
-        warp_bases = []
-        identity = np.ones((1, 1), np.float32)
 
         def bg_for(bg_spec):
             if bg_spec is None:
-                return 0, identity, None, inpainted
+                return None, inpainted
             key = (tuple(bg_spec.location), bg_spec.rotation, bg_spec.fliplr,
                    bg_spec.scale, tuple(bg_spec.skew), bg_spec.blur_size, bg_spec.blur_angle)
             if key not in bg_cache:
@@ -314,25 +299,22 @@ class ImageAugmenter:
                                           limit_scale=False)
                 ident_T = np.allclose(T, np.eye(3), atol=1e-12)
                 if ident_T and G.shape == (1, 1):
-                    bg_cache[key] = (0, identity, None, inpainted)
+                    bg_cache[key] = (None, inpainted)
                 else:
                     if ident_T:
-                        bi, base = 0, inpainted.float()
+                        base = inpainted.float()
                     else:
                         tkey = T.tobytes()
                         if tkey not in warp_cache:
-                            w32 = warp_affine(inpainted.float(), T, im_sz,
-                                              "bicubic").clamp(0, 255)
-                            warp_bases.append(w32.to(torch.uint8))
-                            warp_cache[tkey] = (len(warp_bases), w32)
-                        bi, base = warp_cache[tkey]
+                            warp_cache[tkey] = warp_affine(inpainted.float(), T, im_sz,
+                                                           "bicubic").clamp(0, 255)
+                        base = warp_cache[tkey]
                     f32 = self._filter(base, G)
-                    bg_cache[key] = (bi, G, f32, f32.to(torch.uint8))
+                    bg_cache[key] = (f32, f32.to(torch.uint8))
             return bg_cache[key]
 
         min_px = p["min_px_count"]
         max_px = H * W - min_px
-        slots = []               # compact per-slot records
         N = K - 1
         n_good = 0
         retries = -1
@@ -348,7 +330,7 @@ class ImageAugmenter:
             for fg_spec, bg_spec in zip(fg_specs, bg_specs):
                 if n_good >= N:
                     break
-                base_idx, bg_kern, bg_f32, bg_u8 = bg_for(bg_spec)
+                bg_f32, bg_u8 = bg_for(bg_spec)
                 T, G = self.get_transform(fg_spec, tg_bbox, im_sz)
                 tgt, (y0, y1, x0, x1), lbl = self._paste_bbox(target_lbl, T, G, tg_bbox,
                                                               im_sz)
@@ -359,31 +341,14 @@ class ImageAugmenter:
                     px = 0
                 if not (px >= min_px and (px < max_px or no_background)):
                     continue
+                k = n_good + 1
+                out_im[k] = bg_u8
                 if tgt is not None:
                     alpha = tgt[3:4] / 255.0
                     bg_region = (bg_u8 if bg_f32 is None else bg_f32)[:, y0:y1, x0:x1].float()
                     patch = (tgt[:3] * alpha + bg_region * (1.0 - alpha)).clamp(0, 255)
-                    patch = patch.to(torch.uint8)
-                else:  # accepted with no paste (only min_px_count == 0)
-                    patch = torch.zeros((3, 1, 1), dtype=torch.uint8, device=dev)
-                    lbl_u8 = torch.zeros((1, 1, 1), dtype=torch.uint8, device=dev)
-                    y0 = x0 = y1 = x1 = 0
-                k = n_good + 1
-                if compact:
-                    slots.append(dict(bg_idx=base_idx, kernel=bg_kern, patch=patch,
-                                      box=(y0, x0, y1 - y0, x1 - x0), lbl=lbl_u8[0]))
-                else:
-                    out_im[k] = bg_u8
-                    out_im[k, :, y0:y1, x0:x1] = patch
+                    out_im[k, :, y0:y1, x0:x1] = patch.to(torch.uint8)
                     out_lb[k, :, y0:y1, x0:x1] = lbl_u8
+                # else accepted with no paste (only min_px_count == 0)
                 n_good += 1
-        if compact:
-            yi, xi, hi, wi = inpaint_box
-            return CompactAugBatch(
-                image=image0, mask=mask0[0],
-                inpaint_patch=inpainted[:, yi:yi + hi, xi:xi + wi].contiguous(),
-                inpaint_box=inpaint_box, warp_bases=warp_bases,
-                bg_idx=[s["bg_idx"] for s in slots], kernels=[s["kernel"] for s in slots],
-                patches=[s["patch"] for s in slots], boxes=[s["box"] for s in slots],
-                lbl_patches=[s["lbl"] for s in slots])
         return out_im, out_lb

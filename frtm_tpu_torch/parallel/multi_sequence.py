@@ -64,16 +64,11 @@ class ShardedSequenceTracker(BatchedSequenceTracker):
     axis; a mesh of several processes splits every chunk between them."""
 
     def __init__(self, cfg, backbone, refiner, mesh, extract_chunk: int = 8,
-                 merge_mode: str = "online", length_bucket: int = 32, decode_chunk=None,
-                 device=None, **kwargs):
-        """decode_chunk: None is 0, the whole window of B x w x n lanes in
-        one decode, as the JAX package has it off the TPU. The compact
-        augment stays off, as in the JAX class. kwargs (disc_params0,
-        augmenter, profile) as for BatchedSequenceTracker."""
+                 merge_mode: str = "online", length_bucket: int = 32, device=None, **kwargs):
+        """kwargs (disc_params0, augmenter, profile) as for
+        BatchedSequenceTracker."""
         super().__init__(cfg, backbone, refiner, extract_chunk=extract_chunk,
-                         merge_mode=merge_mode,
-                         decode_chunk=0 if decode_chunk is None else decode_chunk,
-                         aug_compact=False, device=device, **kwargs)
+                         merge_mode=merge_mode, device=device, **kwargs)
         self.mesh = mesh
         self.length_bucket = length_bucket
         self.n_devices = mesh.size

@@ -88,11 +88,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import TrackerConfig, compute_dtype_of
 from ..data.image import LabelWriter, imwrite_indexed
 from ..device import resolve_device
-from ..models.aug_compose import compose_aug_batch, pack_bits, pack_compact_batch, unpack_bits
 from ..models.augmenter import ImageAugmenter
 from ..models.device_augmenter import DeviceAugmenter
 from ..models.discriminator import (DiscParams, DiscState, classify_objects, disc_init,
@@ -191,6 +191,23 @@ def project_sequences(features, project, n_seqs: int):
 # DiscState), or with multilayer models ({layer: DiscParams}, {layer: DiscState})
 Models = Tuple[DiscParams, DiscState]
 
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """np.packbits along the last axis (MSB first, zero-padded to a whole
+    byte) of a 0/1 tensor, on the tensor's device."""
+    w = bits.shape[-1]
+    b = F.pad(bits.to(torch.uint8), (0, -w % 8))
+    b = b.reshape(*b.shape[:-1], -1, 8).to(torch.int32)
+    place = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=bits.device)
+    return (b * place).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """np.unpackbits along the last axis (MSB first), trimmed to `width`."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :width]
+
+
 # frames per backbone pass of the init's extract over all objects' augmented
 # frames (four objects of the eval config's 6 frames go in one pass)
 INIT_EXTRACT_CHUNK = 32
@@ -211,17 +228,11 @@ class BatchedSequenceTracker:
 
     def __init__(self, cfg: TrackerConfig, backbone: ResNet, refiner: SegNetwork,
                  extract_chunk: int = 8, merge_mode: str = "online",
-                 augment_backend: str = "host", decode_chunk: int = 0,
-                 aug_compact: bool = False, device=None,
+                 augment_backend: str = "host", device=None,
                  disc_params0: Optional[DiscParams] = None, augmenter=None,
                  profile: bool = False, mesh=None):
-        """decode_chunk: decode a window in sub-batches of this many lanes
-        (0 = the whole window at once). aug_compact: take first-frame
-        augment batches in the compact encoding and compose them before the
-        init (models/aug_compose.py). Both default to off, as the JAX class
-        has them off the TPU; the device augment backend takes no compact
-        batches. mesh: a spatial mesh (make_spatial_mesh), whose device is
-        the tracker's where `device` is not given."""
+        """mesh: a spatial mesh (make_spatial_mesh), whose device is the
+        tracker's where `device` is not given."""
         if merge_mode not in ("online", "deferred"):
             raise ValueError(f"merge_mode {merge_mode!r}: 'online' or 'deferred'")
         self.dtype = compute_dtype_of(cfg)
@@ -252,8 +263,6 @@ class BatchedSequenceTracker:
         self._prep_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self.extract_chunk = extract_chunk
         self.merge_mode = merge_mode
-        self.decode_chunk = decode_chunk
-        self.aug_compact = aug_compact and augment_backend != "device"
         self.profile = profile
         self._all_layers = tuple(sorted(set(cfg.refnet_layers) | set(self.disc_cfgs),
                                         reverse=True))
@@ -333,19 +342,11 @@ class BatchedSequenceTracker:
 
     def _augment_objects(self, objects, timer: Optional[PhaseTimer] = None):
         """First-frame augmentation for every object, in object order.
-        Returns per object (ims_rest, lbs_packed) as from _pack_aug_batch,
-        or in compact mode a pack_compact_batch dict."""
+        Returns per object (ims_rest, lbs_packed) as from _pack_aug_batch."""
         timer = timer or PhaseTimer(sync=False)
         batches = []
         for obj_id, start_idx, mask, image in objects:
             rng = np.random.RandomState(0)  # per-object reseed, as the reference
-            if self.aug_compact:
-                with timer.phase("augment"):
-                    compact = self.augmenter.augment_first_frame(
-                        image, mask[..., None], rng, compact=True)
-                with timer.phase("aug_upload"):
-                    batches.append(pack_compact_batch(compact))
-                continue
             with timer.phase("augment"):
                 im_aug, lb_aug = self.augmenter.augment_first_frame(image, mask[..., None], rng)
             with timer.phase("aug_upload"):
@@ -384,36 +385,15 @@ class BatchedSequenceTracker:
         labels = unpack_bits(torch.stack(lbs_packed), W)[:, :, None]
         return self._init_objects_dense(images, labels), labels[:, 0, 0].float()
 
-    def _init_objects_compact(self, f0, packs):
-        """Init from compact encodings: each object's batch is composed on
-        the device from its packed pieces. Returns as _init_objects."""
-        pairs = [compose_aug_batch(f.permute(2, 0, 1), pk) for f, pk in zip(f0, packs)]
-        images = torch.stack([im for im, _ in pairs])
-        labels = torch.stack([lb for _, lb in pairs])
-        return self._init_objects_dense(images, labels), labels[:, 0, 0].float()
-
     # -- the frame loop ---------------------------------------------------------
 
     def _decode(self, scores, reduced, im_size):
         """(B, 1, h, w) scores (in the compute type; a list of them, one per
         layer, with multilayer models) and per-lane TSE reductions -> (B, H, W)
-        float32 soft foreground masks (this rank's rows with a spatial mesh),
-        in sub-batches of decode_chunk where that divides B."""
-        layers = self.cfg.refnet_layers
-        sp = dict(mesh=self.spatial_mesh, heights=level_heights(im_size[0]))
-        multi = isinstance(scores, list)
-        B, dc = (scores[0] if multi else scores).shape[0], self.decode_chunk
-        if dc and B > dc and B % dc == 0:
-            logits = torch.cat([
-                seg_network_apply(self.refiner_c,
-                                  [sc[i:i + dc] for sc in scores] if multi else scores[i:i + dc],
-                                  None, im_size, layers=layers,
-                                  reduced={L: (h[i:i + dc], hp[i:i + dc])
-                                           for L, (h, hp) in reduced.items()}, **sp)
-                for i in range(0, B, dc)])
-        else:
-            logits = seg_network_apply(self.refiner_c, scores, None, im_size, layers=layers,
-                                       reduced=reduced, **sp)
+        float32 soft foreground masks (this rank's rows with a spatial mesh)."""
+        logits = seg_network_apply(self.refiner_c, scores, None, im_size,
+                                   layers=self.cfg.refnet_layers, reduced=reduced,
+                                   mesh=self.spatial_mesh, heights=level_heights(im_size[0]))
         return torch.sigmoid(logits[:, 0].float())
 
     def _track(self, feats_all, models: Models, start_frames, start_masks,
@@ -804,16 +784,14 @@ class BatchedSequenceTracker:
         elif aug_batches is None:
             aug_batches = self._augment_objects(objects, timer)
         with timer.phase("disc_init"):
-            f0 = [self._frame_dev(s, chunks) for s in start_frames]
             if self.augment_backend == "device":
                 models = self._init_objects_dense(torch.stack([im for im, _ in batches]),
                                                   torch.stack([lb for _, lb in batches]))
                 start_masks = torch.from_numpy(np.stack([o[2] for o in objects])).to(self.device)
-            elif self.aug_compact:
-                models, start_masks = self._init_objects_compact(f0, aug_batches)
             else:
                 models, start_masks = self._init_objects(
-                    f0, [a for a, _ in aug_batches], [b for _, b in aug_batches])
+                    [self._frame_dev(s, chunks) for s in start_frames],
+                    [a for a, _ in aug_batches], [b for _, b in aug_batches])
 
         # the windowed loop when re-solves provably fall on window ends
         # (every start frame = 0 mod train_skipping, or no online updates)

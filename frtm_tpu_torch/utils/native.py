@@ -1,10 +1,10 @@
 """The port's host library (utils/csrc/frtm_host.cpp): Telea inpainting and
 the 2x2-ellipse dilation, PNG's row unfilter and sample unpacking (every
 bit depth, Adam7), JPEG decoding (one frame or a batch of same-size files on
-a pool of threads) and baseline JPEG encoding, and cv2.resize's nearest,
-area and cubic modes on uint8 images (data/resize_host.py). The counterpart of the
-JAX package's host library, without its quiet fallback: a library that does
-not build raises, with the compiler's output.
+a pool of threads), and cv2.resize's nearest, area and cubic modes on uint8
+images (data/resize_host.py). The counterpart of the JAX package's host
+library, without its quiet fallback: a library that does not build raises,
+with the compiler's output.
 
 At first use the source is compiled with the host compiler (`g++`) into
 build/host/ at the repository root, in a file named by the hash of the
@@ -147,7 +147,6 @@ def _bind(path):
     for name, args in {
             "dilate_ellipse2_u8": [u8p, c_int, c_int, u8p],
             "inpaint_telea_u8c3": [u8p, u8p, c_int, c_int, c_int, u8p],
-            "encode_jpeg": [u8p, c_int, c_int, c_int, ctypes.POINTER(u8p), ctypes.POINTER(c_long)],
             "resize_u8": [u8p, c_int, c_int, c_int, c_int, c_int, c_int, u8p],
             "jpeg_dims": [u8p, c_long, i32p, i32p, c_char_p, c_int],
             "decode_jpeg": [u8p, c_long, u8p, c_int, c_int, c_char_p, c_int],
@@ -156,7 +155,6 @@ def _bind(path):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, c_int
     lib.frtm_host_jpeg_backend.argtypes, lib.frtm_host_jpeg_backend.restype = [], c_char_p
-    lib.frtm_host_free.argtypes, lib.frtm_host_free.restype = [ctypes.c_void_p], None
     lib.png_samples.argtypes = [u8p, c_long, c_int, c_int, c_int, c_int, c_int, u8p]
     lib.png_samples.restype = c_long
     if hasattr(lib, "decode_jpeg_planar"):      # libjpeg builds only
@@ -245,25 +243,6 @@ def png_samples(raw: bytes, h: int, w: int, depth: int, channels: int,
     if rc != 0:
         raise mismatch
     return out
-
-
-def encode_jpeg(im: np.ndarray) -> bytes:
-    """The bytes of a baseline JPEG of (H, W) greyscale or (H, W, 3) RGB
-    uint8 pixels, as libjpeg writes them with PIL's defaults (quality 75);
-    data/image.py's encode_jpeg_plain is the plain version."""
-    im = np.ascontiguousarray(im)
-    if im.dtype != np.uint8 or not (im.ndim == 2 or (im.ndim == 3 and im.shape[2] == 3)):
-        raise ValueError(f"encode_jpeg takes (H, W) or (H, W, 3) uint8, got {im.dtype} "
-                         f"{im.shape}")
-    out, n = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_long()
-    c = 1 if im.ndim == 2 else 3
-    if library().encode_jpeg(_u8(im), im.shape[0], im.shape[1], c, ctypes.byref(out),
-                             ctypes.byref(n)) != 0:
-        raise ValueError(f"encode_jpeg: cannot encode a {im.shape} image")
-    try:
-        return ctypes.string_at(out, n.value)
-    finally:
-        library().frtm_host_free(out)
 
 
 def _jpeg_dims(data: np.ndarray, name):

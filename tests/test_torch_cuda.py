@@ -374,6 +374,19 @@ def test_device_augmenter_on_the_card_matches_the_cpu(gen, size):
     assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 1e-3
 
 
+@pytest.mark.parametrize("blur_size", [1.0, 5.0])
+def test_host_augmenter_blur_on_the_card_equals_the_cpu(gen, blur_size):
+    """The host augmenter's blur (models/augmenter.py::correlate_planes, its
+    taps summed in frtm_tpu's CPU order) gives the CPU's bits on the card:
+    the 3x3 and 7x7 kernels over (3, 480, 854), a flat region included."""
+    from frtm_tpu_torch.models.augmenter import _rotate, blur_kernel, correlate_planes
+    x = torch.rand(3, 480, 854, generator=gen) * 255
+    x[:, :100, :200] = 37.0
+    G = blur_kernel(blur_size, 0.1, _rotate(np.pi / 4)[:2, :2])
+    assert G.shape == ((3, 3) if blur_size == 1.0 else (7, 7))
+    assert torch.equal(correlate_planes(x.cuda(), G).cpu(), correlate_planes(x, G))
+
+
 def test_warp_kernel_keeps_uint8_labels(gen):
     lbl = (torch.rand(1, 48, 85, generator=gen) > 0.5).to(torch.uint8).cuda()
     got = warp_affine(lbl, _MATS["rot"], (30, 40), "nearest")

@@ -54,7 +54,7 @@ def _trackers(world, merge_mode="online"):
 def test_device_backend_tracker_matches_jax(world, n_objects):
     seq = _sequence(6, n_objects)
     jt, pt = _trackers(world)
-    assert isinstance(pt.augmenter, DeviceAugmenter) and not pt.aug_compact
+    assert isinstance(pt.augmenter, DeviceAugmenter)
     want, _ = jt.run_sequence(seq)
     got, fps = pt.run_sequence(seq)
     assert fps > 0 and all(o.dtype == np.uint8 and o.shape == seq.images[0].shape[:2]

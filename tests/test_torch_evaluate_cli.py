@@ -322,8 +322,9 @@ def test_cli_refuses_what_it_cannot_do(world, tmp_path, capsys):
     help_text = capsys.readouterr().out
     for flag in ("--model", "--dset", "--dev", "--fast", "--davis", "--yt2018", "--output",
                  "--backbone", "--dtype", "--restart", "--engine", "--pipeline",
-                 "--aug-compact", "--spatial", "--multihost", "--dist-backend"):
+                 "--spatial", "--multihost", "--dist-backend"):
         assert flag in help_text
+    assert "--aug-compact" not in help_text
     assert not (tmp_path / "out").exists()
 
 

@@ -1,6 +1,6 @@
 """The port's image I/O on every PNG that frtm_tpu reads and on the JPEG that
 frtm_tpu writes (frtm_tpu_torch/data/image.py, the host library's
-png_samples and encode_jpeg), held against frtm_tpu.data.image with exact
+png_samples), held against frtm_tpu.data.image with exact
 equality as the bound throughout:
 
 * every colour type at every bit depth the PNG format allows, non-interlaced
@@ -17,10 +17,10 @@ equality as the bound throughout:
 * JPEG: the port's imwrite writes the bytes frtm_tpu's imwrite writes (PIL
   at its defaults, libjpeg-turbo's islow path) at 1x1, 7x9, 37x53 and
   480x854, smooth and noise, (H, W, 3), (H, W) and (H, W, 1), and where
-  `squeeze` changes the shape; the C++ encoder's bytes equal
-  `encode_jpeg_plain`'s, and PIL's where the image ends inside a 16x16
-  block group; two and four channels, and bool samples in colour, raise as
-  PIL does;
+  `squeeze` changes the shape; `encode_jpeg_plain`'s bytes equal PIL's
+  file at its defaults, also where the image ends inside a 16x16 block
+  group; two and four channels, and bool samples in colour, raise as PIL
+  does;
 * the committed fixtures (scripts/make_torch_jpeg_fixtures.py): the port
   writes each imwrite/ JPEG's bytes from its rebuilt source and reads each
   png_forms/ and davis_2bit/ PNG to the manifest's digest of frtm_tpu's
@@ -217,10 +217,12 @@ def test_jpeg_keeps_squeeze_s_meaning(tmp_path, name, im):
 @pytest.mark.parametrize("layout", ["rgb", "hw"])
 @pytest.mark.parametrize("size", [(1, 1), (7, 9), (8, 16), (17, 33), (37, 53)])
 def test_jpeg_encoder_equals_plain(size, layout):
+    """encode_jpeg_plain's bytes are PIL's file at its defaults, noise and
+    smooth, colour and greyscale."""
     im = _content("noise", size + ((3,) if layout == "rgb" else ()), seed=size[0])
-    assert native.encode_jpeg(im) == port_image.encode_jpeg_plain(im)
+    assert port_image.encode_jpeg_plain(im) == _pil_jpeg(im)
     smooth = _content("smooth", im.shape, seed=size[1])
-    assert native.encode_jpeg(smooth) == port_image.encode_jpeg_plain(smooth)
+    assert port_image.encode_jpeg_plain(smooth) == _pil_jpeg(smooth)
 
 
 @pytest.mark.parametrize("size", [(15, 16), (16, 15), (16, 17), (17, 16), (9, 24), (24, 9)])
@@ -229,9 +231,14 @@ def test_jpeg_encoder_as_pil_at_mcu_edges(size):
     or column into one: the edge replication and the dummy Y blocks give
     PIL's file at its defaults."""
     im = _content("smooth", size + (3,), seed=size[0] * size[1])
+    assert port_image.encode_jpeg_plain(im) == _pil_jpeg(im)
+
+
+def _pil_jpeg(im) -> bytes:
+    """The file PIL writes at its defaults."""
     buf = io.BytesIO()
     Image.fromarray(im).save(buf, format="JPEG")
-    assert native.encode_jpeg(im) == buf.getvalue()
+    return buf.getvalue()
 
 
 @pytest.mark.parametrize("shape, dtype, message", [

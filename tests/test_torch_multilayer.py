@@ -252,12 +252,3 @@ def test_fused_two_layers_matches_jax(world, n_objects, starts):
     if starts is None:
         for a, b in zip(world.host().run_sequence(seq)[0], got):
             np.testing.assert_array_equal(a, b)
-
-
-def test_fused_two_layers_decode_chunk_changes_nothing(world):
-    """Score lists split into decode sub-batches: the labels are equal."""
-    seq = _sequence(5, 2)
-    plain, _ = world.fused().run_sequence(seq)
-    chunked, _ = world.fused(decode_chunk=2).run_sequence(seq)
-    for a, b in zip(chunked, plain):
-        np.testing.assert_array_equal(a, b)

@@ -1,7 +1,6 @@
 """The port's fused tracker against the port's own host-loop Tracker and
-against itself (windowed against per-frame loop, decode_chunk on against off,
-5 frames against the first 5 of 6, compact against dense augment, preloaded
-against plain), on the CPU with the port's own augmenter and seeded weights.
+against itself (windowed against per-frame loop, 5 frames against the first
+5 of 6, preloaded against plain), on the CPU with the port's own augmenter and seeded weights.
 The refiner is made to read its scores and its head is scaled as in
 test_torch_sequence_tracker.py, so the masks hold every object.
 
@@ -112,19 +111,6 @@ def test_windowed_loop_equals_per_frame_loop(world):
         perframe.last_models[1].n_resolves.tolist() == [3, 2]
 
 
-def test_decode_chunk_changes_nothing(world):
-    seq = _sequence(5, 2)
-    plain, _ = _fused(world, decode_chunk=0).run_sequence(seq)
-    chunked = _fused(world, decode_chunk=2)      # window x objects = 4: two sub-batches
-    calls = []
-    decode = chunked._decode
-    chunked._decode = lambda s, r, size: calls.append(s.shape[0]) or decode(s, r, size)
-    got, _ = chunked.run_sequence(seq)
-    assert calls == [4, 4]
-    for a, b in zip(got, plain):
-        np.testing.assert_array_equal(a, b)
-
-
 def test_five_frames_equal_the_first_five_of_six(world):
     """What the JAX package's bucket padding had to keep: the frames a
     sequence does not have change nothing in those it has. The last window
@@ -134,16 +120,6 @@ def test_five_frames_equal_the_first_five_of_six(world):
     assert len(out5) == 5 and len(out6) == 6
     for a, b in zip(out5, out6[:5]):
         np.testing.assert_array_equal(a, b)
-
-
-def test_compact_augment_matches_dense(world):
-    """aug_compact composes the same batches but for blurred warped
-    backgrounds (1 count): measured equal labels."""
-    seq = _sequence(6)
-    dense, _ = _fused(world).run_sequence(seq)
-    compact, _ = _fused(world, aug_compact=True).run_sequence(seq)
-    assert _worst(compact, dense) < 0.005
-    assert _holds_every_object(compact[1:], 2)
 
 
 def test_prepared_sequence_and_given_batches_change_nothing(world):
