@@ -1522,9 +1522,10 @@ def per_phase_readings(names):
 
 def init_scaling_readings(cfg, backbone, refiner, counts=(1, 2, 4), n_frames=9, passes=3):
     """The fused tracker (float32, 480x854) on a sequence of n_frames with
-    each number of objects in `counts`, all from frame 0: after a warm-up
-    pass, the disc_init and scan seconds of a pass synchronised at every
-    phase edge (profile=True), then, in `passes` more such passes, the
+    each number of objects in `counts`, all from frame 0: after two warm-up
+    passes (the init's CUDA graph runs eagerly in the first and is captured
+    in the second), the disc_init and scan seconds of a pass synchronised at
+    every phase edge (profile=True), then, in `passes` more such passes, the
     kernels each of the two phases ran and the peak memory inside it. 9
     frames are one window of 8: one re-solve per object. Returns {n: readings}.
 
@@ -1541,7 +1542,8 @@ def init_scaling_readings(cfg, backbone, refiner, counts=(1, 2, 4), n_frames=9, 
         seq = make_moving_square_sequence(n_frames=n_frames, size=(480, 854), square=120,
                                           n_objects=n, seed=0)
         fused = BatchedSequenceTracker(cfg, backbone, refiner, device="cuda", profile=True)
-        fused.run_sequence(seq)                        # warm-up
+        for _ in range(2):
+            fused.run_sequence(seq)                    # warm-up
         _, fps = fused.run_sequence(seq)
         stats = fused.last_phase_stats
         seen = []

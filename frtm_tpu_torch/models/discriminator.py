@@ -37,7 +37,12 @@ precompute (`_stencil_terms`, a handful of launches over the full-resolution
 label and weight stores) runs eagerly; the graph runs the GN-CG schedule and
 the `due` select on copies of the compressed samples, the stencil terms, the
 filter and the CG state. Elsewhere, and at a key's first call, the same
-functions run eagerly. `disc_init`'s solves always run eagerly.
+functions run eagerly. The two-phase init makes some thousands of such
+launches (55 CG steps and 6 linearisations at the eval settings), and
+`disc_init_graphed` replays it whole as a graph per `init_graph_key`, under
+`init_eager_reasons`' rule: the pixel weights, both memories, both stencil
+precomputes and both solves, from the starting weights, the features and
+the labels. `disc_init` is the same work run eagerly.
 """
 from dataclasses import dataclass, replace
 from functools import lru_cache, partial
@@ -238,9 +243,46 @@ def _filter_net(filt, x):
     return lane_filter(x, filt)
 
 
+def _init_body(cfg: DiscConfig, project, filt, features, labels, collect_losses: bool = False):
+    """The two-phase init as tensors in and tensors out, which an init graph
+    captures: the pixel weights, phase 1's memory and joint solve over
+    {project, filter} from the starting weights, phase 2's memory of the
+    re-projected features and its filter-only solve. Returns project, filter,
+    the memory's samples, labels, pixel_weights, weights, current_size and
+    prev_ind, and the CG state's p, r_prev, rho, have_p and step_alpha (with
+    collect_losses also the two solves' loss trajectories)."""
+    pw = compute_pixel_weights(labels, cfg)
+    K = features.shape[1]
+    score_hw = tuple(features.shape[-2:])
+    theta = (project, filt)
+    out1 = _solve(memory_init(K, features, labels, pw), cfg.filter_reg, cfg.precond, _joint_net,
+                  theta, init_cg_state(theta), cfg.init_iters, cfg, score_hw, collect_losses)
+    project, filt = out1[0]
+    mem = memory_init(cfg.memory_size, lane_project(features, project), labels, pw)
+    out2 = _solve(mem, cfg.filter_reg[1:], cfg.precond[1:], _filter_net, (filt,),
+                  init_cg_state((filt,)), cfg.update_iters, cfg, score_hw, collect_losses)
+    cg = out2[1]
+    return (project, out2[0][0], mem.samples, mem.labels, mem.pixel_weights, mem.weights,
+            mem.current_size, mem.prev_ind, cg.p[0], cg.r_prev[0], cg.rho, cg.have_p,
+            cg.step_alpha) + ((out1[2], out2[2]) if collect_losses else ())
+
+
+def _init_models(out):
+    """(DiscParams, DiscState) of N lanes from _init_body's tensors."""
+    project, filt, samples, labels, pw, weights, size, prev, p, r_prev, rho, have_p, alpha = out
+    n = project.shape[0]
+    state = DiscState(memory=MemoryState(samples, labels, pw, weights, size, prev),
+                      cg=CGState(p=(p,), r_prev=(r_prev,), rho=rho, have_p=have_p,
+                                 step_alpha=alpha),
+                      frame_num=[0] * n,
+                      n_resolves=torch.zeros(n, dtype=torch.int64, device=project.device))
+    return DiscParams(project, filt), state
+
+
 def disc_init(params: DiscParams, features, labels, cfg: DiscConfig,
               collect_losses: bool = False):
-    """Two-phase target-model initialisation of N objects at once.
+    """Two-phase target-model initialisation of N objects at once, run
+    eagerly (`disc_init_graphed` replays it as a CUDA graph).
 
     :param params: starting weights with the object axis (repeat_params)
     :param features: (N, K, Cin, h, w) augmented first-frame features
@@ -250,27 +292,57 @@ def disc_init(params: DiscParams, features, labels, cfg: DiscConfig,
         solves
     :return: (DiscParams, DiscState[, losses])
     """
-    pw = compute_pixel_weights(labels, cfg)
-    N, K = features.shape[:2]
-    score_hw = tuple(features.shape[-2:])
-
-    mem1 = memory_init(K, features, labels, pw)
-    theta = (params.project, params.filter)
-    out1 = _solve(mem1, cfg.filter_reg, cfg.precond, _joint_net, theta,
-                  init_cg_state(theta), cfg.init_iters, cfg, score_hw, collect_losses)
-    params = DiscParams(*out1[0])
-    del mem1
-
-    mem2 = memory_init(cfg.memory_size, lane_project(features, params.project), labels, pw)
-    theta_f = (params.filter,)
-    out2 = _solve(mem2, cfg.filter_reg[1:], cfg.precond[1:], _filter_net, theta_f,
-                  init_cg_state(theta_f), cfg.update_iters, cfg, score_hw, collect_losses)
-    params = params._replace(filter=out2[0][0])
-    state = DiscState(memory=mem2, cg=out2[1], frame_num=[0] * N,
-                      n_resolves=torch.zeros(N, dtype=torch.int64, device=features.device))
+    out = _init_body(cfg, *params, features, labels, collect_losses)
+    models = _init_models(out[:13])
     if collect_losses:
-        return params, state, {"init": out1[2], "update": out2[2]}
-    return params, state
+        return models + ({"init": out[13], "update": out[14]},)
+    return models
+
+
+# the init graphs of the process: a key for each lane count and input shape
+# met (five in a DAVIS pass of 1-5 objects). Each pins a pool of about half a
+# GB a lane at 480x854, most of it phase 2's full-resolution label and
+# weight stores, so the cache stays small.
+INIT_GRAPHS = GraphCache(maxsize=6)
+
+
+def init_eager_reasons(params: DiscParams, features, labels, cfg: DiscConfig,
+                       collect_losses: bool = False) -> list:
+    """Why an init runs eagerly rather than as a CUDA graph: an empty list
+    where the graph may serve it."""
+    return _graph_refusals((*params, features, labels), cfg, collect_losses)
+
+
+def init_graph_key(params: DiscParams, features, labels, cfg: DiscConfig) -> tuple:
+    """Everything that changes an init graph's captured work: the device,
+    the lane count, the shapes and dtypes of the features, labels and
+    weights, both schedules, the memory's size, and the constants of the
+    solves and of the pixel weighting."""
+    return (features.device, features.shape[0],
+            tuple((tuple(t.shape), t.dtype) for t in (*params, features, labels)),
+            tuple(int(n) for n in cfg.init_iters), tuple(int(n) for n in cfg.update_iters),
+            tuple(float(r) for r in cfg.filter_reg), tuple(float(p) for p in cfg.precond),
+            float(cfg.direction_forget_factor), int(cfg.memory_size),
+            cfg.pixel_weighting_method, float(cfg.pixel_weighting_tf),
+            bool(cfg.pixel_weighting_per_frame), float(cfg.distractor_mult))
+
+
+def disc_init_graphed(params: DiscParams, features, labels, cfg: DiscConfig):
+    """disc_init, replayed as a CUDA graph, one per `init_graph_key`, where
+    `init_eager_reasons` finds nothing against it; elsewhere, and at a key's
+    first call, run eagerly. The trackers' inits take it: their lane count
+    is the sequence's object count, which repeats from sequence to sequence.
+    The trainer's cold start and ml_disc_init call disc_init: a batch's
+    misses change its lane count from batch to batch, and each count's
+    graph would pin its own pool. The counter `init_replays` adds 1 for a
+    call a replay served, 0 for one run eagerly; `inits` adds 1 a call."""
+    out = None
+    if not init_eager_reasons(params, features, labels, cfg):
+        out = INIT_GRAPHS.run(init_graph_key(params, features, labels, cfg),
+                              lambda *a: _init_body(cfg, *a), lambda: (*params, features, labels))
+    profiling.count("inits")
+    profiling.count("init_replays", int(out is not None))
+    return disc_init(params, features, labels, cfg) if out is None else _init_models(out)
 
 
 def disc_apply(params: DiscParams, ft, clamp_output: bool = False):
@@ -316,8 +388,14 @@ def eager_reasons(params: DiscParams, state: DiscState, cfg: DiscConfig,
     """Why a filter re-solve runs eagerly rather than as a CUDA graph: an
     empty list where the graph may serve it."""
     m, cg = state.memory, state.cg
-    tensors = (params.filter, m.samples, m.labels, m.pixel_weights, m.weights, *cg.p,
-               *cg.r_prev, cg.rho, cg.step_alpha)
+    return _graph_refusals((params.filter, m.samples, m.labels, m.pixel_weights, m.weights,
+                            *cg.p, *cg.r_prev, cg.rho, cg.step_alpha), cfg, collect_losses)
+
+
+def _graph_refusals(tensors, cfg: DiscConfig, collect_losses: bool) -> list:
+    """What keeps a solve over `tensors` from a CUDA graph: tensors off the
+    card, a capture under way, the residual form, loss trajectories, a
+    gradient wanted."""
     reasons = []
     if not all(t.is_cuda for t in tensors):
         reasons.append("not on CUDA")

@@ -27,10 +27,12 @@ def _shifted_products(in_size, out_size):
     return out.astype(np.float32)
 
 
-@lru_cache(maxsize=64)
+@lru_cache(maxsize=None)
 def _on(device: torch.device, matrix, in_size: int, out_size: int) -> torch.Tensor:
     """One of the constant matrices above on `device`, uploaded once: an
-    upload per solve would stall the host on the card's queue each time."""
+    upload per solve would stall the host on the card's queue each time.
+    Kept for the process's life (a few hundred KB a frame size): a replayed
+    init graph reads it at the address it was captured with."""
     return torch.from_numpy(matrix(in_size, out_size)).to(device)
 
 

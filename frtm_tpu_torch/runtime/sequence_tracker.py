@@ -95,9 +95,9 @@ from ..data.image import LabelWriter, imwrite_indexed
 from ..device import resolve_device
 from ..models.augmenter import ImageAugmenter
 from ..models.device_augmenter import DeviceAugmenter
-from ..models.discriminator import (DiscParams, DiscState, classify_objects, disc_init,
-                                    init_disc_params, insert_sample, project_all,
-                                    repeat_params, resolve_due)
+from ..models.discriminator import (DiscParams, DiscState, classify_objects,
+                                    disc_init_graphed, init_disc_params, insert_sample,
+                                    project_all, repeat_params, resolve_due)
 from ..models.multilayer import layer_configs, ml_disc_init, starting_params
 from ..models.resnet import ResNet, level_heights
 from ..models.seg_network import SegNetwork, seg_network_apply, seg_network_reduce
@@ -372,8 +372,8 @@ class BatchedSequenceTracker:
         if self.multilayer:
             return ml_disc_init({L: repeat_params(p, N) for L, p in self.disc_params0.items()},
                                 ft, labels, self.disc_cfgs)
-        return disc_init(repeat_params(self.disc_params0, N), ft[self.disc_cfg.layer], labels,
-                         self.disc_cfg)
+        return disc_init_graphed(repeat_params(self.disc_params0, N), ft[self.disc_cfg.layer],
+                                 labels, self.disc_cfg)
 
     def _init_objects(self, f0, ims_rest, lbs_packed):
         """Init from the packed dense batches: reattach slot 0, unpack the

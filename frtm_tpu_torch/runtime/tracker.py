@@ -29,7 +29,7 @@ from ..config import TrackerConfig, compute_dtype_of
 from ..data.image import LabelWriter, imwrite_indexed
 from ..device import resolve_device
 from ..models.augmenter import ImageAugmenter
-from ..models.discriminator import (DiscParams, DiscState, disc_apply, disc_init,
+from ..models.discriminator import (DiscParams, DiscState, disc_apply, disc_init_graphed,
                                     disc_update, init_disc_params, repeat_params)
 from ..models.multilayer import (layer_configs, ml_disc_apply, ml_disc_init, ml_disc_update,
                                  starting_params)
@@ -129,9 +129,9 @@ class Tracker:
                         {L: repeat_params(p, 1) for L, p in self.disc_params0.items()},
                         {L: f[None] for L, f in ft.items()}, lb_aug[None], self.disc_cfgs)
                 else:
-                    params, state = disc_init(repeat_params(self.disc_params0, 1),
-                                              ft[self.disc_cfg.layer][None], lb_aug[None],
-                                              self.disc_cfg)
+                    params, state = disc_init_graphed(repeat_params(self.disc_params0, 1),
+                                                      ft[self.disc_cfg.layer][None],
+                                                      lb_aug[None], self.disc_cfg)
             start_mask = torch.from_numpy(mask).to(self.device)
             t = TargetObject(object_id=obj_id, index=len(self.targets) + 1,
                              start_frame=self.current_frame, start_mask=start_mask,

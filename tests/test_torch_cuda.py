@@ -1068,9 +1068,10 @@ def test_graphed_resolve_of_two_layers(gen, monkeypatch, shapes):
 
 def test_fused_tracker_replays_its_resolves_bit_equal(gen, monkeypatch):
     """The fused tracker on the card, three two-object sequences of 9 frames
-    (windows of 2: 4 re-solves each), with the graphs and with every re-solve
-    eager: the same labels and final filters bit for bit; the first re-solve
-    runs eagerly and the other 11 replay."""
+    (windows of 2: 4 re-solves each), with the graphs and with every init
+    and re-solve eager: the same labels and final filters bit for bit; the
+    first re-solve runs eagerly and the other 11 replay, the first init runs
+    eagerly and the other two replay."""
     from frtm_tpu_torch.data.synthetic import make_moving_square_sequence
     from frtm_tpu_torch.models import discriminator as td
     from frtm_tpu_torch.utils import profiling
@@ -1081,6 +1082,7 @@ def test_fused_tracker_replays_its_resolves_bit_equal(gen, monkeypatch):
     runs = []
     for maxsize in (0, 4):
         monkeypatch.setattr(td, "RESOLVE_GRAPHS", GraphCache(maxsize))
+        monkeypatch.setattr(td, "INIT_GRAPHS", GraphCache(maxsize))
         profiling.reset()
         try:
             with profiling.recording():
@@ -1091,8 +1093,98 @@ def test_fused_tracker_replays_its_resolves_bit_equal(gen, monkeypatch):
             profiling.reset()
         runs.append((outs, counts))
     (eager, eager_counts), (graphed, counts) = runs
-    assert eager_counts == {"resolves": 12, "resolve_replays": 0}
-    assert counts == {"resolves": 12, "resolve_replays": 11}
+    assert eager_counts == {"resolves": 12, "resolve_replays": 0, "inits": 3, "init_replays": 0}
+    assert counts == {"resolves": 12, "resolve_replays": 11, "inits": 3, "init_replays": 2}
     for (labels0, f0), (labels, f) in zip(eager, graphed):
         assert all(a.tobytes() == b.tobytes() for a, b in zip(labels0, labels))
         assert torch.equal(f0, f)
+
+
+def _init_problem(n, size, seed):
+    """An init's inputs on the card from seeded features and boxes: (cfg,
+    starting weights of n lanes, (n, K, Cin, h, w) features, (n, K, 1, H, W)
+    uint8 masks as the fused tracker hands them over), at the CPU tests'
+    size (32 channels into 8, K = 3, 6x8 scores, 24x32 masks, a memory of 8)
+    or the eval configuration's (1024 into 96, K = 6, 30x54, 480x854, a
+    memory of 80, init_iters (5, 10, 10, 10, 10), update_iters (10,))."""
+    from frtm_tpu_torch.config import DiscConfig, eval_config
+    from frtm_tpu_torch.models import discriminator as td
+    cfg = (DiscConfig(in_channels=32, c_channels=8, init_iters=(3, 5), update_iters=(3,),
+                      memory_size=8, train_skipping=2) if size == "small"
+           else eval_config("resnet101").disc)
+    K, h, w, H, W = (3, 6, 8, 24, 32) if size == "small" else (6, 30, 54, 480, 854)
+    g = torch.Generator().manual_seed(seed)
+    labels = torch.zeros((n, K, 1, H, W), dtype=torch.uint8)
+    for i in range(n):
+        for k in range(K):
+            y = int(torch.randint(0, H - H // 3, (1,), generator=g))
+            x = int(torch.randint(0, W - W // 3, (1,), generator=g))
+            labels[i, k, 0, y:y + H // 3, x:x + W // 3] = 1
+    feats = torch.randn((n, K, cfg.in_channels, h, w), generator=g).cuda()
+    p0 = td.init_disc_params(cfg, g, "cuda")
+    return cfg, td.repeat_params(p0, n), feats, labels.cuda()
+
+
+def _init_tensors(params, state):
+    m, cg = state.memory, state.cg
+    return (params.project, params.filter, m.samples, m.labels, m.pixel_weights, m.weights,
+            m.current_size, m.prev_ind, *cg.p, *cg.r_prev, cg.rho, cg.have_p, cg.step_alpha,
+            state.n_resolves)
+
+
+@pytest.mark.parametrize("n,size", [(1, "eval"), (2, "eval"), (5, "eval"), (3, "small")])
+def test_graphed_init_equals_the_eager_one(gen, monkeypatch, n, size):
+    """Three inits of one key through disc_init_graphed (eager, capture,
+    replay), each on its own seeded problem, against disc_init of the same
+    problem, bit for bit: projection, filter, the memory's six buffers, the
+    CG state. Then on the replayed init's result a frame's insert and a
+    resolve_due give the filter and CG state of the all-eager path (every
+    graph cache of size 0). Prints the memory that the key's graph holds."""
+    from frtm_tpu_torch.models import discriminator as td
+    from frtm_tpu_torch.utils import profiling
+    from frtm_tpu_torch.utils.cuda_graphs import GraphCache
+    problems = [_init_problem(n, size, seed=30 + s) for s in range(3)]
+    monkeypatch.setattr(td, "INIT_GRAPHS", GraphCache(0))
+    monkeypatch.setattr(td, "RESOLVE_GRAPHS", GraphCache(0))
+    with torch.no_grad():
+        want = [td.disc_init(*p[1:], p[0]) for p in problems]
+    want_tensors = [tuple(t.clone() for t in _init_tensors(*m)) for m in want]
+    cache = GraphCache(4)
+    monkeypatch.setattr(td, "INIT_GRAPHS", cache)
+    got = []
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    profiling.reset()
+    try:
+        with torch.no_grad(), profiling.recording():
+            for p in problems:
+                got.append(td.disc_init_graphed(*p[1:], p[0]))
+        counts = profiling.counts()
+    finally:
+        profiling.reset()
+    torch.cuda.synchronize()
+    print(f"init graph of {n} lanes ({size}): {(torch.cuda.memory_reserved() - reserved) / 1e9:.3f}"
+          " GB more reserved over the three calls")
+    assert counts == {"inits": 3, "init_replays": 2} and cache.captured() == 1
+    for k, (models, ref) in enumerate(zip(got, want_tensors)):
+        assert models[1].frame_num == [0] * n
+        for j, (a, b) in enumerate(zip(_init_tensors(*models), ref)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, j)
+
+    cfg = problems[2][0]
+    h, w = problems[2][2].shape[-2:]
+    H, W = problems[2][3].shape[-2:]
+    g = torch.Generator().manual_seed(40)
+    c = torch.randn((n, cfg.c_channels, h, w), generator=g).cuda()
+    y = (torch.rand((n, 1, H, W), generator=g) > 0.7).float().cuda()
+    due = torch.tensor([k % 2 == 0 for k in range(n)], device="cuda")
+    on = torch.ones(n, dtype=torch.bool, device="cuda")
+    followed = []
+    for models, graphs in ((want[2], 0), (got[2], 4)):
+        monkeypatch.setattr(td, "RESOLVE_GRAPHS", GraphCache(graphs))
+        params, state = models
+        with torch.no_grad():
+            td.insert_sample(state, c, y, on, [True] * n, cfg)
+            params = td.resolve_due(params, state, due, cfg)
+        followed.append((params.filter, state.cg))
+    _assert_same_resolves(followed[1:], followed[:1])

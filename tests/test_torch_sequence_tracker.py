@@ -311,9 +311,10 @@ def test_fused_tracker_records_the_scans_steps(world, monkeypatch):
     """With the recorder on, a six-frame two-object sequence (windows of 2
     over 5 tracked frames, re-solves after frames 2 and 4) records the
     scan's four steps inside its `scan` phase, all of the sequence's
-    request, and one `resolves` a resolve_due call (`resolve_replays` 0: on
-    the CPU no CUDA graph serves one); the labels are the same bytes as with
-    the recorder off."""
+    request, one `resolves` a resolve_due call (`resolve_replays` 0: on
+    the CPU no CUDA graph serves one) and one `inits` for the init
+    (`init_replays` 0 likewise); the labels are the same bytes as with the
+    recorder off."""
     seq = _sequence(6, 2)
     port = world.port()
     plain, _ = port.run_sequence(seq)
@@ -346,7 +347,8 @@ def test_fused_tracker_records_the_scans_steps(world, monkeypatch):
         assert s.request == request and s.cpu_ns <= s.end_ns - s.start_ns
         if s.name.startswith("scan_"):
             assert s.parent == scan_at and _inside(s, scan)
-    assert len(calls) == 2 and counts == {"resolves": len(calls), "resolve_replays": 0}
+    assert len(calls) == 2 and counts == {"resolves": len(calls), "resolve_replays": 0,
+                                          "inits": 1, "init_replays": 0}
     assert port.last_models[1].n_resolves.tolist() == [2, 2]
 
 
